@@ -1,0 +1,294 @@
+"""AirSim-MAP multi-view loader (reference: ptsemseg/loader/airsim_loader.py).
+
+The port's own copy of the cv2 decode path of
+``multiagentperception_tpu/data/airsim.py``; keep the two in step. Left out
+until a later slice: the native libpng decoder, the decoded-frame cache,
+online noise (``data.noisy_type``), augmentations and the split plots.
+
+Behavioral parity with the reference Dataset:
+
+- identical trajectory-level train/val/test split: per-region greedy split by
+  trajectory distance with ``random.seed(2019)`` shuffling
+  (airsim_loader.py:292-341);
+- identical frame indexing: a frame is kept iff it exists in *all* cameras x
+  *both* modalities (airsim_loader.py:233-256);
+- identical normalization: RGB->BGR, subtract the ImageNet-ish mean
+  [103.939, 116.779, 123.68], /255 when ``img_norm`` (airsim_loader.py:515-540)
+  — kept HWC, the layout of the port's public batches;
+- identical communication-label parsing for 'when2com' and 'mimo'
+  (airsim_loader.py:412-438).
+
+The city-graph edge table and class color tables are dataset metadata loaded
+from ``airsim_map_meta.json``.
+"""
+
+from __future__ import annotations
+
+import copy
+import glob
+import json
+import os
+import random
+from ast import literal_eval as make_tuple
+
+import numpy as np
+
+_META_PATH = os.path.join(os.path.dirname(__file__), "airsim_map_meta.json")
+
+with open(_META_PATH) as _f:
+    _META = json.load(_f)
+
+ALL_EDGES = [((e[0][0], e[0][1]), (e[1][0], e[1][1])) for e in _META["all_edges"]]
+
+SPLITS = ("train", "val", "test")
+IMAGE_MODES = ("scene", "segmentation_decoded")
+WEATHER = "async_rotate_fog_000_clear"
+MEAN_RGB = np.array([103.939, 116.779, 123.68])
+IGNORE_INDEX = 0
+N_CLASSES = 11
+
+
+def label_region_and_distance(i, edge):
+    """Label an edge with its city region and length
+    (reference: airsim_loader.py:19-40)."""
+    begin, end = edge
+    distance = ((begin[0] - end[0]) ** 2 + (begin[1] - end[1]) ** 2) ** 0.5
+    if begin[0] <= -400 or end[0] < -400:
+        region = "suburban"
+    elif begin[1] >= 300 or end[1] >= 300:
+        region = "shopping"
+    else:
+        region = "skyscraper"
+    return (i, begin, end, distance, region)
+
+
+def divide_region_train_val_test():
+    """Deterministic 25/25/50 test/val/train split by trajectory distance,
+    greedy after a seed-2019 shuffle (reference: airsim_loader.py:292-341)."""
+    region_dict = {r: [0.0, []] for r in ("skyscraper", "suburban", "shopping")}
+    dataset_div = {
+        s: {r: [0.0, []] for r in ("skyscraper", "suburban", "shopping")}
+        for s in SPLITS
+    }
+    processed = [label_region_and_distance(i, e) for i, e in enumerate(ALL_EDGES)]
+    for p in processed:
+        region_dict[p[4]][1].append(p)
+        region_dict[p[4]][0] += p[3]
+
+    test_ratio, val_ratio = 0.25, 0.25
+    for region, (total_distance, path_list) in region_dict.items():
+        test_distance = total_distance * test_ratio
+        val_distance = total_distance * val_ratio
+        tem_list = copy.deepcopy(path_list)
+        random.seed(2019)
+        random.shuffle(tem_list)
+        sum_distance = 0.0
+        while sum_distance < test_distance * 0.8:
+            path = tem_list.pop()
+            sum_distance += path[3]
+            dataset_div["test"][region][0] += path[3]
+            dataset_div["test"][region][1].append(path)
+        while sum_distance < (test_distance + val_distance) * 0.8:
+            path = tem_list.pop()
+            sum_distance += path[3]
+            dataset_div["val"][region][0] += path[3]
+            dataset_div["val"][region][1].append(path)
+        dataset_div["train"][region][0] = total_distance - sum_distance
+        dataset_div["train"][region][1] = tem_list
+    return dataset_div
+
+
+def tuple_to_folder_name(path_tuple):
+    """Edge tuple -> on-disk trajectory dir glob (airsim_loader.py:265-269).
+    Note the y sign flip."""
+    start, end = path_tuple[1], path_tuple[2]
+    return f"{start[0]}_{-start[1]}__{end[0]}_{-end[1]}*"
+
+
+def generate_split_subdirs(dataset_div=None):
+    """Split -> list of trajectory dir globs (airsim_loader.py:270-291)."""
+    if dataset_div is None:
+        dataset_div = divide_region_train_val_test()
+    out = {}
+    for split in SPLITS:
+        subdirs = []
+        for region in ("skyscraper", "suburban", "shopping"):
+            for path in dataset_div[split][region][1]:
+                subdirs.append(tuple_to_folder_name(path))
+        out[split] = subdirs
+    return out
+
+
+def get_cam_pos(target_view: str):
+    """Named camera-set layouts (reference: airsim_loader.py:452-475)."""
+    layouts = {
+        "overhead": ["overhead", "front", "back", "left", "right"],
+        "front": ["front", "back", "left", "right", "overhead"],
+        "back": ["back", "front", "left", "right", "overhead"],
+        "left": ["left", "back", "front", "right", "overhead"],
+        "target": ["target", "normal1", "normal2", "normal3", "normal4"],
+        "6agent": ["agent1", "agent2", "agent3", "agent4", "agent5", "agent6"],
+        "5agent": ["agent1", "agent2", "agent3", "agent4", "agent5"],
+        "DroneNP": ["DroneNN_main", "DroneNP_main", "DronePN_main",
+                    "DronePP_main", "DroneZZ_main"],
+        "DroneNN_backNN": ["DroneNN_backNN", "DroneNP_backNP", "DronePN_backPN",
+                           "DroneNN_frontNN", "DroneNP_frontNP"],
+        "5agentv7": ["agent1", "agent3", "agent5", "agent2", "agent4"],
+    }
+    return layouts.get(target_view, ["front", "back", "left", "right", "overhead"])
+
+
+def read_selection_label(root: str, label_type: str):
+    """Parse gt_when_to_communicate.txt / gt_mimo_communicate.txt
+    (reference: airsim_loader.py:412-438). Keys are '<traj_dir>/<frame>.png'.
+    """
+    def _open_label(name, fmt):
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"data.commun_label='{label_type}' needs the ground-truth "
+                f"communication labels at '{path}' (format: {fmt}); ship it "
+                f"with the dataset or set commun_label: None")
+        return open(path)
+
+    if label_type == "when2com":
+        com_label = {}
+        with _open_label("gt_when_to_communicate.txt",
+                         "'<idx> <label> .../<traj>/<cam>/<frame>' per "
+                         "line") as f:
+            for x in f:
+                parts = x.split(" ")
+                p = parts[2].strip().split("/")
+                com_label[p[-3] + "/" + p[-1] + ".png"] = int(parts[1])
+        return com_label
+    if label_type == "mimo":
+        com_label = {}
+        with _open_label("gt_mimo_communicate.txt",
+                         "'(<noise vec>) (<link vec>) .../<traj>/<cam>/"
+                         "<frame>' per line") as f:
+            for x in f:
+                p = x.split(" ")[-1].strip().split("/")
+                key = p[-3] + "/" + p[-1] + ".png"
+                noise_label = make_tuple(x.split(" (")[0])
+                link_label = make_tuple(x.split(") ")[1] + ")")
+                com_label[key] = np.array([noise_label, link_label], dtype=np.int64)
+        return com_label
+    raise ValueError(f"Unknown label file name {label_type}")
+
+
+class AirsimDataset:
+    """Index + decode AirSim-MAP multi-view frames.
+
+    ``__getitem__`` returns ``(images (N, H, W, 3) float32,
+    labels (N, H, W) int32[, com_label])`` — the agent axis stacked, NHWC.
+    With ``raw_images`` the images stay uint8 RGB and are normalized on the
+    device (ops/normalize.py).
+    """
+
+    def __init__(
+        self,
+        root: str,
+        split: str = "train",
+        img_size=(512, 512),
+        img_norm: bool = True,
+        commun_label: str = "None",
+        target_view: str = "target",
+        raw_images: bool = False,
+        noisy_type: str | None = None,
+    ):
+        if noisy_type not in (None, "None"):
+            raise NotImplementedError(
+                "data.noisy_type (online degradation) is not ported yet; "
+                "see ROADMAP.md")
+        self.root = root
+        self.split = split
+        self.raw_images = raw_images
+        self.img_size = img_size if isinstance(img_size, tuple) else (img_size, img_size)
+        self.img_norm = img_norm
+        self.commun_label = commun_label
+        self.n_classes = N_CLASSES
+        self.mean = MEAN_RGB
+        self.cam_pos = get_cam_pos(target_view)
+        self.split_subdirs = generate_split_subdirs()
+
+        comm_label = None
+        if commun_label != "None":
+            comm_label = read_selection_label(root, commun_label)
+
+        # Existence-intersection indexing (airsim_loader.py:233-256): keep a
+        # frame iff it exists for every camera in both modalities.
+        self.imgs = {
+            s: {c: {m: [] for m in IMAGE_MODES} for c in self.cam_pos}
+            for s in SPLITS
+        }
+        self.com_label = {s: [] for s in SPLITS}
+        for s in SPLITS:
+            for subdir in self.split_subdirs[s]:
+                pattern = os.path.join(
+                    root, "scene", WEATHER, subdir, self.cam_pos[0], "*.png"
+                )
+                for file_path in sorted(glob.glob(pattern, recursive=True)):
+                    ext = file_path.replace(root + "/scene/", "")
+                    file_name = ext.split("/")[-1]
+                    path_dir = ext.split("/")[1]
+                    all_present = all(
+                        os.path.exists(
+                            os.path.join(root, modal, WEATHER, path_dir, cam, file_name)
+                        )
+                        for modal in IMAGE_MODES
+                        for cam in self.cam_pos
+                    )
+                    if not all_present:
+                        continue
+                    for modal in IMAGE_MODES:
+                        for cam in self.cam_pos:
+                            self.imgs[s][cam][modal].append(
+                                os.path.join(root, modal, WEATHER, path_dir, cam, file_name)
+                            )
+                    if comm_label is not None:
+                        self.com_label[s].append(comm_label[path_dir + "/" + file_name])
+
+        if not self.imgs[self.split][self.cam_pos[0]][IMAGE_MODES[0]]:
+            raise RuntimeError(
+                f"No files for split=[{self.split}] found in {self.root}"
+            )
+
+    def __len__(self):
+        return len(self.imgs[self.split][self.cam_pos[0]][IMAGE_MODES[0]])
+
+    def _read_pair(self, index, camera):
+        import cv2
+
+        img_path = self.imgs[self.split][camera]["scene"][index]
+        mask_path = self.imgs[self.split][camera]["segmentation_decoded"][index]
+        img = np.asarray(cv2.imread(img_path), dtype=np.uint8)[:, :, :3]
+        mask = np.asarray(cv2.imread(mask_path), dtype=np.uint8)[:, :, 0]
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return img, mask
+
+    def transform(self, img: np.ndarray, lbl: np.ndarray):
+        """Normalization (airsim_loader.py:515-540), HWC output."""
+        img = img[:, :, ::-1].astype(np.float64)  # RGB -> BGR
+        img -= self.mean
+        if self.img_norm:
+            img = img / 255.0
+        lbl = lbl.astype(np.int64)
+        if not np.all(np.unique(lbl[lbl != IGNORE_INDEX]) < self.n_classes):
+            raise ValueError("Segmentation map contained invalid class values")
+        return img.astype(np.float32), lbl.astype(np.int32)
+
+    def __getitem__(self, index):
+        imgs, lbls = [], []
+        for camera in self.cam_pos:
+            img, lbl = self._read_pair(index, camera)
+            if self.raw_images:
+                lbl = lbl.astype(np.int32)
+            else:
+                img, lbl = self.transform(img, lbl)
+            imgs.append(img)
+            lbls.append(lbl)
+        images = np.stack(imgs, axis=0)
+        labels = np.stack(lbls, axis=0)
+        if self.commun_label != "None":
+            return images, labels, self.com_label[self.split][index]
+        return images, labels

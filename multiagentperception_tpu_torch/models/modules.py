@@ -1,0 +1,63 @@
+"""Shared model sub-modules, NCHW (port of multiagentperception_tpu/models/modules.py;
+reference: ptsemseg/models/agent.py:39-189)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from multiagentperception_tpu_torch.models.backbone import ResnetEncoder, SimpleDecoder
+from multiagentperception_tpu_torch.models.blocks import MLP, ConvBNRelu
+
+
+class ImgEncoder(nn.Module):
+    """ResNet-18 backbone + squeezer conv -> feat_channel map @ 1/32
+    (reference: agent.py:39-60; ``feat_squeezer`` -1 only)."""
+
+    def __init__(self, feat_channel: int = 512):
+        super().__init__()
+        self.feature_backbone = ResnetEncoder()
+        self.squeezer = ConvBNRelu(512, feat_channel, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.squeezer(self.feature_backbone(x))
+
+
+class ImgDecoder(nn.Module):
+    """Decoder backbone -> per-class logits (reference: agent.py:63-89;
+    ``simple_decoder``, no de-squeeze)."""
+
+    def __init__(self, in_ch: int, n_classes: int = 11):
+        super().__init__()
+        self.output_decoder = SimpleDecoder(in_ch, n_classes)
+
+    def forward(self, x: torch.Tensor, full_res: bool = True) -> torch.Tensor:
+        """Full-resolution logits, or the pre-upsample ones with ``full_res=False``."""
+        return self.output_decoder(x) if full_res else self.output_decoder.logits(x)
+
+
+class PolicyNet4(nn.Module):
+    """Separate image encoder + 5 convs (two stride-2) -> 256ch @ 1/128
+    (reference: agent.py:114-142)."""
+
+    def __init__(self):
+        super().__init__()
+        self.img_encoder = ImgEncoder(512)
+        plan = [(512, 512, 1), (512, 256, 1), (256, 256, 2), (256, 256, 1),
+                (256, 256, 2)]
+        for i, (cin, cout, stride) in enumerate(plan):
+            setattr(self, f"conv{i + 1}", ConvBNRelu(cin, cout, 3, stride))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.img_encoder(x)
+        for i in range(1, 6):
+            x = getattr(self, f"conv{i}")(x)
+        return x
+
+
+class KMGenerator(MLP):
+    """MLP head producing key/query vectors from the flattened policy map
+    (reference: agent.py:145-159)."""
+
+    def __init__(self, in_features: int, out_size: int = 128):
+        super().__init__(in_features, (256, 128, out_size))

@@ -1,0 +1,73 @@
+"""Communication-graph ops (port of multiagentperception_tpu/ops/comm.py).
+
+Conventions as in the JAX package: a coefficient matrix is ``(B, K, Q)`` —
+entry ``[b, k, q]`` weighs key/supporter ``k`` in the fusion for
+query/requester ``q``. Value maps are ``(B, K, ...)``: the port keeps them
+NCHW per agent, the JAX package NHWC; the fusion does not care which.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fuse_values(coef: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """coef (B, K, Q), vals (B, K, *rest) -> (B, Q, *rest), one batched GEMM."""
+    b, k = vals.shape[:2]
+    out = torch.bmm(coef.to(vals.dtype).transpose(1, 2), vals.reshape(b, k, -1))
+    return out.reshape((b, coef.shape[2]) + tuple(vals.shape[2:]))
+
+
+def one_hot_argmax(prob: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """One-hot of the argmax along ``dim`` (ties: lowest index), same dtype."""
+    idx = torch.argmax(prob, dim=dim, keepdim=True)
+    return torch.zeros_like(prob).scatter_(dim, idx, 1.0)
+
+
+def num_connect_offdiag(coef: torch.Tensor, agent_num: int) -> torch.Tensor:
+    """MIMO bandwidth: off-diagonal non-zeros / (agent_num * B)
+    (reference: agent.py:1050-1056, 1070-1077), as float32.
+
+    The quotient is taken in float64 and rounded once: a float32 division
+    by a scalar runs as a product with the reciprocal on CUDA, one ulp away
+    from the CPU's division, and the card and the CPU must agree."""
+    b, k, q = coef.shape
+    eye = torch.eye(k, q, dtype=torch.bool, device=coef.device)
+    offdiag = coef.masked_fill(eye, 0.0)
+    return ((offdiag != 0).sum().to(torch.float64) / (agent_num * b)).to(torch.float32)
+
+
+def argmax_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int):
+    """Hard top-1 graph. Returns (fused, coef (B, K, Q), num_connect)."""
+    coef = one_hot_argmax(prob, dim=1)
+    return fuse_values(coef, vals), coef, num_connect_offdiag(coef, agent_num)
+
+
+def activated_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int,
+                     thres: float = 0.2):
+    """Thresholded graph: prune links with attention <= thres (strict >)."""
+    coef = torch.where(prob > thres, prob, torch.zeros_like(prob))
+    return fuse_values(coef, vals), coef, num_connect_offdiag(coef, agent_num)
+
+
+def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
+                     n_classes: int,
+                     sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(C, C) int64 confusion matrix on the tensors' device, rows=true.
+
+    Same accounting as the reference's ``_fast_hist`` (metrics.py:99-106):
+    pixels whose true label lies outside [0, C) (the ignore index 250) are
+    dropped. ``sample_mask`` (one flag per leading-dim element) gives the
+    normal/noise split. Dropped pixels land in an overflow bin, so the
+    count needs no data-dependent shape and no host sync.
+    """
+    t = label_true.reshape(label_true.shape[0], -1).to(torch.int64)
+    p = label_pred.reshape(label_pred.shape[0], -1).to(torch.int64)
+    valid = (t >= 0) & (t < n_classes)
+    if sample_mask is not None:
+        valid = valid & sample_mask.reshape(-1, 1).to(torch.bool)
+    idx = t * n_classes + p.clamp(0, n_classes - 1)
+    idx = torch.where(valid, idx, torch.full_like(idx, n_classes * n_classes))
+    counts = torch.bincount(idx.reshape(-1), minlength=n_classes * n_classes + 1)
+    return counts[: n_classes * n_classes].reshape(n_classes, n_classes)
+

@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled alone by
+``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` under the
+package (a directory ``.gitignore`` lists). The hash covers the source and
+the flags, so an edited source is rebuilt and an unchanged one is loaded.
+Nothing here runs at import time: this module is imported on hosts that
+have no ``nvcc``.
+
+Pointers and the stream cross the C boundary as ``ctypes.c_void_p`` (a
+plain ``int`` argument would be cut to 32 bits).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+F32 = ctypes.c_float
+
+# C entry point and its signature, per kernel source
+SIGNATURES = {
+    "upsample_argmax": ("upsample_argmax_f32",
+                        [P, I32, I32, I32, I32, P, P, P, P, I32, I32, P, P]),
+    "comm_fusion": ("comm_fusion_f32",
+                    [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]),
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the port's CUDA kernels are built from csrc/ at first use")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str, target: Path) -> tuple[subprocess.Popen, Path]:
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Compile every named kernel that is not built yet, all ``nvcc`` runs at
+    once. Returns each kernel's compiler output (``-Xptxas -v`` resource
+    lines), empty for a kernel that was already built. Raises on a failure."""
+    running = {}
+    for name in names:
+        target = _target(name)
+        if not target.exists():
+            running[name] = (*_start(name, target), target)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, target) in running.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib

@@ -1,0 +1,96 @@
+"""The fused when2com communication step: MIMOcom's eval kernel (K2).
+
+Port of the TPU kernel ``multiagentperception_tpu/ops/pallas/comm_fusion.py``
+(``fused_comm_step``). Per batch element: logits = K Q'^T, softmax over
+keys, + ``diag_bias`` I (the pre-mask graph ``soft``), the mode mask
+(``softmax`` | ``activated`` strict ``> thres`` | ``argmax`` one-hot,
+lowest key on ties) giving ``coef``, and fused = coef^T V. On CUDA tensors
+``comm_fusion`` launches ``csrc/comm_fusion.cu``; on CPU tensors it runs
+``comm_fusion_plain``, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from multiagentperception_tpu_torch.ops.comm import fuse_values, one_hot_argmax
+from multiagentperception_tpu_torch.ops.kernels import _build
+
+MODES = ("softmax", "activated", "argmax")
+MAX_AGENTS = 16  # kMaxAgents in csrc/comm_fusion.cu
+
+
+def comm_fusion_plain(query_proj: torch.Tensor, keys: torch.Tensor,
+                      vals: torch.Tensor, mode: str = "softmax",
+                      diag_bias: float = 0.0, thres: float = 0.2):
+    """Plain PyTorch version: returns (fused, coef, soft) like the kernel."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    logits = torch.einsum("bkd,bqd->bkq", keys, query_proj).float()
+    soft = torch.softmax(logits, dim=1)
+    if diag_bias:
+        n = soft.shape[1]
+        soft = soft + diag_bias * torch.eye(n, dtype=soft.dtype, device=soft.device)
+    if mode == "activated":
+        coef = torch.where(soft > thres, soft, torch.zeros_like(soft))
+    elif mode == "argmax":
+        coef = one_hot_argmax(soft, dim=1)
+    else:
+        coef = soft
+    return fuse_values(coef, vals), coef, soft
+
+
+def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                mode: str = "softmax", diag_bias: float = 0.0, thres: float = 0.2):
+    """query_proj (B, N, D) (already through the attention's linear W),
+    keys (B, N, D), vals (B, N, *rest) -> (fused like vals, coef (B, N, N),
+    soft (B, N, N)); coef/soft are ``[b, key, query]``."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    if vals.device.type == "cpu":
+        return comm_fusion_plain(query_proj, keys, vals, mode, diag_bias, thres)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    for name, t in (("query_proj", query_proj), ("keys", keys), ("vals", vals)):
+        if t.device != vals.device:
+            raise ValueError(f"{name} on {t.device}, vals on {vals.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"comm_fusion kernel takes float32 (bf16 waits for the "
+                            f"mixed-precision slice); {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"comm_fusion kernel takes contiguous tensors; {name} is not")
+    if vals.dim() < 2 or query_proj.dim() != 3 or keys.dim() != 3:
+        raise ValueError("expected query_proj/keys (B, N, D) and vals (B, N, ...)")
+    b, n = vals.shape[:2]
+    d = keys.shape[2]
+    if query_proj.shape != (b, n, d) or keys.shape != (b, n, d):
+        raise ValueError(f"shape mismatch: query_proj {tuple(query_proj.shape)}, "
+                         f"keys {tuple(keys.shape)}, vals {tuple(vals.shape)}")
+    m = vals[0, 0].numel()
+    if not (0 < n <= MAX_AGENTS):
+        raise ValueError(f"comm_fusion kernel takes 1..{MAX_AGENTS} agents, got {n}")
+    if not (0 < b <= 65535) or d == 0 or m == 0:
+        raise ValueError(f"comm_fusion kernel: unsupported B={b}, D={d}, M={m}")
+    if m % 4 or vals.data_ptr() % 16:
+        raise ValueError("comm_fusion kernel streams V in 16-byte float4s: needs "
+                         f"M % 4 == 0 and a 16-byte aligned V (M={m})")
+    fused = torch.empty_like(vals)
+    coef = torch.empty((b, n, n), dtype=torch.float32, device=vals.device)
+    soft = torch.empty_like(coef)
+    lib = _build.load("comm_fusion")
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        rc = lib.comm_fusion_f32(
+            query_proj.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+            fused.data_ptr(), coef.data_ptr(), soft.data_ptr(), b, n, d, m,
+            MODES.index(mode), float(diag_bias), float(thres),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"comm_fusion kernel launch failed: CUDA error {rc}")
+    comm_fusion.launches += 1
+    return fused, coef, soft
+
+
+comm_fusion.launches = 0

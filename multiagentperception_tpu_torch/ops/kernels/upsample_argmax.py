@@ -1,0 +1,92 @@
+"""Fused bilinear upsample + class argmax: the eval epilogue's kernel (K1).
+
+Port of the TPU kernel ``multiagentperception_tpu/ops/pallas/upsample_argmax.py``
+(``upsample_argmax_pallas``). ``upsample_argmax`` takes the decoder's
+pre-upsample logits NCHW ``(B*N, C, h, w)`` and returns the ``(B*N, H, W)``
+int32 class map of their bilinear resize (``align_corners=False``), ties to
+the lowest class. On a CUDA tensor it launches ``csrc/upsample_argmax.cu``,
+which never writes the full-resolution logits; on a CPU tensor it runs
+``upsample_argmax_plain``, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from multiagentperception_tpu_torch.ops.kernels import _build
+from multiagentperception_tpu_torch.ops.resize import _weight_matrix, bilinear_resize
+
+_TILE_ROWS = 16  # kTileRows in csrc/upsample_argmax.cu
+_MAX_SHARED = 48 * 1024  # the kernel's dynamic shared memory stays under the default limit
+
+
+def upsample_argmax_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """argmax over classes of the dense two-matmul bilinear resize."""
+    return torch.argmax(bilinear_resize(x.float(), out_h, out_w), dim=1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each output row's (at most two) taps of ``_weight_matrix(src, dst)``:
+    int32 indices and f32 weights, both (dst, 2); a one-tap row gets a second
+    tap of weight 0 on the same index."""
+    wm = _weight_matrix(src, dst, False)
+    idx = np.zeros((dst, 2), np.int32)
+    wt = np.zeros((dst, 2), np.float32)
+    for o in range(dst):
+        nz = np.nonzero(wm[o])[0]
+        if not 1 <= len(nz) <= 2:
+            raise AssertionError(f"bilinear row {o} has {len(nz)} taps")
+        idx[o, :] = nz[0]
+        idx[o, : len(nz)] = nz
+        wt[o, : len(nz)] = wm[o, nz]
+    return idx, wt
+
+
+@functools.lru_cache(maxsize=16)
+def _device_taps(h: int, out_h: int, w: int, out_w: int, device: torch.device):
+    """(row idx, row wt, col idx, col wt) on ``device``, built once per shape."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (*_taps(h, out_h), *_taps(w, out_w)))
+
+
+def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(B*N, C, h, w) float32 logits -> (B*N, out_h, out_w) int32 class map."""
+    if x.dim() != 4:
+        raise ValueError(f"expected NCHW logits, got shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return upsample_argmax_plain(x, out_h, out_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"upsample_argmax kernel takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("upsample_argmax kernel takes contiguous NCHW logits")
+    n, c, h, w = x.shape
+    if n == 0 or c == 0 or out_h <= 0 or out_w <= 0:
+        raise ValueError(f"empty upsample_argmax: {tuple(x.shape)} -> {out_h}x{out_w}")
+    if c * _TILE_ROWS * w * 4 > _MAX_SHARED:
+        raise ValueError(f"upsample_argmax kernel: C*{_TILE_ROWS}*w floats exceed "
+                         f"{_MAX_SHARED} bytes of shared memory (C={c}, w={w})")
+    if out_h > 65535 * _TILE_ROWS:
+        raise ValueError(f"upsample_argmax kernel: out_h={out_h} too large")
+    yi, yw, xi, xw = _device_taps(h, out_h, w, out_w, x.device)
+    out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=x.device)
+    lib = _build.load("upsample_argmax")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.upsample_argmax_f32(
+            x.data_ptr(), n, c, h, w, yi.data_ptr(), yw.data_ptr(),
+            xi.data_ptr(), xw.data_ptr(), out_h, out_w, out.data_ptr(),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA error {rc}")
+    upsample_argmax.launches += 1
+    return out
+
+
+upsample_argmax.launches = 0

@@ -1,0 +1,118 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "multiagentperception_tpu_torch"
+FLAGSHIP = ROOT / "configs" / "multi-request-multi-support" / "mrms_when2com.yml"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "multiagentperception_tpu"}
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = (
+        "import json, sys\n"
+        "import multiagentperception_tpu_torch, multiagentperception_tpu_torch.test\n"
+        "import multiagentperception_tpu_torch.evaluate, multiagentperception_tpu_torch.convert\n"
+        "import multiagentperception_tpu_torch.ops.kernels.upsample_argmax\n"
+        "import multiagentperception_tpu_torch.ops.kernels.comm_fusion\n"
+        "import multiagentperception_tpu_torch.data\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "multiagentperception_tpu_torch.evaluate" in loaded
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
+    assert not bad, f"the port pulled in {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN_ROOTS, f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_never_calls_tensor_cuda(path):
+    """``.cuda()`` is avoided: the JAX package's torch harness patches
+    ``torch.Tensor.cuda`` to a no-op for the whole process, so in a test
+    worker that ran it, ``.cuda()`` would silently leave tensors on the CPU."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute) and n.func.attr == "cuda"]
+    assert not calls, f"{path}: .cuda() at lines {[n.lineno for n in calls]}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_card(no_card):
+    from multiagentperception_tpu_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_evaluator_defaults_to_the_card(no_card):
+    from multiagentperception_tpu_torch.config import load_config
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(load_config(str(FLAGSHIP)))
+
+
+def test_cli_defaults_to_the_card(no_card, tmp_path):
+    from multiagentperception_tpu_torch import test as cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", str(FLAGSHIP), "--model_path", str(tmp_path / "x.pkl")])
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    """No card here: the smoke script exits non-zero and prints no result,
+    and so it does from a directory that holds nothing else of the repo."""
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    (lone / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [(lone, lone / "chip_smoke.py")]
+    if not torch.cuda.is_available():  # with a card, the full smoke would run
+        runs.append((ROOT, ROOT / "chip_smoke.py"))
+    for cwd, script in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_unported_configs_raise_not_implemented():
+    from multiagentperception_tpu_torch.config import load_config
+    from multiagentperception_tpu_torch.models import get_model
+
+    cfg = load_config(str(ROOT / "configs" / "multi-request-multi-support" / "mrms_who2com.yml"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(cfg, 11)

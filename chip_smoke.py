@@ -6,29 +6,52 @@
 Imports nothing of JAX or of the JAX package. Phases; any failure raises
 and the script exits non-zero:
 
-1. Kernels. Build K1 (``upsample_argmax``) and K2 (``comm_fusion``) from
-   ``multiagentperception_tpu_torch/csrc`` with nvcc for sm_90a, hold each
-   against its plain PyTorch version on the card at the flagship shapes,
-   and time the kernel, the plain version and one PyTorch library call
-   (a yardstick only: the port never calls it). The checks and their
-   tolerances are ``ops/kernels/checks.py``'s: K1 agrees on at least
-   99.99% of pixels and every disagreement is a near-tie (the plain
-   version's top two upsampled logits within 1e-4); an all-equal input
-   gives class 0. K2: fused within rtol/atol 1e-5, graphs within 1e-6,
-   masks equal, in all three modes.
-2. The slice at full width. The flagship MIMOcom
+1. Kernels. Build K1 (``upsample_argmax``), K2 (``comm_fusion``) and K3
+   (``fused_basic_block``) from ``multiagentperception_tpu_torch/csrc``
+   with nvcc for sm_90a, all at once, hold each against its plain PyTorch
+   version on the card, and time the kernel, the plain version and one
+   PyTorch library call (a yardstick only: the port never calls it). The
+   checks and their tolerances are ``ops/kernels/checks.py``'s: K1 agrees
+   on at least 99.99% of pixels and every disagreement is a near-tie (the
+   plain version's top two upsampled logits within 1e-4); an all-equal
+   input gives class 0. K2: fused within rtol/atol 1e-5, graphs within
+   1e-6, masks equal, in all three modes. K3: float32 within rtol/atol 1e-4
+   at the flagship eval geometry (B*N = 12, C=64 at 128x128 and C=128 at
+   64x64), bfloat16 within the bound ``checks.assert_bf16_close`` states at
+   the bench geometry (B*N = 120).
+2. The eval slice at full width. The flagship MIMOcom
    (``configs/multi-request-multi-support/mrms_when2com.yml``, 6 agents at
    512x512, unchanged) from a seeded init is saved as a reference-format
    ``.pkl``, loaded through ``Evaluator.load_weight`` and evaluated in
    ``activated`` mode over seeded in-memory batches of the loader's
-   shapes. Both kernels' launch counts are zeroed just before and read
+   shapes. K1's and K2's launch counts are zeroed just before and read
    just after; each must have launched. Prints eval frames/s (a frame is
    one agent's view) over the timed window, then traces the same batches
    again under ``torch.profiler``: the device's busy share is the traced
    device time over the untraced window's wall time.
-3. Card against CPU. The same slice at 256x256 with TF32 off, from one set
-   of weights: actions and bandwidth equal, class maps agree on at least
-   99.9% of pixels.
+3. Card against CPU, eval. The same slice at 256x256 with TF32 off, from
+   one set of weights: actions and bandwidth equal, class maps agree on at
+   least 99.9% of pixels.
+4. The K3 path: ``bench_fused_block``'s main at its two geometries, with
+   K3's launch count zeroed just before and read just after.
+5. Training at full width: the flagship YAML (cut to 12 iterations, one
+   validation over 2 batches at the end, a loss readback every iteration)
+   from ``models.init_weights`` over seeded in-memory batches, through
+   ``Trainer.train``. Prints train frames/s and ms per step over the last
+   10 iterations, the losses, the peak device memory and the device's busy
+   share over a traced window of steps; requires finite losses and moved
+   parameters. Then the best ``.pkl`` is evaluated by ``Evaluator`` in
+   ``activated`` mode, and K1 and K2 must launch.
+6. Card against CPU, one training step at 256x256 with TF32 off, from one
+   set of weights and one batch: loss within rtol 1e-4, BatchNorm running
+   statistics within rtol 1e-4 / atol 1e-5, the parameters after the Adam
+   step within atol 2*lr; gradients per tensor within relative L2 3e-2
+   and cosine 0.9995 (the count within 1e-3 is printed). Chains
+   of training-mode BatchNorms make these gradients ill-conditioned: with
+   TF32 off, cuDNN's float32 gradients lie up to ~1.5e-2 from the float64
+   ones (as the JAX package's do on the CPU), the port's CPU ones up to
+   ~5e-3 (tests/test_torch_train_parts.py). Each side's largest distance
+   from the CPU's float64 gradient is printed.
 
 Prints the card's ``nvidia-smi`` name and power limit, then the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -36,7 +59,10 @@ Prints the card's ``nvidia-smi`` name and power limit, then the
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -45,13 +71,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multiagentperception_tpu_torch import bench_fused_block as k3_bench
 from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import N_CLASSES, Evaluator
+from multiagentperception_tpu_torch.loss import get_loss_function
 from multiagentperception_tpu_torch.models import get_model, init_weights
 from multiagentperception_tpu_torch.ops.kernels import _build, checks
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
+from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
+from multiagentperception_tpu_torch.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "configs" / "multi-request-multi-support" / "mrms_when2com.yml"
@@ -66,6 +96,8 @@ L2_FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2: each timed launch starts cold
 
 SEED = 0
 EVAL_BATCHES = 10  # timed; two more warm up cuDNN and the caching allocator
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10  # train iterations: warm-up, then timed
+PROFILE_STEPS = 5  # train steps in the traced window
 DIAG_BIAS = 0.001
 THRES = 0.2
 
@@ -92,6 +124,25 @@ def _time_ms(fn, iters: int = 50) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def _device_events(prof) -> list:
+    """The trace's device work: kernels and copies, without the ranges that
+    ``record_function`` annotations (such as ``Optimizer.step``) draw over
+    them on the device timeline, which would count that time twice."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full float32 convolutions and matrix products, restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -161,6 +212,38 @@ def check_comm_fusion(gen) -> dict:
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) f32, activated",
+    }
+
+
+K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): flagship eval f32, then the bench's bf16
+    ("eval_layer1", 12, 128, 64, torch.float32), ("eval_layer2", 12, 64, 128, torch.float32),
+    ("bench_layer1", 120, 128, 64, torch.bfloat16), ("bench_layer2", 120, 64, 128, torch.bfloat16))
+K3_MAIN = "bench_layer1"  # the row whose numbers head K3's record: the bench path's first call
+
+
+def check_fused_block() -> dict:
+    rows = []
+    for i, (name, b, hw, c, dtype) in enumerate(K3_GEOMETRIES):
+        x, params = k3_bench.block_inputs(b, hw, hw, c, dtype, "cuda", seed=SEED + i)
+        checked = checks.check_fused_block(x, *params)
+        bound_ms, bound_by = k3_bench.bound_ms(x)
+        rows.append({
+            "geometry": name, "shape": list(x.shape), "dtype": str(dtype).split(".")[-1],
+            **checked,
+            "ms": _time_ms(lambda: k3.fused_basic_block(x, *params), iters=20),
+            "plain_ms": _time_ms(lambda: k3.fused_basic_block_plain(x, *params), iters=20),
+            "library_ms": _time_ms(lambda: k3_bench.cudnn_block(x, *params), iters=20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_and_library_tf32": torch.backends.cudnn.allow_tf32})
+        del x, params
+    main = next(r for r in rows if r["geometry"] == K3_MAIN)
+    return {
+        "name": "fused_basic_block", "route": "cuda",
+        "source": "multiagentperception_tpu_torch/csrc/fused_block.cu",
+        "replaces": "multiagentperception_tpu/ops/pallas/fused_block.py:201",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        "shape": f"{main['shape']} {main['dtype']} (bench layer1)", "geometries": rows,
     }
 
 
@@ -246,7 +329,7 @@ def profile_window(ev, batches, wall_s: float, kernels) -> dict:
         ev.evaluate(batches)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = _device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     PROFILE_OUT.write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
@@ -270,9 +353,8 @@ def profile_window(ev, batches, wall_s: float, kernels) -> dict:
 
 # ------------------------------------------------------------------ phase 3
 
+@_no_tf32()
 def card_vs_cpu() -> dict:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(str(FLAGSHIP))
     cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = 256
     b, n = cfg["training"]["batch_size"], cfg["model"]["agent_num"]
@@ -294,12 +376,182 @@ def card_vs_cpu() -> dict:
             "tf32": False}
 
 
+# ------------------------------------------------------------------ phase 4
+
+def run_bench_path() -> dict:
+    """K3's path: the bench's main at both geometries."""
+    k3.fused_basic_block.launches = 0
+    records = k3_bench.main([])
+    launches = k3.fused_basic_block.launches
+    if launches < 1:
+        raise AssertionError("bench_fused_block never launched K3")
+    return {"launches": launches, "records": records}
+
+
+# ------------------------------------------------------------------ phase 5
+
+def run_training(eval_kernels) -> dict:
+    """The flagship trains TRAIN_WARMUP + TRAIN_STEPS iterations through
+    ``Trainer.train``; its best checkpoint is then evaluated in ``activated``
+    mode, which runs K1 and K2."""
+    cfg = load_config(str(FLAGSHIP))
+    total = TRAIN_WARMUP + TRAIN_STEPS
+    cfg["training"].update(train_iters=total, val_interval=total, print_interval=1)
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    train_batches = seeded_batches(total, b, n, size, SEED + 2)
+    val_batches = seeded_batches(2, b, n, size, SEED + 3)
+    recorded = []
+    loss_fn = get_loss_function(cfg)
+
+    def recording_loss(**kw):
+        loss = loss_fn(**kw)
+        if torch.is_grad_enabled():  # the train steps', not validation's
+            recorded.append(loss.detach())
+        return loss
+
+    trainer = Trainer(cfg, logging.getLogger("chip_smoke"), recording_loss, train_batches,
+                      val_batches, device="cuda", logdir=str(WORK / "train"))
+    init_weights(trainer.model, SEED)
+    start = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    best = trainer.train()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if best is None:
+        raise AssertionError("training saved no best checkpoint")
+    losses = [float(v) for v in recorded]
+    if len(losses) != total or not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    moved = sum(not torch.equal(saved["model_state"][k], v) for k, v in start.items()
+                if v.is_floating_point())
+    if moved == 0:
+        raise AssertionError("no parameter changed in training")
+
+    timed = trainer.iter_seconds[TRAIN_WARMUP:]
+    result = {"config": FLAGSHIP.relative_to(ROOT).as_posix(), "batch": b, "agents": n,
+              "size": size, "iterations": total, "timed_iterations": len(timed),
+              "train_frames_per_s": len(timed) * b * n / sum(timed),
+              "ms_per_step": float(np.mean(timed)) * 1e3,
+              "ms_per_step_median": float(np.median(timed)) * 1e3,
+              "losses": losses, "val_loss": trainer._val_loss_avg,
+              "peak_device_bytes": peak_bytes, "tensors_changed": moved,
+              "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+              "best_checkpoint_iter": int(saved["epoch"])}
+    result.update(profile_train_window(trainer, train_batches[:PROFILE_STEPS]))
+
+    ev = Evaluator(cfg)
+    ev.load_weight(best)
+    for kern in eval_kernels:
+        kern.launches = 0
+    ev.evaluate(val_batches)
+    result["eval_launches"] = {kern.__name__: kern.launches for kern in eval_kernels}
+    if min(result["eval_launches"].values()) < 1:
+        raise AssertionError(f"the trained checkpoint's eval skipped a kernel: "
+                             f"{result['eval_launches']}")
+    result["eval_bandwidth"] = ev.last_eval_metrics.get_avg_bandW()
+    return result
+
+
+def profile_train_window(trainer, batches) -> dict:
+    """Train steps (host batch to update) untraced, then the same steps under
+    ``torch.profiler``: the busy share is the traced device time over the
+    untraced wall time, as phase 2 takes it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps():
+        for bt in batches:
+            trainer.train_step(*trainer._batch(bt[0], bt[1]))
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        traced_s = time.perf_counter() - t0
+    events = _device_events(prof)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    (WORK / "train_profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    per = len(batches)
+    return {"window_ms_per_step": wall_s * 1e3 / per,
+            "device_ms_per_step": device_ms / per,
+            "device_busy_share": device_ms / (wall_s * 1e3),
+            "tracer_wall_inflation": traced_s / wall_s,
+            "top_device_kernels_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / 1e3 / per for e in top}}
+
+
+# ------------------------------------------------------------------ phase 6
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+@_no_tf32()
+def train_card_vs_cpu() -> dict:
+    cfg = load_config(str(FLAGSHIP))
+    cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = 256
+    b, n = cfg["training"]["batch_size"], cfg["model"]["agent_num"]
+    lr = cfg["training"]["optimizer"]["lr"]
+    state = init_weights(get_model(cfg, N_CLASSES), SEED + 4).state_dict()
+    images, labels, _ = seeded_batches(1, b, n, 256, SEED + 4)[0]
+    out = {}
+    for dev in ("cuda", "cpu", "cpu64"):
+        tr = Trainer(cfg, None, get_loss_function(cfg), None, None,
+                     device="cuda" if dev == "cuda" else "cpu")
+        tr.model.load_state_dict(state, strict=True)
+        x, y = tr._batch(images, labels)
+        if dev == "cpu64":  # the float64 gradient of the same step, no update
+            tr.model = copy.deepcopy(tr.model).double()
+            tr.train_mode()
+            tr.loss_fn(input=tr.model(x.double(), inference="softmax")[0], target=y).backward()
+            out[dev] = {"grads": {k: p.grad for k, p in tr.model.named_parameters()}}
+            continue
+        loss = float(tr.train_step(x, y))
+        sd = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+        out[dev] = {"loss": loss, "state": sd,
+                    "grads": {k: p.grad.detach().cpu() for k, p in tr.model.named_parameters()}}
+    card, cpu, f64 = out["cuda"], out["cpu"], out["cpu64"]["grads"]
+    if not np.isclose(card["loss"], cpu["loss"], rtol=1e-4, atol=0):
+        raise AssertionError(f"loss card {card['loss']} cpu {cpu['loss']}")
+    zero = {"key_net.fc.4.bias"} | {k for k in f64 if k.endswith("cbr_unit.0.bias")}
+    worst, worst_f64, within = 0.0, {"cuda": 0.0, "cpu": 0.0}, 0
+    for k, g in card["grads"].items():
+        gc = cpu["grads"][k]
+        if k in zero:
+            if max(g.norm(), gc.norm()) >= 1e-4:
+                raise AssertionError(f"{k}: gradient of an invariant not ~0")
+            continue
+        err = _rel(g, gc)
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.double().flatten(), gc.double().flatten(), dim=0))
+        if err > 3e-2 or cos < 0.9995:
+            raise AssertionError(f"{k}: card vs cpu relative L2 {err:.2e}, cosine {cos:.6f}")
+        worst, within = max(worst, err), within + (err <= 1e-3)
+        for dev, gd in (("cuda", g), ("cpu", gc)):
+            worst_f64[dev] = max(worst_f64[dev], _rel(gd, f64[k]))
+    for k, v in card["state"].items():
+        want = cpu["state"][k]
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(v, want, rtol=1e-4, atol=1e-5, msg=k)
+        elif v.is_floating_point():
+            torch.testing.assert_close(v, want, rtol=1e-4, atol=2 * lr, msg=k)
+    return {"size": 256, "tf32": False, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+            "grad_tensors": len(card["grads"]) - len(zero), "grads_within_1e-3": within,
+            "worst_grad_rel_l2": worst, "worst_rel_l2_to_cpu_float64": worst_f64}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    kernels = (k1.upsample_argmax, k2.comm_fusion)
+    eval_kernels = (k1.upsample_argmax, k2.comm_fusion)
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -308,17 +560,24 @@ def main() -> int:
         print(f"--- nvcc {name}\n{log.strip()}", file=sys.stderr)
 
     gen = torch.Generator().manual_seed(SEED)
-    records = [check_upsample_argmax(gen), check_comm_fusion(gen)]
-    print("kernel checks passed")
+    records = [check_upsample_argmax(gen), check_comm_fusion(gen), check_fused_block()]
+    print("kernel checks passed; K3 " + json.dumps(records[2]))
 
-    slice_result = run_slice(kernels)
+    slice_result = run_slice(eval_kernels)
     print("slice " + json.dumps(slice_result))
-    for rec, kern in zip(records, kernels):
+    for rec, kern in zip(records, eval_kernels):
         rec["launches"] = slice_result["launches"][kern.__name__]
         rec["path_device_ms"] = slice_result["path_kernel_device_ms"][kern.__name__]
         rec["kernel_ms"] = rec["ms"]
 
     print("card_vs_cpu " + json.dumps(card_vs_cpu()))
+
+    bench = run_bench_path()
+    records[2]["launches"] = bench["launches"]
+    print("k3_path " + json.dumps(bench))
+
+    print("train " + json.dumps(run_training(eval_kernels)))
+    print("train_card_vs_cpu " + json.dumps(train_card_vs_cpu()))
 
     print(_card_line())
     print(json.dumps({"kernels": records}))

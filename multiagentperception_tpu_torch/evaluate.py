@@ -1,12 +1,15 @@
 """Evaluation of a MIMOcom checkpoint (port of the eval part of
 multiagentperception_tpu/trainer.py: ``_labels`` :235-246, ``_eval_step_fn``
-:457-544, ``_update_selection`` :615-622, ``load_weight`` :1182-1221 (the
-``.pkl`` branch) and ``evaluate`` :1223-1281).
+:457-544, ``_update_selection`` :615-622, ``_pipelined_eval`` :809-824,
+``load_weight`` :1182-1221 (the ``.pkl`` branch) and ``evaluate``
+:1223-1281). ``trainer.Trainer`` extends it with training.
 
 Per batch the card computes the class map from the decoder's pre-upsample
 logits with the upsample+argmax kernel — the full-resolution logits are
 never built — and the Normal/Noise/Overall confusion matrices; the host
 reads back three (C, C) histograms, the graph's actions and the bandwidth.
+With ``with_loss`` (the trainer's validation) the step instead takes the
+argmax of the full-resolution logits and also returns the loss.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ class Evaluator:
     """Evaluates MIMOcom on ``device`` (default ``cuda``; raises without a
     card unless ``device='cpu'`` is asked for)."""
 
-    def __init__(self, cfg, device: str | torch.device | None = None):
+    def __init__(self, cfg, device: str | torch.device | None = None, loss_fn=None):
+        self.cfg = cfg
+        self.loss_fn = loss_fn
         self.device = resolve_device(device)
         self.n_classes = N_CLASSES
         self.model = get_model(cfg, N_CLASSES).to(self.device).eval()
@@ -69,21 +74,33 @@ class Evaluator:
         """(B, N, H, W, 3) images -> ((B*N, H, W) int32 class map, action
         (B, N), num_connect), device tensors. The class map comes from the
         decoder's pre-upsample logits through the upsample+argmax kernel."""
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
-        if self.normalize_on_device:
-            x = normalize_images(x)
+        x = self._images(images)
         pre, _, action, num_connect = self.model(
             x, inference=inference or self.eval_default, full_res=False)
         return upsample_argmax(pre, x.shape[2], x.shape[3]), action, num_connect
 
+    def _images(self, images) -> torch.Tensor:
+        """A host batch on the device, normalized there if the loader left it raw."""
+        x = torch.as_tensor(np.asarray(images)).to(self.device)
+        return normalize_images(x) if self.normalize_on_device else x
+
     @torch.inference_mode()
     def eval_step(self, images, labels, commun_label=None,
-                  inference: str | None = None) -> dict:
-        """One batch on the device; returns device tensors (not read back)."""
+                  inference: str | None = None, with_loss: bool = False) -> dict:
+        """One batch on the device; returns device tensors (not read back).
+        ``with_loss`` runs ``inference`` (default ``softmax``) at full
+        resolution and adds the loss, as the JAX validation step does."""
         y = torch.as_tensor(self._labels(labels)).to(self.device)
-        pred, action, num_connect = self.predict(images, inference)
+        if with_loss:
+            logits, _, action, num_connect = self.model(
+                self._images(images), inference=inference or "softmax")
+            pred = logits.argmax(1)
+        else:
+            pred, action, num_connect = self.predict(images, inference)
         res = {"hist": confusion_matrix(y, pred, self.n_classes),
                "action": action, "num_connect": num_connect}
+        if with_loss:
+            res["loss"] = self.loss_fn(input=logits, target=y)
         if commun_label is not None:
             cl = torch.as_tensor(np.asarray(commun_label), device=self.device)
             normal = (cl[:, 0, :] == 0).reshape(-1)  # (B*N,), batch-major
@@ -91,33 +108,35 @@ class Evaluator:
             res["hist_neg"] = confusion_matrix(y, pred, self.n_classes, ~normal)
         return res
 
-    def _record(self, metrics: runningScore, res: dict, commun_label) -> None:
-        host = {k: v.cpu().numpy() for k, v in res.items()}
-        metrics.update_hist(host["hist"], host.get("hist_pos"), host.get("hist_neg"))
-        metrics.update_bandW(float(host["num_connect"]))
-        if commun_label is not None:
-            metrics.update_selection("mimo", np.asarray(commun_label), host["action"])
-
-    def evaluate(self, loader, inference_mode: str | None = None):
-        """Test-split evaluation with the Normal/Noise/Overall breakdown,
-        selection accuracy and bandwidth (reference: trainer.py:774-840).
-        Up to ``PIPELINE_DEPTH`` batches run ahead of the readback."""
-        metrics = runningScore(self.n_classes)
+    def _pipelined(self, loader, **step_kw):
+        """Yield ``(eval_step result, commun_label)`` per batch, with up to
+        ``PIPELINE_DEPTH`` batches running ahead of the readback."""
         pending: deque = deque()
         for data_list in loader:
             commun_label = data_list[2] if self.if_commun_label != "None" else None
             pending.append((self.eval_step(data_list[0], data_list[1], commun_label,
-                                           inference_mode), commun_label))
+                                           **step_kw), commun_label))
             if len(pending) > PIPELINE_DEPTH:
-                self._record(metrics, *pending.popleft())
+                yield pending.popleft()
         while pending:
-            self._record(metrics, *pending.popleft())
+            yield pending.popleft()
 
+    def _record(self, metrics: runningScore, res: dict, commun_label,
+                bandwidth: bool = True) -> dict:
+        host = {k: v.cpu().numpy() for k, v in res.items()}
+        metrics.update_hist(host["hist"], host.get("hist_pos"), host.get("hist_neg"))
+        if bandwidth:
+            metrics.update_bandW(float(host["num_connect"]))
+        if commun_label is not None:
+            metrics.update_selection("mimo", np.asarray(commun_label), host["action"])
+        return host
+
+    def _print_scores(self, metrics: runningScore, bandwidth: bool = True) -> None:
         if self.if_commun_label != "None" and metrics.total_agent > 0:
             when_acc, who_acc = metrics.get_selection_accuracy()
             print(f"Validation when2com accuracy:{when_acc}")
             print(f"Validation who2com accuracy:{who_acc}")
-        if metrics.count > 0:
+        if bandwidth and metrics.count > 0:
             print("Bandwidth: " + str(metrics.get_avg_bandW()))
         sections = []
         if self.if_commun_label != "None":
@@ -127,5 +146,14 @@ class Evaluator:
         for title, (score, class_iou) in sections:
             print(title)
             metrics.print_score(self.n_classes, score, class_iou)
+
+    def evaluate(self, loader, inference_mode: str | None = None):
+        """Test-split evaluation with the Normal/Noise/Overall breakdown,
+        selection accuracy and bandwidth (reference: trainer.py:774-840)."""
+        self.model.eval()
+        metrics = runningScore(self.n_classes)
+        for res, commun_label in self._pipelined(loader, inference=inference_mode):
+            self._record(metrics, res, commun_label)
+        self._print_scores(metrics)
         self.last_eval_metrics = metrics
         return metrics.get_scores()

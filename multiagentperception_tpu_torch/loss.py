@@ -1,0 +1,93 @@
+"""Segmentation losses (port of multiagentperception_tpu/loss.py; reference
+ptsemseg/loss/loss.py, loss/__init__.py).
+
+Logits are NCHW ``(B, C, H, W)``; targets ``(B, H, W)`` of any integer type
+(the trainer ships them as uint8). Semantics are the JAX package's:
+
+- ``cross_entropy2d`` resizes the logits to the label size with
+  ``align_corners=True`` only when the two differ, ignores pixels labelled
+  250, and averages over the pixels it keeps; a batch whose every pixel is
+  ignored gives 0, not NaN (the mean divides by ``max(count, 1)``).
+- ``multi_scale_cross_entropy2d`` weighs a tuple of outputs 1.0, 0.4, 0.16...
+- ``bootstrapped_cross_entropy2d`` averages each image's K largest pixel
+  losses (unweighted, as the JAX package's).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from multiagentperception_tpu_torch.ops.resize import bilinear_resize
+
+IGNORE_INDEX = 250
+
+
+def _pixel_nll(logits: torch.Tensor, target: torch.Tensor, weight=None):
+    """Per-pixel (weighted) NLL in float32 (float64 logits stay float64),
+    0 at ignored pixels, and the weight each pixel carries in the mean (0 at
+    ignored pixels)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    tgt = target.long()
+    valid = tgt != IGNORE_INDEX
+    w = None if weight is None else torch.as_tensor(weight, dtype=logits.dtype,
+                                                    device=logits.device)
+    nll = F.cross_entropy(logits, tgt, weight=w, ignore_index=IGNORE_INDEX,
+                          reduction="none")
+    if w is None:
+        return nll, valid.to(nll.dtype)
+    return nll, w[torch.where(valid, tgt, 0)] * valid
+
+
+def cross_entropy2d(input: torch.Tensor, target: torch.Tensor, weight=None,
+                    size_average: bool = True) -> torch.Tensor:
+    """Pixelwise cross-entropy (reference: loss/loss.py:5-19)."""
+    logits = bilinear_resize(input, *target.shape[-2:], align_corners=True)
+    nll, denom = _pixel_nll(logits, target, weight)
+    if size_average:
+        return nll.sum() / denom.sum().clamp(min=1.0)
+    return nll.sum()
+
+
+def multi_scale_cross_entropy2d(input, target, weight=None, size_average=True,
+                                scale_weight=None):
+    """Aux-head weighted sum (reference: loss/loss.py:22-37)."""
+    if not isinstance(input, (tuple, list)):
+        return cross_entropy2d(input, target, weight, size_average)
+    if scale_weight is None:
+        scale_weight = [0.4 ** i for i in range(len(input))]
+    loss = 0.0
+    for w, inp in zip(scale_weight, input):
+        loss = loss + w * cross_entropy2d(inp, target, weight, size_average)
+    return loss
+
+
+def bootstrapped_cross_entropy2d(input, target, K: int, weight=None,
+                                 size_average=True):
+    """Per-image top-K hardest-pixel loss (reference: loss/loss.py:40-68);
+    the logits must already have the labels' size."""
+    nll, _ = _pixel_nll(input, target)
+    topk = nll.reshape(nll.shape[0], -1).topk(K, dim=1).values
+    return (topk.sum(1) / K).mean()
+
+
+KEY2LOSS: dict[str, Callable] = {
+    "cross_entropy": cross_entropy2d,
+    "bootstrapped_cross_entropy": bootstrapped_cross_entropy2d,
+    "multi_scale_cross_entropy": multi_scale_cross_entropy2d,
+}
+
+
+def get_loss_function(cfg) -> Callable:
+    """Loss registry (reference: loss/__init__.py:20-34)."""
+    loss_dict = cfg["training"].get("loss")
+    if loss_dict is None:
+        return cross_entropy2d
+    name = loss_dict["name"]
+    if name not in KEY2LOSS:
+        raise NotImplementedError(f"Loss {name} not implemented")
+    params = {k: v for k, v in loss_dict.items() if k != "name"}
+    return functools.partial(KEY2LOSS[name], **params)

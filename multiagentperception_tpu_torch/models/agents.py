@@ -1,9 +1,14 @@
-"""MIMOcom, the when2com MRMS model, eval forward (port of
+"""MIMOcom, the when2com MRMS model (port of
 multiagentperception_tpu/models/agents.py:345-512; reference agent.py:983-1204).
 
 Inputs keep the JAX package's layout ``(B, N, H, W, 3)``; inside, the agent
 axis folds into the batch and the towers run NCHW. Per-agent outputs stack
 batch-major: ``out[b*N + n]`` is agent ``n`` of sample ``b``.
+
+In training mode (``model.train()``) the forward is the soft fusion, as the
+JAX model's ``train=True`` branch; BatchNorm normalizes with the batch's
+statistics and updates its running ones, unless the trainer put the
+BatchNorm modules in eval mode (``training.freeze_bn_stats``).
 
 Eval modes ``softmax``, ``argmax_test`` and ``activated``; the forward
 returns ``(pred, prob_action, action, num_connect)`` as the JAX model does,
@@ -56,9 +61,9 @@ class MIMOcom(nn.Module):
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):
-        if self.training:
-            raise RuntimeError("the port's MIMOcom runs eval only (call .eval()); "
-                               "the training forward is a later slice (ROADMAP.md)")
+        if self.training and inference != "softmax":
+            raise ValueError(f"inference mode {inference!r} in training: the training "
+                             "forward is the soft fusion (inference='softmax')")
         if inference not in INFERENCE_MODES:
             raise ValueError(f"inference mode {inference!r} not in {INFERENCE_MODES} "
                              "(topk waits for a later slice, ROADMAP.md)")

@@ -25,8 +25,9 @@ class MIMOGeneralDotAttention(nn.Module):
         return self.linear(q)
 
     def graph(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        """(B, K, Q) softmax over keys of K Q'^T, in float32."""
-        logits = torch.einsum("bkd,bqd->bkq", k, self.project(q)).float()
+        """(B, K, Q) softmax over keys of K Q'^T, in float32 (or float64)."""
+        logits = torch.einsum("bkd,bqd->bkq", k, self.project(q))
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         return torch.softmax(logits, dim=1)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -2,10 +2,12 @@
 
 Submodule names follow the reference's ptsemseg modules (``cbr_unit.{0,1}``,
 ``conv1/bn1/conv2/bn2/downsample``, ``fc.{0,2,4}``), so a reference
-state_dict loads with ``strict=True``. ``nn.BatchNorm2d`` in eval mode
-normalizes with ``running_mean``/``running_var`` and eps 1e-5, which is what
-the JAX ``TorchBatchNorm`` does with its ``mean``/``var`` (blocks.py:30-77).
-The port runs eval only for now: training forwards come in a later slice.
+state_dict loads with ``strict=True``. ``nn.BatchNorm2d`` is the JAX
+``TorchBatchNorm`` (blocks.py:30-77) in both modes: in eval mode it
+normalizes with ``running_mean``/``running_var`` and eps 1e-5; in training
+mode with the batch's mean and biased variance, and it moves the running
+statistics by momentum 0.1 towards the batch mean and the unbiased
+variance ``n/(n-1)``, as torch does.
 """
 
 from __future__ import annotations

@@ -37,6 +37,8 @@ SIGNATURES = {
                         [P, I32, I32, I32, I32, P, P, P, P, I32, I32, P, P]),
     "comm_fusion": ("comm_fusion_f32",
                     [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]),
+    "fused_block": ("fused_basic_block",
+                    [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,19 @@ Tolerances:
   order than the dense matmuls. An all-equal input gives class 0.
 - K2 (``comm_fusion``): masks equal, ``coef`` and ``soft`` within atol
   1e-6, fused within rtol/atol 1e-5.
+- K3 (``fused_basic_block``), with TF32 off for the plain version's
+  convolutions: float32 within rtol/atol 1e-4 (tests/test_fused_block.py's
+  bound). bfloat16: both sides form exact bf16 products and sum them in
+  float32 in another order, so they differ only where a rounding to bf16
+  falls the other way: the output's (one ulp) or one of the 9·C y1 values
+  conv2 reads (that y1 ulp times a weight, which moves the output by
+  ~1e-4, rarely by a few 1e-3). So every element lies within
+  4 ulp + 1e-2 of the plain value, and at most a share 1e-4 · C/64 of the
+  elements (the flips grow with the 9·C values each output reads) lies
+  beyond 1 ulp + 1e-3. A conv2 ring fed ``relu(b1)`` instead of zeros
+  moves every border output (4/H of the image or more) by several 1e-3
+  and fails the second bound (tests/test_torch_fused_block.py holds that
+  negative control).
 """
 
 from __future__ import annotations
@@ -18,11 +31,16 @@ from __future__ import annotations
 import torch
 
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
+from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.ops.resize import bilinear_resize
 
 K1_MIN_AGREEMENT = 0.9999
 K1_NEAR_TIE = 1e-4
+K3_F32_TOL = 1e-4
+K3_BF16_NEAR = (1, 1e-3)  # (ulps, atol) all but a share K3_BF16_RARE_C64 * C/64 meet
+K3_BF16_FAR = (4, 1e-2)   # (ulps, atol) that every element meets
+K3_BF16_RARE_C64 = 1e-4
 
 
 def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
@@ -66,3 +84,46 @@ def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: s
         if not bool(((coef != 0) & ~eye).any(2).any(1).all()):
             raise AssertionError("K2 check input prunes every link of a sample")
     return max((fused - r_fused).abs().max().item(), (coef - r_coef).abs().max().item())
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers (8 significant bits) at ``|v|``."""
+    mag = v.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def assert_bf16_close(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K3's bfloat16 comparator (see the module docstring). Returns the
+    largest absolute error, the share of elements that differ at all and
+    the share beyond the near bound."""
+    if got.dtype != torch.bfloat16 or got.shape != ref.shape:
+        raise AssertionError(f"K3 gives {got.dtype} {tuple(got.shape)}, "
+                             f"plain {ref.dtype} {tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs()
+    ulp = bf16_ulp(ref)
+    far = int((err > K3_BF16_FAR[0] * ulp + K3_BF16_FAR[1]).sum())
+    beyond = (err > K3_BF16_NEAR[0] * ulp + K3_BF16_NEAR[1]).float().mean().item()
+    allowed = K3_BF16_RARE_C64 * got.shape[-1] / 64
+    if far or beyond > allowed:
+        raise AssertionError(f"K3 bf16 disagrees: {far} elements beyond {K3_BF16_FAR}, "
+                             f"{beyond:.3e} of them beyond {K3_BF16_NEAR} "
+                             f"(allowed {allowed:.1e}), largest error {err.max().item()}")
+    return {"max_abs_err": err.max().item(),
+            "mismatch_share": (err > 0).float().mean().item(), "beyond_near_share": beyond}
+
+
+def check_fused_block(x, w1, s1, b1, w2, s2, b2) -> dict:
+    """K3 on ``x`` (B, H, W, C) on the card against its plain version, in
+    ``x.dtype``, with the plain version's convolutions in full float32."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = k3.fused_basic_block(x, w1, s1, b1, w2, s2, b2)
+        ref = k3.fused_basic_block_plain(x, w1, s1, b1, w2, s2, b2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if x.dtype == torch.bfloat16:
+        return assert_bf16_close(got, ref)
+    torch.testing.assert_close(got, ref, rtol=K3_F32_TOL, atol=K3_F32_TOL)
+    return {"max_abs_err": (got - ref).abs().max().item(),
+            "mismatch_share": (got != ref).float().mean().item()}

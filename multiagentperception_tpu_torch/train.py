@@ -1,0 +1,117 @@
+"""Training CLI of the port (counterpart of the repo's train.py; reference
+train.py:34-232).
+
+    python -m multiagentperception_tpu_torch.train --config <yml> \\
+        [--device cpu] [--run_time N]
+
+Takes the reference YAMLs unchanged and trains on the card (``--device
+cpu`` for the CPU; without a card and without it, the run stops with an
+error). Each run writes to ``runs/<config name>/<timestamp>``: the config,
+``train.log`` and the ``.pkl`` checkpoints. After training it loads the
+best checkpoint and evaluates the test split in the config's eval mode
+(``activated`` for MIMOcom), as the reference does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import logging
+import os
+import random
+import shutil
+
+import numpy as np
+
+
+def _logger(logdir: str) -> logging.Logger:
+    logger = logging.getLogger(f"multiagentperception_tpu_torch.train.{logdir}")
+    logger.setLevel(logging.INFO)
+    handler = logging.FileHandler(os.path.join(logdir, "train.log"))
+    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    logger.addHandler(handler)
+    return logger
+
+
+def main(argv=None):
+    """Train ``--run_time`` runs; returns each run's test ``(score, class_iou)``."""
+    parser = argparse.ArgumentParser(description="config")
+    parser.add_argument("--config", nargs="?", type=str,
+                        default="configs/your_configs.yml",
+                        help="Configuration file to use")
+    parser.add_argument("--device", nargs="?", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    parser.add_argument("--run_time", nargs="?", type=int, default=1,
+                        help="number of repeated runs")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from multiagentperception_tpu_torch.config import load_config
+    from multiagentperception_tpu_torch.data import DataLoader, get_loader
+    from multiagentperception_tpu_torch.device import resolve_device
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import init_weights
+    from multiagentperception_tpu_torch.schedulers import get_scheduler
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    cfg = load_config(args.config)
+    device = resolve_device(args.device)  # raises first if no card
+    results = []
+    for run_idx in range(args.run_time):
+        run_id = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+        if args.run_time > 1:  # fast repeats can share a timestamp second
+            run_id = f"{run_id}-r{run_idx}"
+        logdir = os.path.join("runs", os.path.basename(args.config)[:-4], run_id)
+        os.makedirs(logdir, exist_ok=True)
+        print(f"RUNDIR: {logdir}")
+        shutil.copy(args.config, logdir)
+        logger = _logger(logdir)
+        logger.info("Begin")
+
+        # a seed per repeat, so --run_time N gives N different runs
+        seed = int(cfg["training"].get("seed", 1337)) + run_idx
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+
+        data_cfg, t_cfg = cfg["data"], cfg["training"]
+        common = dict(root=data_cfg["path"],
+                      img_size=(data_cfg["img_rows"], data_cfg["img_cols"]),
+                      commun_label=data_cfg["commun_label"],
+                      target_view=data_cfg["target_view"],
+                      raw_images=bool(data_cfg.get("on_device_normalize")),
+                      noisy_type=data_cfg.get("noisy_type"))
+        loader_cls = get_loader(data_cfg["dataset"])
+        batch, workers = t_cfg["batch_size"], t_cfg["n_workers"]
+        trainloader = DataLoader(loader_cls(split=data_cfg["train_split"], **common), batch,
+                                 shuffle=True, drop_last=True, num_workers=workers, seed=seed)
+        valloader = DataLoader(loader_cls(split=data_cfg["val_split"], **common), batch,
+                               num_workers=workers)
+
+        schedule = get_scheduler(t_cfg.get("lr_schedule"), t_cfg["optimizer"]["lr"])
+        trainer = Trainer(cfg, logger, get_loss_function(cfg), trainloader, valloader,
+                          schedule=schedule, device=device, logdir=logdir)
+        init_weights(trainer.model, seed)
+        save_path = trainer.train()
+
+        # post-training test-split evaluation (reference train.py:219-232)
+        testloader = DataLoader(loader_cls(split=data_cfg["test_split"], **common), batch,
+                                num_workers=workers)
+        if save_path is not None:
+            trainer.load_weight(save_path)
+        results.append(trainer.evaluate(testloader))
+
+    if args.run_time > 1:
+        print(f"=== Aggregate over {args.run_time} runs (mean ± std) ===")
+        for key in results[0][0]:
+            vals = np.asarray([score[key] for score, _ in results], np.float64)
+            print(f"{key}{vals.mean():.4f} ± {vals.std():.4f}")
+        for c in sorted(results[0][1]):
+            vals = np.asarray([ci[c] for _, ci in results], np.float64)
+            print(f"class {c} IoU: \t{np.nanmean(vals):.4f} ± {np.nanstd(vals):.4f}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

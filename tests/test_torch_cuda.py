@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version at the flagship shapes, through the checks ``chip_smoke.py`` also
-runs (``ops/kernels/checks.py``, which states the tolerances), and what
-the wrappers refuse. Every test here needs an NVIDIA card and skips
-without one. It imports nothing of JAX, so it runs on a machine without it:
+runs (``ops/kernels/checks.py``, which states the tolerances), what the
+wrappers refuse, and one training step on the card. Every test here needs
+an NVIDIA card and skips without one. It imports nothing of JAX, so it
+runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 from multiagentperception_tpu_torch.ops.kernels import checks
+from multiagentperception_tpu_torch.bench_fused_block import block_inputs
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
+from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 
 pytestmark = pytest.mark.cuda
@@ -56,3 +59,59 @@ def test_comm_fusion_kernel_refuses_bf16(cuda):
     v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         k2.comm_fusion(q, k, v, mode="activated")
+
+
+@pytest.mark.parametrize("dtype,b,hw,c", [(torch.float32, 12, 128, 64),
+                                          (torch.float32, 12, 64, 128),
+                                          (torch.bfloat16, 24, 128, 64),
+                                          (torch.bfloat16, 24, 64, 128),
+                                          (torch.float32, 2, 20, 256),
+                                          (torch.bfloat16, 2, 9, 512)],
+                         ids=["f32_c64", "f32_c128", "bf16_c64", "bf16_c128", "f32_c256_odd",
+                              "bf16_c512_odd"])
+def test_fused_block_kernel_matches_plain(cuda, dtype, b, hw, c):
+    x, params = block_inputs(b, hw, hw + 3, c, dtype, cuda)
+    before = k3.fused_basic_block.launches
+    checks.check_fused_block(x, *params)
+    assert k3.fused_basic_block.launches == before + 1
+
+
+@pytest.mark.parametrize("what", ["non_contiguous", "channels_96", "float16"])
+def test_fused_block_kernel_refuses(cuda, what):
+    c = 96 if what == "channels_96" else 64
+    x, params = block_inputs(1, 16, 16, c, torch.float32, cuda)
+    if what == "non_contiguous":
+        x, err = x.transpose(1, 2), "contiguous"
+    elif what == "float16":
+        x, err = x.half(), "float32 or bfloat16"
+    else:
+        err = "C in"
+    with pytest.raises((ValueError, TypeError), match=err):
+        k3.fused_basic_block(x, *params)
+
+
+def test_one_training_step_on_the_card(cuda):
+    """A small MIMOcom takes one Adam step on the card: finite loss, and
+    parameters that moved."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import init_weights
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    cfg = normalize_config({
+        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": True},
+        "data": {"img_rows": 128, "img_cols": 128, "commun_label": "mimo"},
+        "training": {"batch_size": 2, "optimizer": {"name": "adam", "lr": 1e-4}}})
+    trainer = Trainer(cfg, None, get_loss_function(cfg), None, None, device=cuda)
+    init_weights(trainer.model, 0)
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    rng = np.random.default_rng(0)
+    x, y = trainer._batch((rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32),
+                          rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32))
+    loss = float(trainer.train_step(x, y))
+    assert np.isfinite(loss) and trainer.step == 1
+    moved = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, before[n])]
+    assert len(moved) > 100

@@ -138,10 +138,15 @@ def test_pre_upsample_logits(shared, port_model):
 
 
 def test_training_forward_refused(port_model):
+    """The training forward is the soft fusion: it refuses the pruned eval
+    modes (the JAX model would quietly run the soft fusion for them), and
+    runs ``softmax``."""
     model = port_model
     model.train()
     try:
-        with pytest.raises(RuntimeError, match="eval only"):
-            model(torch.zeros(1, N, IMG, IMG, 3))
+        with pytest.raises(ValueError, match="soft fusion"):
+            model(torch.zeros(1, N, IMG, IMG, 3), inference="activated")
+        pred = model(torch.zeros(1, N, IMG, IMG, 3), inference="softmax")[0]
+        assert pred.shape == (N, 11, IMG, IMG) and pred.requires_grad
     finally:
         model.eval()

@@ -29,13 +29,19 @@ def test_importing_the_port_loads_no_jax_module():
         "import multiagentperception_tpu_torch.evaluate, multiagentperception_tpu_torch.convert\n"
         "import multiagentperception_tpu_torch.ops.kernels.upsample_argmax\n"
         "import multiagentperception_tpu_torch.ops.kernels.comm_fusion\n"
-        "import multiagentperception_tpu_torch.data\n"
+        "import multiagentperception_tpu_torch.ops.kernels.fused_block\n"
+        "import multiagentperception_tpu_torch.data, multiagentperception_tpu_torch.train\n"
+        "import multiagentperception_tpu_torch.trainer, multiagentperception_tpu_torch.loss\n"
+        "import multiagentperception_tpu_torch.optimizers\n"
+        "import multiagentperception_tpu_torch.schedulers\n"
+        "import multiagentperception_tpu_torch.bench_fused_block\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "multiagentperception_tpu_torch.evaluate" in loaded
+    assert "multiagentperception_tpu_torch.trainer" in loaded
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad}"
 
@@ -91,6 +97,20 @@ def test_cli_defaults_to_the_card(no_card, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", str(FLAGSHIP), "--model_path", str(tmp_path / "x.pkl")])
+
+
+def test_train_cli_defaults_to_the_card(no_card):
+    from multiagentperception_tpu_torch import train as cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", str(FLAGSHIP)])
+
+
+def test_bench_fused_block_needs_the_card(no_card):
+    from multiagentperception_tpu_torch import bench_fused_block as bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

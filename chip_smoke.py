@@ -6,19 +6,28 @@
 Imports nothing of JAX or of the JAX package. Phases; any failure raises
 and the script exits non-zero:
 
-1. Kernels. Build K1 (``upsample_argmax``), K2 (``comm_fusion``) and K3
-   (``fused_basic_block``) from ``multiagentperception_tpu_torch/csrc``
-   with nvcc for sm_90a, all at once, hold each against its plain PyTorch
-   version on the card, and time the kernel, the plain version and one
-   PyTorch library call (a yardstick only: the port never calls it). The
-   checks and their tolerances are ``ops/kernels/checks.py``'s: K1 agrees
-   on at least 99.99% of pixels and every disagreement is a near-tie (the
-   plain version's top two upsampled logits within 1e-4); an all-equal
-   input gives class 0. K2: fused within rtol/atol 1e-5, graphs within
-   1e-6, masks equal, in all three modes. K3: float32 within rtol/atol 1e-4
-   at the flagship eval geometry (B*N = 12, C=64 at 128x128 and C=128 at
-   64x64), bfloat16 within the bound ``checks.assert_bf16_close`` states at
-   the bench geometry (B*N = 120).
+1. Kernels. Build K1 (``upsample_argmax``), K2 (``comm_fusion``) and K3's
+   two routes (``fused_basic_block``: ``fused_block_wgmma.cu`` on the
+   tensor cores for bfloat16 at C = 64/128, ``fused_block.cu`` on CUDA
+   cores for float32) from ``multiagentperception_tpu_torch/csrc`` with
+   nvcc for sm_90a, all at once; print the ``-Xptxas -v`` register and
+   spill lines of K1 and of the wgmma kernel, and fail unless the wgmma
+   library's SASS (``cuobjdump -sass``) holds HGMMA instructions (the
+   count is printed). Hold each kernel against its plain PyTorch version
+   on the card, and time the kernel, the plain version and one PyTorch
+   library call (a yardstick only: the port never calls it). The checks
+   and their tolerances are ``ops/kernels/checks.py``'s: K1 agrees on at
+   least 99.99% of pixels and every disagreement is a near-tie (the plain
+   version's top two upsampled logits within 1e-4); an all-equal input
+   gives class 0. K2: fused within rtol/atol 1e-5, graphs within 1e-6,
+   masks equal, in all three modes. K3: float32 within rtol/atol 1e-4 at
+   the flagship eval geometry (B*N = 12, C=64 at 128x128 and C=128 at
+   64x64; the cuDNN yardstick timed with TF32 off, K3's precision, and on,
+   PyTorch's default), bfloat16 within the bound
+   ``checks.assert_bf16_close`` states at the bench geometry (B*N = 120).
+   Then K3's wgmma route and its plain version are each compared with the
+   block in float64 over 16 seeds at four small shapes (printed, not
+   checked).
 2. The eval slice at full width. The flagship MIMOcom
    (``configs/multi-request-multi-support/mrms_when2com.yml``, 6 agents at
    512x512, unchanged) from a seeded init is saved as a reference-format
@@ -32,8 +41,10 @@ and the script exits non-zero:
 3. Card against CPU, eval. The same slice at 256x256 with TF32 off, from
    one set of weights: actions and bandwidth equal, class maps agree on at
    least 99.9% of pixels.
-4. The K3 path: ``bench_fused_block``'s main at its two geometries, with
-   K3's launch count zeroed just before and read just after.
+4. The K3 path: ``bench_fused_block``'s main at its two geometries, once
+   in bfloat16 (the wgmma route) and once in float32 at the eval's
+   B*N = 12 (the CUDA-core route), with K3's launch counts per route zeroed
+   just before each and read just after; each route must have launched.
 5. Training at full width: the flagship YAML (cut to 12 iterations, one
    validation over 2 batches at the end, a loss readback every iteration)
    from ``models.init_weights`` over seeded in-memory batches, through
@@ -63,6 +74,8 @@ import contextlib
 import copy
 import json
 import logging
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -218,33 +231,117 @@ def check_comm_fusion(gen) -> dict:
 K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): flagship eval f32, then the bench's bf16
     ("eval_layer1", 12, 128, 64, torch.float32), ("eval_layer2", 12, 64, 128, torch.float32),
     ("bench_layer1", 120, 128, 64, torch.bfloat16), ("bench_layer2", 120, 64, 128, torch.bfloat16))
-K3_MAIN = "bench_layer1"  # the row whose numbers head K3's record: the bench path's first call
+# each route's record: its source, and the geometry whose numbers head it (the
+# first call of its path in phase 4)
+K3_ROUTES = {"wgmma": ("fused_basic_block", "csrc/fused_block_wgmma.cu", "bench_layer1"),
+             "fma": ("fused_basic_block_fma", "csrc/fused_block.cu", "eval_layer1")}
 
 
-def check_fused_block() -> dict:
+def check_fused_block() -> list[dict]:
     rows = []
     for i, (name, b, hw, c, dtype) in enumerate(K3_GEOMETRIES):
         x, params = k3_bench.block_inputs(b, hw, hw, c, dtype, "cuda", seed=SEED + i)
         checked = checks.check_fused_block(x, *params)
         bound_ms, bound_by = k3_bench.bound_ms(x)
-        rows.append({
-            "geometry": name, "shape": list(x.shape), "dtype": str(dtype).split(".")[-1],
-            **checked,
-            "ms": _time_ms(lambda: k3.fused_basic_block(x, *params), iters=20),
-            "plain_ms": _time_ms(lambda: k3.fused_basic_block_plain(x, *params), iters=20),
-            "library_ms": _time_ms(lambda: k3_bench.cudnn_block(x, *params), iters=20),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "plain_and_library_tf32": torch.backends.cudnn.allow_tf32})
+        ms = _time_ms(lambda: k3.fused_basic_block(x, *params), iters=20)
+        row = {"geometry": name, "shape": list(x.shape), "dtype": str(dtype).split(".")[-1],
+               "route": k3.route(dtype, c), **checked, "ms": ms,
+               "tflops": k3_bench.block_ops(x) / ms / 1e9,
+               "plain_ms": _time_ms(lambda: k3.fused_basic_block_plain(x, *params), iters=20),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "plain_tf32": torch.backends.cudnn.allow_tf32}
+        with _no_tf32():  # K3's own precision
+            row["library_ms"] = _time_ms(lambda: k3_bench.cudnn_block(x, *params), iters=20)
+        if dtype == torch.float32:  # PyTorch's default for float32 convolutions
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                row["library_tf32_ms"] = _time_ms(lambda: k3_bench.cudnn_block(x, *params),
+                                                  iters=20)
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+        row["vs_library"] = row["library_ms"] / ms
+        rows.append(row)
         del x, params
-    main = next(r for r in rows if r["geometry"] == K3_MAIN)
-    return {
-        "name": "fused_basic_block", "route": "cuda",
-        "source": "multiagentperception_tpu_torch/csrc/fused_block.cu",
-        "replaces": "multiagentperception_tpu/ops/pallas/fused_block.py:201",
-        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")},
-        "shape": f"{main['shape']} {main['dtype']} (bench layer1)", "geometries": rows,
-    }
+    records = []
+    for route, (name, source, head) in K3_ROUTES.items():
+        main = next(r for r in rows if r["geometry"] == head)
+        records.append({
+            "name": name, "route": "cuda", "k3_route": route,
+            "source": f"multiagentperception_tpu_torch/{source}",
+            "replaces": "multiagentperception_tpu/ops/pallas/fused_block.py:201",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")},
+            "shape": f"{main['shape']} {main['dtype']} ({head})",
+            "geometries": [r for r in rows if r["route"] == route]})
+    return records
+
+
+K3_F64_SHAPES = ((1, 5, 7, 128), (1, 7, 13, 128), (1, 37, 45, 128), (1, 37, 45, 64))
+K3_F64_SEEDS = 16
+
+
+def _block_float64(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
+    """K3's block in float64 on ``x.dtype`` values, y1 rounded to
+    ``x.dtype`` as both K3 and its plain version round it."""
+    xc = x.permute(0, 3, 1, 2).double()
+
+    def conv(v, w, s, b):
+        w = w.to(x.dtype).double().permute(3, 2, 0, 1)
+        return (torch.nn.functional.conv2d(v, w, padding=1) * s.double()[:, None, None]
+                + b.double()[:, None, None])
+
+    y = torch.relu(conv(xc, w1, s1, b1)).to(x.dtype).double()
+    return torch.relu(conv(y, w2, s2, b2) + xc).permute(0, 2, 3, 1)
+
+
+@_no_tf32()
+def k3_against_float64() -> list[dict]:
+    """K3's wgmma route and its plain version, each against the block in
+    float64, over K3_F64_SEEDS seeds a shape: the elements beyond the
+    bf16 check's near bound (1 ulp + 1e-3), the largest and the mean
+    error. Reported, not checked: checks.py decides pass or fail."""
+    near_ulps, near_atol = checks.K3_BF16_NEAR
+    rows = []
+    for shape in K3_F64_SHAPES:
+        acc = {side: {"beyond_near": 0, "max_err": 0.0, "mean_err": 0.0}
+               for side in ("kernel", "plain")}
+        for seed in range(K3_F64_SEEDS):
+            x, params = k3_bench.block_inputs(*shape, torch.bfloat16, "cuda", seed=seed)
+            ref = _block_float64(x, *params)
+            near = near_ulps * checks.bf16_ulp(ref) + near_atol
+            for side, fn in (("kernel", k3.fused_basic_block), ("plain", k3.fused_basic_block_plain)):
+                err = (fn(x, *params).double() - ref).abs()
+                acc[side]["beyond_near"] += int((err > near).sum())
+                acc[side]["max_err"] = max(acc[side]["max_err"], err.max().item())
+                acc[side]["mean_err"] += err.mean().item() / K3_F64_SEEDS
+        rows.append({"shape": list(shape), "seeds": K3_F64_SEEDS, **acc})
+    return rows
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+
+
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the built wgmma library's SASS."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target("fused_block_wgmma"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def resource_lines(log: str) -> list[str]:
+    """``-Xptxas -v``'s register and spill lines, each with its kernel."""
+    out, kernel = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "spill" in line or "Used" in line:
+            out.append(f"{kernel[-70:]}: {line.strip()}")
+    return out
 
 
 # ------------------------------------------------------------------ phase 2
@@ -379,13 +476,19 @@ def card_vs_cpu() -> dict:
 # ------------------------------------------------------------------ phase 4
 
 def run_bench_path() -> dict:
-    """K3's path: the bench's main at both geometries."""
-    k3.fused_basic_block.launches = 0
-    records = k3_bench.main([])
-    launches = k3.fused_basic_block.launches
-    if launches < 1:
-        raise AssertionError("bench_fused_block never launched K3")
-    return {"launches": launches, "records": records}
+    """K3's path: the bench's main at both geometries, in bfloat16 (the
+    wgmma route) and in float32 at B*N = 12 (the CUDA-core route)."""
+    runs = {}
+    for route, argv in (("wgmma", []), ("fma", ["--dtype", "float32", "--batch", "12"])):
+        for r in k3.ROUTES:
+            k3.fused_basic_block.route_launches[r] = 0
+        records = k3_bench.main(argv)
+        launches = dict(k3.fused_basic_block.route_launches)
+        if launches[route] < 1:
+            raise AssertionError(f"bench_fused_block {argv} never launched K3's {route} route: "
+                                 f"{launches}")
+        runs[route] = {"argv": argv, "launches": launches[route], "records": records}
+    return runs
 
 
 # ------------------------------------------------------------------ phase 5
@@ -558,10 +661,18 @@ def main() -> int:
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", file=sys.stderr)
+    for name in ("upsample_argmax", "fused_block_wgmma"):
+        for line in resource_lines(logs[name]):
+            print(f"ptxas {name}: {line}")
+    hgmma = hgmma_count()
+    print(f"HGMMA instructions in fused_block_wgmma's SASS: {hgmma}")
+    if hgmma < 1:
+        raise AssertionError("the wgmma kernel's SASS holds no HGMMA instruction")
 
     gen = torch.Generator().manual_seed(SEED)
-    records = [check_upsample_argmax(gen), check_comm_fusion(gen), check_fused_block()]
-    print("kernel checks passed; K3 " + json.dumps(records[2]))
+    records = [check_upsample_argmax(gen), check_comm_fusion(gen), *check_fused_block()]
+    print("kernel checks passed; K3 " + json.dumps(records[2:]))
+    print("k3_float64 " + json.dumps(k3_against_float64()))
 
     slice_result = run_slice(eval_kernels)
     print("slice " + json.dumps(slice_result))
@@ -573,7 +684,8 @@ def main() -> int:
     print("card_vs_cpu " + json.dumps(card_vs_cpu()))
 
     bench = run_bench_path()
-    records[2]["launches"] = bench["launches"]
+    for rec in records[2:]:
+        rec["launches"] = bench[rec["k3_route"]]["launches"]
     print("k3_path " + json.dumps(bench))
 
     print("train " + json.dumps(run_training(eval_kernels)))

@@ -2,19 +2,23 @@
 (counterpart of the repo's scripts/bench_fused_block.py).
 
     python -m multiagentperception_tpu_torch.bench_fused_block [--batch 120] [--iters 20]
+        [--dtype bfloat16|float32]
 
 Geometries are the flagship's layer1 (C=64 at 128x128) and layer2 (C=128 at
-64x64) stride-1 blocks at B*N = 120 frames (batch 20 x 6 agents), bfloat16,
-seeded inputs. For each it prints one JSON line: the kernel's median time
-over ``--iters`` launches timed by CUDA events after a warm-up, its TF/s, the
-least time the card could take (``bound_ms``: the larger of the bytes of x,
-out and the weights over 3.35 TB/s and the block's 4*B*H*W*9*C^2 operations
-over 989 TFLOP/s of bf16 tensor cores), and the same block as a cuDNN
-composition in channels_last bfloat16 with BatchNorm folded into the
-convolutions (``library_ms``, a yardstick the port never calls), with
-``vs_library`` = library_ms / ms. The JAX script's
-fori_loop difference quotient exists for a remote TPU and is not carried
-over. Runs on the card only: without one it raises.
+64x64) stride-1 blocks at B*N = 120 frames (batch 20 x 6 agents), bfloat16
+by default, seeded inputs. For each it prints one JSON line: the route the
+wrapper takes (``fused_block.route``: ``wgmma`` for bfloat16 at these C,
+``fma`` for float32), the kernel's median time over ``--iters`` launches
+timed by CUDA events after a warm-up, its TF/s, the least time the card
+could take (``bound_ms``: the larger of the bytes of x, out and the weights
+over 3.35 TB/s and the block's 4*B*H*W*9*C^2 operations over 989 TFLOP/s
+of bf16 tensor cores, or 67 TFLOP/s of float32 CUDA cores), and the same
+block as a cuDNN composition in channels_last ``--dtype`` with BatchNorm
+folded into the convolutions (``library_ms``, a yardstick the port never
+calls; float32 convolutions in TF32 as PyTorch defaults, ``cudnn_tf32``),
+with ``vs_library`` = library_ms / ms. The JAX script's fori_loop
+difference quotient exists for a remote TPU and is not carried over. Runs
+on the card only: without one it raises.
 """
 
 from __future__ import annotations
@@ -99,16 +103,19 @@ def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=120, help="B*N frames")
     parser.add_argument("--iters", type=int, default=20, help="timed launches (>= 20)")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = parser.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     device = resolve_device(None)
     records = []
     for name, c, hw in GEOMETRIES:
-        x, params = block_inputs(args.batch, hw, hw, c, torch.bfloat16, device)
+        x, params = block_inputs(args.batch, hw, hw, c, dtype, device)
         ms = time_ms(lambda: k3.fused_basic_block(x, *params), max(args.iters, 20))
         lib_ms = time_ms(lambda: cudnn_block(x, *params), max(args.iters, 20))
         bound, bound_by = bound_ms(x)
         rec = {"bench": "fused_basic_block", "geometry": name, "shape": list(x.shape),
-               "dtype": "bfloat16", "ms": ms, "tflops": block_ops(x) / ms / 1e9,
+               "dtype": args.dtype, "route": k3.route(dtype, c), "ms": ms,
+               "tflops": block_ops(x) / ms / 1e9,
                "library_ms": lib_ms, "library_tflops": block_ops(x) / lib_ms / 1e9,
                "vs_library": lib_ms / ms, "bound_ms": bound, "bound_by": bound_by,
                "cudnn_tf32": torch.backends.cudnn.allow_tf32,

@@ -27,7 +27,15 @@
 // 16- or 32-byte row segment, cached). Pixels sit C + 4/sizeof(T) elements
 // apart in shared memory so that a warp's pixel groups hit different banks.
 // TILE is the largest of 16, 8, 4 whose halo and ring fit the 227 KB of
-// shared memory; wgmma, TMA and tensor cores are later work.
+// shared memory.
+//
+// The wrapper (ops/kernels/fused_block.py, route()) sends float32 at every
+// C and bfloat16 at C = 256/512 here; bfloat16 at C = 64/128 goes to
+// csrc/fused_block_wgmma.cu on the tensor cores. float32 stays on CUDA
+// cores because K3's float32 check holds it to 1e-4, which TF32 tensor
+// cores cannot meet (an error-compensated 3xTF32 wgmma is later work), and
+// bfloat16 at 256/512 channels because their halo, ring and one tap's
+// weights do not fit shared memory without cutting the channels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -34,11 +34,12 @@ F32 = ctypes.c_float
 # C entry point and its signature, per kernel source
 SIGNATURES = {
     "upsample_argmax": ("upsample_argmax_f32",
-                        [P, I32, I32, I32, I32, P, P, P, P, I32, I32, P, P]),
+                        [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]),
     "comm_fusion": ("comm_fusion_f32",
                     [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]),
     "fused_block": ("fused_basic_block",
                     [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
+    "fused_block_wgmma": ("fused_basic_block_wgmma", [P, P, P, P, I32, I32, I32, I32, P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

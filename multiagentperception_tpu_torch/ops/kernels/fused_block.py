@@ -18,9 +18,21 @@ The JAX function's ``tile``, ``pair`` and ``interpret`` arguments choose the
 TPU kernel's layout and change nothing in the result, so they are not
 taken here.
 
-On CUDA tensors ``fused_basic_block`` launches ``csrc/fused_block.cu``
-(float32 or bfloat16, C in 64/128/256/512, any H and W); on CPU tensors it
-runs ``fused_basic_block_plain``, the same function in plain PyTorch.
+On CUDA tensors ``fused_basic_block`` launches one of two kernels, as
+``route(dtype, C)`` says (any H and W on both):
+
+- ``"wgmma"``: bfloat16 at C in 64/128 (the bench's layer1 and layer2),
+  ``csrc/fused_block_wgmma.cu`` on Hopper's tensor cores;
+- ``"fma"``: float32 at any C, and bfloat16 at C in 256/512,
+  ``csrc/fused_block.cu`` on CUDA cores. The float32 check holds K3 to
+  1e-4, which TF32 tensor cores cannot meet; 512 channels of halo, ring
+  and weights do not fit shared memory without cutting the channels.
+
+Each route counts its own launches in ``fused_basic_block.route_launches``,
+and ``fused_basic_block.launches`` counts both. A route that fails to
+build or launch raises; neither falls back to the other. On CPU tensors
+the wrapper runs ``fused_basic_block_plain``, the same function in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -34,6 +46,28 @@ from multiagentperception_tpu_torch.ops.kernels import _build
 
 CHANNELS = (64, 128, 256, 512)  # ResNet-18's stride-1 blocks; instantiated in csrc
 DTYPES = (torch.float32, torch.bfloat16)
+WGMMA_CHANNELS = (64, 128)  # instantiated in csrc/fused_block_wgmma.cu
+ROUTES = ("wgmma", "fma")
+
+
+def route(dtype: torch.dtype, c: int) -> str:
+    """The kernel that takes a (dtype, C) block: ``"wgmma"`` or ``"fma"``.
+    Raises on what neither kernel takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_basic_block kernel takes float32 or bfloat16, got {dtype}")
+    if c not in CHANNELS:
+        raise ValueError(f"fused_basic_block kernel takes C in {CHANNELS}, got {c}")
+    return "wgmma" if dtype == torch.bfloat16 and c in WGMMA_CHANNELS else "fma"
+
+
+def wgmma_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Both convs' HWIO weights in bf16 as the wgmma kernel streams them:
+    (2, 9, C/64, 8, C, 8) = [conv][tap][64-channel K chunk][8-channel K
+    group][output channel][8 input channels], one 64 x C stage after
+    another."""
+    c = w1.shape[-1]
+    w = torch.stack([w1, w2]).to(torch.bfloat16).reshape(2, 9, c // 64, 8, 8, c)
+    return w.permute(0, 1, 2, 3, 5, 4).contiguous()
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -71,13 +105,10 @@ def fused_basic_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
         return fused_basic_block_plain(x, w1, s1, b1, w2, s2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in DTYPES:
-        raise TypeError(f"fused_basic_block kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_basic_block kernel takes a contiguous (B, H, W, C) x")
     bsz, h, w, c = x.shape
-    if c not in CHANNELS:
-        raise ValueError(f"fused_basic_block kernel takes C in {CHANNELS}, got {c}")
+    path = route(x.dtype, c)
     if not (0 < bsz <= 65535) or h == 0 or w == 0:
         raise ValueError(f"fused_basic_block kernel: unsupported B={bsz}, H={h}, W={w}")
     for name, t, shape in (("w1", w1, (3, 3, c, c)), ("w2", w2, (3, 3, c, c)),
@@ -87,23 +118,33 @@ def fused_basic_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    w1k, w2k = (wt.to(x.dtype).contiguous() for wt in (w1, w2))
-    if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:
-        raise ValueError("fused_basic_block kernel reads weights as 16-byte vectors: "
-                         "pass w1/w2 that start 16-byte aligned")
-    s1k, b1k, s2k, b2k = (v.float().contiguous() for v in (s1, b1, s2, b2))
     out = torch.empty_like(x)
-    lib = _build.load("fused_block")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_basic_block(
-            x.data_ptr(), w1k.data_ptr(), s1k.data_ptr(), b1k.data_ptr(),
-            w2k.data_ptr(), s2k.data_ptr(), b2k.data_ptr(), out.data_ptr(),
-            bsz, h, w, c, int(x.dtype == torch.bfloat16), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        if path == "wgmma":
+            wk = wgmma_weights(w1, w2)
+            sb = torch.cat([v.float() for v in (s1, b1, s2, b2)])
+            if x.data_ptr() % 16 or wk.data_ptr() % 16:
+                raise ValueError("fused_basic_block wgmma kernel: x must start 16-byte aligned")
+            rc = _build.load("fused_block_wgmma").fused_basic_block_wgmma(
+                x.data_ptr(), wk.data_ptr(), sb.data_ptr(), out.data_ptr(), bsz, h, w, c,
+                stream)
+        else:
+            w1k, w2k = (wt.to(x.dtype).contiguous() for wt in (w1, w2))
+            if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:
+                raise ValueError("fused_basic_block kernel reads weights as 16-byte vectors: "
+                                 "pass w1/w2 that start 16-byte aligned")
+            s1k, b1k, s2k, b2k = (v.float().contiguous() for v in (s1, b1, s2, b2))
+            rc = _build.load("fused_block").fused_basic_block(
+                x.data_ptr(), w1k.data_ptr(), s1k.data_ptr(), b1k.data_ptr(),
+                w2k.data_ptr(), s2k.data_ptr(), b2k.data_ptr(), out.data_ptr(),
+                bsz, h, w, c, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_basic_block kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_basic_block {path} kernel launch failed: error {rc}")
+    fused_basic_block.route_launches[path] += 1
     fused_basic_block.launches += 1
     return out
 
 
 fused_basic_block.launches = 0
+fused_basic_block.route_launches = dict.fromkeys(ROUTES, 0)

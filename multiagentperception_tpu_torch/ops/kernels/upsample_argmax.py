@@ -6,7 +6,10 @@ pre-upsample logits NCHW ``(B*N, C, h, w)`` and returns the ``(B*N, H, W)``
 int32 class map of their bilinear resize (``align_corners=False``), ties to
 the lowest class. On a CUDA tensor it launches ``csrc/upsample_argmax.cu``,
 which never writes the full-resolution logits; on a CPU tensor it runs
-``upsample_argmax_plain``, the same function in plain PyTorch.
+``upsample_argmax_plain``, the same function in plain PyTorch. The kernel
+takes its span path (a lane per run of ``SPAN`` output columns, the class
+loop unrolled) where ``shared_spans`` holds for the output width and the
+logits have the model's 11 classes, and its per-pixel path elsewhere.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from multiagentperception_tpu_torch.ops.kernels import _build
 from multiagentperception_tpu_torch.ops.resize import _weight_matrix, bilinear_resize
 
-_TILE_ROWS = 16  # kTileRows in csrc/upsample_argmax.cu
+_TILE_ROWS = 16  # kRows in csrc/upsample_argmax.cu
+SPAN = 4  # output columns a thread owns on the kernel's span path
 _MAX_SHARED = 48 * 1024  # the kernel's dynamic shared memory stays under the default limit
 
 
@@ -45,6 +49,18 @@ def _taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
         idx[o, : len(nz)] = nz
         wt[o, : len(nz)] = wm[o, nz]
     return idx, wt
+
+
+@functools.lru_cache(maxsize=16)
+def shared_spans(src: int, dst: int) -> bool:
+    """Whether the kernel's span path holds for a resize of ``src`` columns
+    to ``dst``: ``dst`` is a multiple of ``SPAN`` and every aligned run of
+    ``SPAN`` output columns has the same two tap indices in ``_taps``, so
+    one thread reads them once and weighs them per column."""
+    if dst % SPAN:
+        return False
+    idx = _taps(src, dst)[0].reshape(dst // SPAN, SPAN, 2)
+    return bool((idx == idx[:, :1]).all())
 
 
 @functools.lru_cache(maxsize=16)
@@ -81,7 +97,8 @@ def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.upsample_argmax_f32(
             x.data_ptr(), n, c, h, w, yi.data_ptr(), yw.data_ptr(),
-            xi.data_ptr(), xw.data_ptr(), out_h, out_w, out.data_ptr(),
+            xi.data_ptr(), xw.data_ptr(), out_h, out_w, int(shared_spans(w, out_w)),
+            out.data_ptr(),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA error {rc}")

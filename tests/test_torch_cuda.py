@@ -37,6 +37,18 @@ def test_upsample_argmax_kernel_matches_plain(cuda):
     assert k1.upsample_argmax.launches == before + 2  # the logits and the tie case
 
 
+@pytest.mark.parametrize("h,w,out_h,out_w", [(8, 8, 256, 256), (16, 16, 500, 300),
+                                             (5, 7, 17, 29)],
+                         ids=["8x8_to_256", "16x16_to_500x300", "5x7_to_17x29"])
+def test_upsample_argmax_kernel_other_shapes(cuda, h, w, out_h, out_w):
+    """The span path at x32 (8x8 -> 256) and the per-pixel path where runs
+    of 4 columns straddle a tap change or the width is not a multiple of 4."""
+    x = torch.randn(3, 11, h, w, generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = k1.upsample_argmax.launches
+    checks.check_upsample_argmax(x, out_h, out_w)
+    assert k1.upsample_argmax.launches == before + 2
+
+
 def test_upsample_argmax_kernel_refuses_non_contiguous(cuda):
     x = torch.randn(2, 16, 16, 11, device=cuda).permute(0, 3, 1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -72,8 +84,26 @@ def test_comm_fusion_kernel_refuses_bf16(cuda):
 def test_fused_block_kernel_matches_plain(cuda, dtype, b, hw, c):
     x, params = block_inputs(b, hw, hw + 3, c, dtype, cuda)
     before = k3.fused_basic_block.launches
+    route = k3.route(dtype, c)
+    before_route = k3.fused_basic_block.route_launches[route]
     checks.check_fused_block(x, *params)
     assert k3.fused_basic_block.launches == before + 1
+    assert k3.fused_basic_block.route_launches[route] == before_route + 1
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 16, 16, 64), (1, 8, 16, 128), (2, 37, 45, 64),
+                                     (2, 37, 45, 128), (1, 5, 7, 64), (1, 7, 13, 128)],
+                         ids=["c64_one_tile", "c128_one_tile", "c64_ragged", "c128_ragged",
+                              "c64_smaller_than_a_tile", "c128_smaller_than_a_tile"])
+def test_fused_block_wgmma_route_matches_plain(cuda, b, h, w, c):
+    """bfloat16 at C = 64/128 takes the wgmma kernel: B = 1, H and W that
+    are no multiple of the tile (16x16 at C=64, 8x16 at C=128), so TMA
+    fills the halo past the image with zeros, and images smaller than one
+    tile."""
+    x, params = block_inputs(b, h, w, c, torch.bfloat16, cuda, seed=1)
+    before = dict(k3.fused_basic_block.route_launches)
+    checks.check_fused_block(x, *params)
+    assert k3.fused_basic_block.route_launches == {**before, "wgmma": before["wgmma"] + 1}
 
 
 @pytest.mark.parametrize("what", ["non_contiguous", "channels_96", "float16"])

@@ -124,3 +124,39 @@ def test_bf16_comparator_refuses_a_wrong_ring(hw):
 def test_wrapper_refuses_other_layouts():
     with pytest.raises(ValueError, match="B, H, W, C"):
         k3.fused_basic_block(torch.zeros(2, 3, 64), *(torch.zeros(1),) * 6)
+
+
+@pytest.mark.parametrize("dtype,c,want", [(torch.bfloat16, 64, "wgmma"),
+                                          (torch.bfloat16, 128, "wgmma"),
+                                          (torch.bfloat16, 256, "fma"),
+                                          (torch.bfloat16, 512, "fma"),
+                                          (torch.float32, 64, "fma"),
+                                          (torch.float32, 128, "fma"),
+                                          (torch.float32, 512, "fma")])
+def test_route(dtype, c, want):
+    assert k3.route(dtype, c) == want
+
+
+@pytest.mark.parametrize("dtype,c,err", [(torch.float16, 64, TypeError),
+                                         (torch.bfloat16, 96, ValueError),
+                                         (torch.float32, 96, ValueError)])
+def test_route_refuses(dtype, c, err):
+    with pytest.raises(err):
+        k3.route(dtype, c)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_wgmma_weights_layout(c):
+    """wgmma_weights puts w[dy, dx, ci, co] at [conv][3*dy + dx][ci // 64]
+    [(ci % 64) // 8][co][ci % 8], in bf16."""
+    rng = np.random.default_rng(6)
+    w1, w2 = (torch.from_numpy(rng.normal(size=(3, 3, c, c)).astype(np.float32))
+              for _ in range(2))
+    got = k3.wgmma_weights(w1, w2)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 9, c // 64, 8, c, 8)
+    assert got.is_contiguous()
+    for conv, w in enumerate((w1, w2)):
+        for dy, dx, ci, co in [(0, 0, 0, 0), (1, 2, 5, 7), (2, 1, c - 1, 3), (2, 2, 63, c - 1),
+                               (0, 1, c // 2 + 9, c // 2 + 1)]:
+            want = w[dy, dx, ci, co].to(torch.bfloat16)
+            assert got[conv, 3 * dy + dx, ci // 64, (ci % 64) // 8, co, ci % 8] == want

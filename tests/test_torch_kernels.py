@@ -62,6 +62,27 @@ def test_taps_rebuild_the_weight_matrix(src, dst):
     np.testing.assert_array_equal(rebuilt, _weight_matrix(src, dst, False))
 
 
+@pytest.mark.parametrize("src,dst,want", [(16, 512, True), (4, 128, True), (5, 17, False),
+                                          (7, 3, False), (8, 256, True), (16, 500, False),
+                                          (16, 300, False), (7, 29, False)])
+def test_shared_spans_against_taps(src, dst, want):
+    """Where the helper lets the kernel take its span path, one tap pair per
+    run of SPAN columns (the run's first column's) with each column's own
+    weights rebuilds the plain version's weight matrix exactly; where it
+    does not, the width is no multiple of SPAN or some run straddles a tap
+    change."""
+    assert k1.shared_spans(src, dst) is want
+    idx, wt = k1._taps(src, dst)
+    if want:
+        lead = np.repeat(idx[::k1.SPAN], k1.SPAN, axis=0)
+        rebuilt = np.zeros((dst, src), np.float32)
+        np.add.at(rebuilt, (np.arange(dst)[:, None], lead), wt)
+        np.testing.assert_array_equal(rebuilt, _weight_matrix(src, dst, False))
+    else:
+        runs = idx[: dst - dst % k1.SPAN].reshape(-1, k1.SPAN, 2)
+        assert dst % k1.SPAN or bool((runs != runs[:, :1]).any())
+
+
 def test_upsample_argmax_cpu_runs_plain_and_counts_no_launch():
     x = torch.from_numpy(_logits()).permute(0, 3, 1, 2).contiguous()
     before = k1.upsample_argmax.launches

@@ -7,13 +7,15 @@ Imports nothing of JAX or of the JAX package. Phases; any failure raises
 and the script exits non-zero:
 
 1. Kernels. Build K1 (``upsample_argmax``), K2 (``comm_fusion``) and K3's
-   two routes (``fused_basic_block``: ``fused_block_wgmma.cu`` on the
-   tensor cores for bfloat16 at C = 64/128, ``fused_block.cu`` on CUDA
-   cores for float32) from ``multiagentperception_tpu_torch/csrc`` with
-   nvcc for sm_90a, all at once; print the ``-Xptxas -v`` register and
-   spill lines of K1 and of the wgmma kernel, and fail unless the wgmma
-   library's SASS (``cuobjdump -sass``) holds HGMMA instructions (the
-   count is printed). Hold each kernel against its plain PyTorch version
+   three routes (``fused_basic_block``: ``fused_block_wgmma.cu`` on the
+   tensor cores for bfloat16 at C = 64/128, ``fused_block_tf32.cu`` on the
+   tensor cores with 3xTF32 products for float32 at C = 64/128,
+   ``fused_block.cu`` on CUDA cores at C = 256/512) from
+   ``multiagentperception_tpu_torch/csrc`` with nvcc for sm_90a, all at
+   once; print the ``-Xptxas -v`` register and spill lines (and any ptxas
+   warning) of K1, K2 and the two tensor-core kernels, and fail unless
+   each tensor-core library's SASS (``cuobjdump -sass``) holds HGMMA
+   instructions (the counts are printed). Hold each kernel against its plain PyTorch version
    on the card, and time the kernel, the plain version and one PyTorch
    library call (a yardstick only: the port never calls it). The checks
    and their tolerances are ``ops/kernels/checks.py``'s: K1 agrees on at
@@ -22,10 +24,14 @@ and the script exits non-zero:
    gives class 0. K2: fused within rtol/atol 1e-5, graphs within 1e-6,
    masks equal, in all three modes. K3: float32 within rtol/atol 1e-4 at
    the flagship eval geometry (B*N = 12, C=64 at 128x128 and C=128 at
-   64x64; the cuDNN yardstick timed with TF32 off, K3's precision, and on,
-   PyTorch's default), bfloat16 within the bound
-   ``checks.assert_bf16_close`` states at the bench geometry (B*N = 120).
-   Then K3's wgmma route and its plain version are each compared with the
+   64x64: the tf32x3 route; the cuDNN yardstick timed with TF32 off, K3's
+   precision, and on, PyTorch's default), bfloat16 within the bound
+   ``checks.assert_bf16_close`` states at the bench geometry (B*N = 120:
+   the wgmma route), and both types at the flagship's layer3 and layer4
+   (C=256 at 32x32, C=512 at 16x16: the fma route; bfloat16 there is
+   compared with the plain version and float64 and timed, but not held to
+   the bf16 bound, see K3_REPORT_ONLY). Then K3's two
+   tensor-core routes and their plain versions are each compared with the
    block in float64 over 16 seeds at four small shapes (printed, not
    checked).
 2. The eval slice at full width. The flagship MIMOcom
@@ -41,10 +47,12 @@ and the script exits non-zero:
 3. Card against CPU, eval. The same slice at 256x256 with TF32 off, from
    one set of weights: actions and bandwidth equal, class maps agree on at
    least 99.9% of pixels.
-4. The K3 path: ``bench_fused_block``'s main at its two geometries, once
-   in bfloat16 (the wgmma route) and once in float32 at the eval's
-   B*N = 12 (the CUDA-core route), with K3's launch counts per route zeroed
-   just before each and read just after; each route must have launched.
+4. The K3 path: ``bench_fused_block``'s main at layer1 and layer2, once in
+   bfloat16 (the wgmma route) and once in float32 at the eval's B*N = 12
+   (the tf32x3 route), then at layer3 and layer4 in float32 at B*N = 12
+   (the CUDA-core route), with K3's launch counts per route zeroed just
+   before each run and read just after; each run's route must have
+   launched.
 5. Training at full width: the flagship YAML (cut to 12 iterations, one
    validation over 2 batches at the end, a loss readback every iteration)
    from ``models.init_weights`` over seeded in-memory batches, through
@@ -228,21 +236,39 @@ def check_comm_fusion(gen) -> dict:
     }
 
 
-K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): flagship eval f32, then the bench's bf16
+K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): the flagship's stride-1 blocks at the
+    # eval's B*N in f32 and the bench's in bf16
     ("eval_layer1", 12, 128, 64, torch.float32), ("eval_layer2", 12, 64, 128, torch.float32),
-    ("bench_layer1", 120, 128, 64, torch.bfloat16), ("bench_layer2", 120, 64, 128, torch.bfloat16))
+    ("bench_layer1", 120, 128, 64, torch.bfloat16), ("bench_layer2", 120, 64, 128, torch.bfloat16),
+    ("eval_layer3", 12, 32, 256, torch.float32), ("eval_layer4", 12, 16, 512, torch.float32),
+    ("bench_layer3", 120, 32, 256, torch.bfloat16), ("bench_layer4", 120, 16, 512, torch.bfloat16))
 # each route's record: its source, and the geometry whose numbers head it (the
 # first call of its path in phase 4)
 K3_ROUTES = {"wgmma": ("fused_basic_block", "csrc/fused_block_wgmma.cu", "bench_layer1"),
-             "fma": ("fused_basic_block_fma", "csrc/fused_block.cu", "eval_layer1")}
+             "tf32x3": ("fused_basic_block_tf32x3", "csrc/fused_block_tf32.cu", "eval_layer1"),
+             "fma": ("fused_basic_block_fma", "csrc/fused_block.cu", "eval_layer3")}
+# Timed, and compared with the plain version and with float64, but not held
+# to checks.assert_bf16_close: at 256 and 512 channels a y1 value's bf16
+# ulp (up to 0.0625) times a weight moves an output by up to ~1.2e-2 when
+# the kernel's float32 sum of 9*C products rounds y1 the other way, beyond
+# that comparator's far bound (4 ulp + 1e-2), which was set for C <= 128.
+# On an H100 the fma kernel left 2 such elements of 31.5M at bench_layer3
+# (seed 6) and 4 of 15.7M at bench_layer4 (seed 0), each a y1 rounding flip
+# (the kernel off float64 where the plain version is not); PERF.md section 7
+# keeps the question open for the C = 256/512 redesign.
+K3_REPORT_ONLY = {"bench_layer3", "bench_layer4"}
+# phase 4's bench runs: (route, bench_fused_block arguments)
+K3_PATHS = (("wgmma", []), ("tf32x3", ["--dtype", "float32", "--batch", "12"]),
+            ("fma", ["--dtype", "float32", "--batch", "12", "--layers", "layer3,layer4"]))
 
 
 def check_fused_block() -> list[dict]:
     rows = []
     for i, (name, b, hw, c, dtype) in enumerate(K3_GEOMETRIES):
         x, params = k3_bench.block_inputs(b, hw, hw, c, dtype, "cuda", seed=SEED + i)
-        checked = checks.check_fused_block(x, *params)
-        bound_ms, bound_by = k3_bench.bound_ms(x)
+        checked = (report_only(x, params) if name in K3_REPORT_ONLY
+                   else checks.check_fused_block(x, *params))
+        bound_ms, bound_by = k3_bench.bound_ms(x, k3.route(dtype, c))
         ms = _time_ms(lambda: k3.fused_basic_block(x, *params), iters=20)
         row = {"geometry": name, "shape": list(x.shape), "dtype": str(dtype).split(".")[-1],
                "route": k3.route(dtype, c), **checked, "ms": ms,
@@ -277,6 +303,27 @@ def check_fused_block() -> list[dict]:
     return records
 
 
+@_no_tf32()
+def report_only(x, params) -> dict:
+    """K3 and its plain version on ``x``, each against the block in float64
+    (a K3_REPORT_ONLY geometry): the comparator's verdict and the elements
+    beyond its far bound from float64, per side."""
+    got = k3.fused_basic_block(x, *params)
+    ref = k3.fused_basic_block_plain(x, *params)
+    try:
+        checks.assert_bf16_close(got, ref)
+        verdict = "passes"
+    except AssertionError as err:
+        verdict = f"fails: {err}"
+    f64 = _block_float64(x, *params)
+    far_ulps, far_atol = checks.K3_BF16_FAR
+    far = far_ulps * checks.bf16_ulp(f64) + far_atol
+    return {"max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "bf16_check": verdict,
+            "beyond_far_from_float64": {side: int(((v.double() - f64).abs() > far).sum())
+                                        for side, v in (("kernel", got), ("plain", ref))}}
+
+
 K3_F64_SHAPES = ((1, 5, 7, 128), (1, 7, 13, 128), (1, 37, 45, 128), (1, 37, 45, 64))
 K3_F64_SEEDS = 16
 
@@ -297,25 +344,34 @@ def _block_float64(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
 
 @_no_tf32()
 def k3_against_float64() -> list[dict]:
-    """K3's wgmma route and its plain version, each against the block in
-    float64, over K3_F64_SEEDS seeds a shape: the elements beyond the
-    bf16 check's near bound (1 ulp + 1e-3), the largest and the mean
-    error. Reported, not checked: checks.py decides pass or fail."""
+    """K3's two tensor-core routes (wgmma in bfloat16, tf32x3 in float32)
+    and their plain versions, each against the block in float64, over
+    K3_F64_SEEDS seeds a shape: the elements beyond the dtype's check bound
+    against float64 (bf16: its near bound, 1 ulp + 1e-3; float32: rtol/atol
+    1e-4), the largest and the mean error. Reported, not checked:
+    checks.py decides pass or fail."""
     near_ulps, near_atol = checks.K3_BF16_NEAR
+    tol = checks.K3_F32_TOL
     rows = []
-    for shape in K3_F64_SHAPES:
-        acc = {side: {"beyond_near": 0, "max_err": 0.0, "mean_err": 0.0}
-               for side in ("kernel", "plain")}
-        for seed in range(K3_F64_SEEDS):
-            x, params = k3_bench.block_inputs(*shape, torch.bfloat16, "cuda", seed=seed)
-            ref = _block_float64(x, *params)
-            near = near_ulps * checks.bf16_ulp(ref) + near_atol
-            for side, fn in (("kernel", k3.fused_basic_block), ("plain", k3.fused_basic_block_plain)):
-                err = (fn(x, *params).double() - ref).abs()
-                acc[side]["beyond_near"] += int((err > near).sum())
-                acc[side]["max_err"] = max(acc[side]["max_err"], err.max().item())
-                acc[side]["mean_err"] += err.mean().item() / K3_F64_SEEDS
-        rows.append({"shape": list(shape), "seeds": K3_F64_SEEDS, **acc})
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in K3_F64_SHAPES:
+            acc = {side: {"beyond_near": 0, "max_err": 0.0, "mean_err": 0.0}
+                   for side in ("kernel", "plain")}
+            for seed in range(K3_F64_SEEDS):
+                x, params = k3_bench.block_inputs(*shape, dtype, "cuda", seed=seed)
+                ref = _block_float64(x, *params)
+                if dtype == torch.bfloat16:
+                    near = near_ulps * checks.bf16_ulp(ref) + near_atol
+                else:
+                    near = tol * ref.abs() + tol
+                for side, fn in (("kernel", k3.fused_basic_block),
+                                 ("plain", k3.fused_basic_block_plain)):
+                    err = (fn(x, *params).double() - ref).abs()
+                    acc[side]["beyond_near"] += int((err > near).sum())
+                    acc[side]["max_err"] = max(acc[side]["max_err"], err.max().item())
+                    acc[side]["mean_err"] += err.mean().item() / K3_F64_SEEDS
+            rows.append({"route": k3.route(dtype, shape[-1]), "shape": list(shape),
+                         "seeds": K3_F64_SEEDS, **acc})
     return rows
 
 
@@ -326,20 +382,21 @@ def _cuobjdump() -> str:
     return os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
 
 
-def hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the built wgmma library's SASS."""
-    sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target("fused_block_wgmma"))],
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of the built kernel ``name``."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def resource_lines(log: str) -> list[str]:
-    """``-Xptxas -v``'s register and spill lines, each with its kernel."""
+    """``-Xptxas -v``'s register and spill lines and ptxas's warnings (such
+    as a wgmma it had to serialize), each with its kernel."""
     out, kernel = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1] if "'" in line else line
-        elif "spill" in line or "Used" in line:
+        elif "spill" in line or "Used" in line or "arning" in line:
             out.append(f"{kernel[-70:]}: {line.strip()}")
     return out
 
@@ -476,10 +533,9 @@ def card_vs_cpu() -> dict:
 # ------------------------------------------------------------------ phase 4
 
 def run_bench_path() -> dict:
-    """K3's path: the bench's main at both geometries, in bfloat16 (the
-    wgmma route) and in float32 at B*N = 12 (the CUDA-core route)."""
+    """K3's path: the bench's main once for each route (K3_PATHS)."""
     runs = {}
-    for route, argv in (("wgmma", []), ("fma", ["--dtype", "float32", "--batch", "12"])):
+    for route, argv in K3_PATHS:
         for r in k3.ROUTES:
             k3.fused_basic_block.route_launches[r] = 0
         records = k3_bench.main(argv)
@@ -661,13 +717,14 @@ def main() -> int:
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", file=sys.stderr)
-    for name in ("upsample_argmax", "fused_block_wgmma"):
+    for name in ("upsample_argmax", "comm_fusion", "fused_block_wgmma", "fused_block_tf32"):
         for line in resource_lines(logs[name]):
             print(f"ptxas {name}: {line}")
-    hgmma = hgmma_count()
-    print(f"HGMMA instructions in fused_block_wgmma's SASS: {hgmma}")
-    if hgmma < 1:
-        raise AssertionError("the wgmma kernel's SASS holds no HGMMA instruction")
+    for name in ("fused_block_wgmma", "fused_block_tf32"):
+        hgmma = hgmma_count(name)
+        print(f"HGMMA instructions in {name}'s SASS: {hgmma}")
+        if hgmma < 1:
+            raise AssertionError(f"{name}'s SASS holds no HGMMA instruction")
 
     gen = torch.Generator().manual_seed(SEED)
     records = [check_upsample_argmax(gen), check_comm_fusion(gen), *check_fused_block()]

@@ -2,23 +2,27 @@
 (counterpart of the repo's scripts/bench_fused_block.py).
 
     python -m multiagentperception_tpu_torch.bench_fused_block [--batch 120] [--iters 20]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--layers layer1,layer2]
 
-Geometries are the flagship's layer1 (C=64 at 128x128) and layer2 (C=128 at
-64x64) stride-1 blocks at B*N = 120 frames (batch 20 x 6 agents), bfloat16
-by default, seeded inputs. For each it prints one JSON line: the route the
-wrapper takes (``fused_block.route``: ``wgmma`` for bfloat16 at these C,
-``fma`` for float32), the kernel's median time over ``--iters`` launches
-timed by CUDA events after a warm-up, its TF/s, the least time the card
-could take (``bound_ms``: the larger of the bytes of x, out and the weights
-over 3.35 TB/s and the block's 4*B*H*W*9*C^2 operations over 989 TFLOP/s
-of bf16 tensor cores, or 67 TFLOP/s of float32 CUDA cores), and the same
-block as a cuDNN composition in channels_last ``--dtype`` with BatchNorm
-folded into the convolutions (``library_ms``, a yardstick the port never
-calls; float32 convolutions in TF32 as PyTorch defaults, ``cudnn_tf32``),
-with ``vs_library`` = library_ms / ms. The JAX script's fori_loop
-difference quotient exists for a remote TPU and is not carried over. Runs
-on the card only: without one it raises.
+Geometries are the flagship's stride-1 blocks: layer1 (C=64 at 128x128) and
+layer2 (C=128 at 64x64) by default, layer3 (C=256 at 32x32) and layer4
+(C=512 at 16x16) on request, at B*N = 120 frames (batch 20 x 6 agents),
+bfloat16 by default, seeded inputs. For each it prints one JSON line: the
+route the wrapper takes (``fused_block.route``: ``wgmma`` for bfloat16 and
+``tf32x3`` for float32 at C 64/128, ``fma`` at C 256/512), the kernel's
+median time over ``--iters`` launches timed by CUDA events after a warm-up,
+its TF/s, the least time the card could take (``bound_ms``: the larger of
+the bytes of x, out and the weights over 3.35 TB/s and the block's
+4*B*H*W*9*C^2 operations at the peak for the type: 989 TFLOP/s of bf16
+tensor cores, 67 TFLOP/s of float32 CUDA cores, or on the tf32x3 route
+three TF32 products per operation at 495 TFLOP/s; ``bound_by`` says which
+of bytes and operations), and the same block as a cuDNN
+composition in channels_last ``--dtype`` with BatchNorm folded into the
+convolutions (``library_ms``, a yardstick the port never calls; float32
+convolutions in TF32 as PyTorch defaults, ``cudnn_tf32``), with
+``vs_library`` = library_ms / ms. The JAX script's fori_loop difference
+quotient exists for a remote TPU and is not carried over. Runs on the card
+only: without one it raises.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ import torch.nn.functional as F
 from multiagentperception_tpu_torch.device import resolve_device
 from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 
-GEOMETRIES = (("layer1", 64, 128), ("layer2", 128, 64))
+GEOMETRIES = {"layer1": (64, 128), "layer2": (128, 64), "layer3": (256, 32),
+              "layer4": (512, 16)}  # name: (C, H = W)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12   # dense TF32 tensor cores
 F32_FLOP_PER_S = 67e12     # float32 without tensor cores
 
 
@@ -74,13 +80,23 @@ def block_ops(x: torch.Tensor) -> int:
     return 4 * b * h * w * 9 * c * c
 
 
-def bound_ms(x: torch.Tensor) -> tuple[float, str]:
-    """The least time for one block on ``x``: bytes (x and out once, the two
-    weights, four (C,) vectors) or operations at the dtype's peak."""
+def bound_ms(x: torch.Tensor, route: str | None = None) -> tuple[float, str]:
+    """The least time for one block on ``x`` (by ``route``, the wrapper's by
+    default): bytes (x and out once, the two weights, four (C,) vectors) or
+    operations at the peak for x's type: bf16 tensor cores, float32 CUDA
+    cores, or, on the ``tf32x3`` route, three TF32 products per float32
+    operation on the tensor cores."""
     c, item = x.shape[-1], x.element_size()
+    route = route or k3.route(x.dtype, c)
     moved = 2 * x.numel() * item + 2 * 9 * c * c * item + 4 * c * 4
-    peak = BF16_FLOP_PER_S if x.dtype == torch.bfloat16 else F32_FLOP_PER_S
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, block_ops(x) / peak * 1e3
+    ops = block_ops(x)
+    if route == "tf32x3":
+        t_ops = 3 * ops / TF32_FLOP_PER_S
+    elif x.dtype == torch.bfloat16:
+        t_ops = ops / BF16_FLOP_PER_S
+    else:
+        t_ops = ops / F32_FLOP_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -104,11 +120,18 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--batch", type=int, default=120, help="B*N frames")
     parser.add_argument("--iters", type=int, default=20, help="timed launches (>= 20)")
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    parser.add_argument("--layers", default="layer1,layer2",
+                        help=f"comma-separated, of {', '.join(GEOMETRIES)}")
     args = parser.parse_args(argv)
+    layers = args.layers.split(",")
+    unknown = sorted(set(layers) - set(GEOMETRIES))
+    if unknown:
+        parser.error(f"unknown layers {unknown}")
     dtype = getattr(torch, args.dtype)
     device = resolve_device(None)
     records = []
-    for name, c, hw in GEOMETRIES:
+    for name in layers:
+        c, hw = GEOMETRIES[name]
         x, params = block_inputs(args.batch, hw, hw, c, dtype, device)
         ms = time_ms(lambda: k3.fused_basic_block(x, *params), max(args.iters, 20))
         lib_ms = time_ms(lambda: cudnn_block(x, *params), max(args.iters, 20))

@@ -13,28 +13,49 @@
 // 3.35 TB/s); the graph is ~37k FMAs per batch element and the fusion
 // 2*N FLOPs per byte of V.
 //
-// Design: grid (tiles of M, B). Every block recomputes its batch element's
-// N x N graph (one warp per (key, query) dot product over D, warp-shuffle
-// sum; the softmax and mask by N threads), which needs no second launch or
-// grid-wide sync but is not free: at the flagship (about 2 x SMs / B blocks
-// per element) each block re-reads all of Q' and K, 2 x 6 x 1024 x 4 B =
-// 48 KB (from L2 after the first block), against its 24 KB share of V, and
-// waits on 36 dot products before it streams anything. Fewer, larger M
-// tiles per block, or the graph computed once and shared, would cut that. Then
-// each thread loads one 16-byte float4 of every agent's V row at a column,
-// keeps the N of them in registers and writes the N fused float4s: each V
-// byte is read once, each fused byte written once, with streaming (evict-
-// first) loads and stores so K and Q' stay in L2 for the other blocks.
+// Design: grid (tiles of M, B) in clusters of kCluster CTAs along M (a
+// cluster belongs to one batch element), no more clusters than the card
+// holds at once, so the flagship runs in one wave. What matters then is
+// that V's bytes are in flight from the start and that the graph is a short
+// chain that hides under them:
+// 1. Each thread loads its part of this CTA's slice of Q' and K (rank r of
+//    the cluster takes the r-th 1/kCluster of D: 6 KB at the flagship) into
+//    shared memory, and only then issues its loads of V: kCols columns
+//    (16-byte float4s) of every agent's row, in registers (kCols = 2 for
+//    N <= 8, 1 above). Issued first, the whole card's V requests queue in L2
+//    ahead of the slices', and the graph waited ~3.5 us for its 6 KB.
+// 2. The CTA's partial logits over its slice are
+//    summed in registers per 8 x 8 group of (key, query) pairs, then by
+//    warp shuffles (warp_sum_scatter) and over the warps in order. Each CTA
+//    stores its partial into every CTA of the cluster (st.async into
+//    distributed shared memory, counted by the receiver's mbarrier), and
+//    every CTA adds the kCluster partials in rank order, so all CTAs agree.
+//    The cluster barrier that makes the mbarriers ready is arrived at before
+//    any load is issued: a release there would wait for V. One thread per (key,
+//    query) pair then forms the softmax over keys, the diagonal bias, the
+//    argmax and the mode mask by shuffles among its query's lanes.
+// 3. Each thread combines its N float4s of a column with coef and writes N
+//    fused float4s; columns beyond the grid's are streamed after. Loads and
+//    stores of V stream (evict-first).
+// Measured on an H100 (globaltimer probes inside the kernel): a design in
+// which every block built the whole graph, one warp per pair and the
+// softmax on N threads, left the V stream waiting ~7 us behind chains of
+// dependent round trips; a block-wide graph of register sums still spent
+// ~4 us reading all of Q' and K in every block.
 // Block (0, b) also writes coef and soft. N <= kMaxAgents (16).
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kMaxAgents = 16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;  // CTAs that share one batch element's graph
+constexpr int kGroup = 8;    // keys x queries of one group of logits in registers
+constexpr int kPre = 2;      // float4s of the slice a thread loads at once (the flagship's all)
 
 enum Mode { kSoftmax = 0, kActivated = 1, kArgmax = 2 };
 
@@ -45,103 +66,332 @@ __device__ __forceinline__ void axpy4(float4& acc, float c, const float4& v) {
   acc.w += c * v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The cluster barrier's halves. A release waits for this thread's loads in
+// flight, so the kernel arrives before it issues any.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// The shared-memory address `addr` of this CTA at the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t at_rank(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+// v into another CTA's shared memory, counted by its mbarrier `bar`
+__device__ __forceinline__ void store_remote(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                   addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// Loads issued where they stand (volatile: the compiler may not sink them
+// below the graph's barriers).
+__device__ __forceinline__ float4 load_stream(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 load_now(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+template <int MAXN>
+__device__ __forceinline__ void load_column(float4 (&vals)[MAXN], const float4* vb, int n,
+                                            long long m4, long long j) {
+#pragma unroll
+  for (int kk = 0; kk < MAXN; ++kk)
+    if (kk < n) vals[kk] = load_stream(vb + kk * m4 + j);
+}
+
+template <int MAXN>
+__device__ __forceinline__ void fuse_column(const float4 (&vals)[MAXN], const float* coef,
+                                            float4* fb, int n, long long m4, long long j) {
+#pragma unroll
+  for (int qq = 0; qq < MAXN; ++qq) {
+    if (qq < n) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < MAXN; ++kk)
+        if (kk < n) axpy4(acc, coef[kk * n + qq], vals[kk]);
+      __stcs(fb + qq * m4 + j, acc);
+    }
+  }
+}
+
+// The width of a CTA's slice of D: a multiple of 4, kCluster of them cover D.
+__host__ __device__ __forceinline__ int slice_pitch(int d) {
+  return ((d + 3) / 4 + kCluster - 1) / kCluster * 4;
+}
+
+// Row `row` of the batch element's K (rows 0..n-1) and Q' (rows n..2n-1).
+__device__ __forceinline__ const float* qk_row(const float* kb, const float* qb, int n, int d,
+                                               int row) {
+  return row < n ? kb + (size_t)row * d : qb + (size_t)(row - n) * d;
+}
+
+// Sums v over the warp's 32 lanes by halving exchanges (62 shuffles, not
+// 64 x 5): lane l ends with the sums of entries 2l and 2l + 1.
+__device__ __forceinline__ float2 warp_sum_scatter(float (&v)[kGroup * kGroup], int lane) {
+  int half = kGroup * kGroup / 2;
+#pragma unroll
+  for (int bit = 16; bit >= 1; bit >>= 1, half >>= 1) {
+    const bool upper = lane & bit;  // keeps the upper half of the live entries
+#pragma unroll
+    for (int i = 0; i < kGroup * kGroup / 2; ++i) {
+      if (i >= half) break;
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+  }
+  return make_float2(v[0], v[1]);
+}
+
+// This CTA's partial logits over the slice in shared memory (2n rows of
+// `pitch` floats, K's then Q''s, zero past the slice's end) into `partial`
+// ([key][query]), by every thread of the block: per 8 x 8 group of (key,
+// query) pairs, each thread's products over the columns 4t .. 4t + 3,
+// 4t + 1024 .. in registers, the warp's sums by warp_sum_scatter, then the
+// warps' in order.
+__device__ __forceinline__ void slice_logits(const float* slice, int n, int pitch,
+                                             float* partial, float (*red)[kGroup * kGroup]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (n + kGroup - 1) / kGroup;
+  const float* kb = slice;
+  const float* qb = slice + n * pitch;
+  for (int g = 0; g < groups * groups; ++g) {
+    const int k0 = (g / groups) * kGroup, q0 = (g % groups) * kGroup;
+    float part[kGroup * kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup * kGroup; ++i) part[i] = 0.f;
+    for (int i = 4 * threadIdx.x; i < pitch; i += 4 * kThreads) {
+      float4 kv[kGroup], qv[kGroup];
+#pragma unroll
+      for (int a = 0; a < kGroup; ++a) {
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        kv[a] = k0 + a < n ? *reinterpret_cast<const float4*>(kb + (k0 + a) * pitch + i) : zero;
+        qv[a] = q0 + a < n ? *reinterpret_cast<const float4*>(qb + (q0 + a) * pitch + i) : zero;
+      }
+#pragma unroll
+      for (int a = 0; a < kGroup; ++a)
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c)
+          part[a * kGroup + c] +=
+              kv[a].x * qv[c].x + kv[a].y * qv[c].y + kv[a].z * qv[c].z + kv[a].w * qv[c].w;
+    }
+    *reinterpret_cast<float2*>(&red[warp][2 * lane]) = warp_sum_scatter(part, lane);
+    __syncthreads();
+    if (threadIdx.x < kGroup * kGroup) {
+      const int a = threadIdx.x / kGroup, c = threadIdx.x % kGroup;
+      if (k0 + a < n && q0 + c < n) {
+        float s = 0.f;
+        for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+        partial[(k0 + a) * n + q0 + c] = s;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int MAXN>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 comm_fusion_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float4* __restrict__ v, float4* __restrict__ fused,
                    float* __restrict__ coef_out, float* __restrict__ soft_out,
                    int n, int d, long long m4, int mode, float diag_bias,
                    float thres) {
-  __shared__ float logits[kMaxAgents * kMaxAgents];  // [key][query]
-  __shared__ float coef[kMaxAgents * kMaxAgents];
+  constexpr int kCols = kMaxAgents / MAXN;  // columns of V a thread has in flight
+  extern __shared__ float4 slice4[];  // this CTA's slice of D: K's n rows, then Q''s n
+  __shared__ float red[kWarps][kGroup * kGroup];
+  __shared__ float partial[MAXN * MAXN];  // [key][query], over this CTA's slice
+  __shared__ float gathered[kCluster][MAXN * MAXN];  // every CTA's partial, by rank
+  __shared__ float logits[MAXN * MAXN];
+  __shared__ float coef[MAXN * MAXN];
+  __shared__ __align__(8) uint64_t arrived;  // counts the gathered bytes
+  float* const slice = reinterpret_cast<float*>(slice4);
+  const uint32_t bar = (uint32_t)__cvta_generic_to_shared(&arrived);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_expect_tx(bar, kCluster * n * n * sizeof(float));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_arrive();  // the mbarrier is ready for the others' stores
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* qb = q + (size_t)b * n * d;
-  const float* kb = k + (size_t)b * n * d;
-
-  for (int p = warp; p < n * n; p += kWarps) {
-    const float* kr = kb + (size_t)(p / n) * d;
-    const float* qr = qb + (size_t)(p % n) * d;
-    float s = 0.f;
-    for (int i = lane; i < d; i += 32) s += kr[i] * qr[i];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) logits[p] = s;
-  }
-  __syncthreads();
-
-  if (threadIdx.x < n) {  // one thread per query column
-    const int qq = threadIdx.x;
-    float mx = -INFINITY;
-    for (int kk = 0; kk < n; ++kk) mx = fmaxf(mx, logits[kk * n + qq]);
-    float sum = 0.f;
-    for (int kk = 0; kk < n; ++kk) {
-      const float e = expf(logits[kk * n + qq] - mx);
-      coef[kk * n + qq] = e;
-      sum += e;
-    }
-    int first = 0;
-    float best = -INFINITY;
-    for (int kk = 0; kk < n; ++kk) {
-      float s = coef[kk * n + qq] / sum;
-      if (kk == qq) s += diag_bias;
-      coef[kk * n + qq] = s;
-      if (blockIdx.x == 0) soft_out[((size_t)b * n + kk) * n + qq] = s;
-      if (s > best) {  // strict: ties keep the lowest key
-        best = s;
-        first = kk;
-      }
-    }
-    for (int kk = 0; kk < n; ++kk) {
-      float s = coef[kk * n + qq];
-      if (mode == kActivated) s = s > thres ? s : 0.f;
-      if (mode == kArgmax) s = kk == first ? 1.f : 0.f;
-      coef[kk * n + qq] = s;
-      if (blockIdx.x == 0) coef_out[((size_t)b * n + kk) * n + qq] = s;
-    }
-  }
-  __syncthreads();
-
+  const float* const kb = k + (size_t)b * n * d;
+  const float* const qb = q + (size_t)b * n * d;
   const float4* vb = v + (size_t)b * n * m4;
   float4* fb = fused + (size_t)b * n * m4;
+
+  // 1. this CTA's slice of K and Q' into shared memory (float4s where D and
+  //    the rows allow; zeros past its end), then V's loads (see the note above)
+  const int pitch = slice_pitch(d);
+  const int d0 = min(d, (int)cluster_rank() * pitch), len = min(d, d0 + pitch) - d0;
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(kb) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(qb) % 16 == 0;
+  const int row4 = max(len / 4, 1), total4 = vec ? 2 * n * (len / 4) : 0;
+  float4 pre[kPre];
+#pragma unroll
+  for (int u = 0; u < kPre; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < total4)
+      pre[u] = load_now(reinterpret_cast<const float4*>(qk_row(kb, qb, n, d, i / row4) + d0) +
+                        i % row4);
+  }
+  if (vec && len == pitch) {
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < total4) slice4[i] = pre[u];  // rows of len == pitch floats
+    }
+    for (int i = threadIdx.x + kPre * kThreads; i < total4; i += kThreads)
+      slice4[i] = reinterpret_cast<const float4*>(qk_row(kb, qb, n, d, i / row4) + d0)[i % row4];
+  } else {
+    for (int i = threadIdx.x; i < 2 * n * pitch; i += kThreads) {
+      const int row = i / pitch, col = i % pitch;
+      slice[i] = col < len ? qk_row(kb, qb, n, d, row)[d0 + col] : 0.f;
+    }
+  }
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < m4; j += stride) {
-    float4 vals[kMaxAgents];
+  const long long j0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float4 vals[kCols][MAXN];
 #pragma unroll
-    for (int kk = 0; kk < kMaxAgents; ++kk)
-      if (kk < n) vals[kk] = __ldcs(vb + kk * m4 + j);
+  for (int c = 0; c < kCols; ++c)
+    if (j0 + c * stride < m4) load_column<MAXN>(vals[c], vb, n, m4, j0 + c * stride);
+  __syncthreads();
+
+  // 2. the graph
+  slice_logits(slice, n, pitch, partial, red);
+  cluster_wait();  // every CTA's mbarrier is ready (long since, by now)
+  if (threadIdx.x < n * n) {  // this CTA's partial into every CTA's `gathered`
+    const uint32_t rank = cluster_rank();
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(&gathered[rank][threadIdx.x]);
+    for (uint32_t r = 0; r < kCluster; ++r)
+      store_remote(at_rank(dst, r), partial[threadIdx.x], at_rank(bar, r));
+  }
+  mbar_wait(bar, 0);  // all kCluster partials have landed here
+  if (threadIdx.x < n * n) {
+    float s = 0.f;
+    for (int r = 0; r < kCluster; ++r) s += gathered[r][threadIdx.x];
+    logits[threadIdx.x] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < MAXN * MAXN) {  // MAXN lanes per query column, one per key
+    const int qq = threadIdx.x / MAXN, kk = threadIdx.x % MAXN;
+    const bool valid = qq < n && kk < n;
+    const float l = valid ? logits[kk * n + qq] : -INFINITY;
+    float mx = l;
 #pragma unroll
-    for (int qq = 0; qq < kMaxAgents; ++qq) {
-      if (qq < n) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int off = MAXN / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float e = valid ? expf(l - mx) : 0.f;
+    float sum = e;
 #pragma unroll
-        for (int kk = 0; kk < kMaxAgents; ++kk)
-          if (kk < n) axpy4(acc, coef[kk * n + qq], vals[kk]);
-        __stcs(fb + qq * m4 + j, acc);
+    for (int off = MAXN / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    float s = valid ? e / sum : -INFINITY;
+    if (kk == qq) s += diag_bias;
+    float best = s;  // the column's argmax; ties keep the lowest key
+    int first = kk;
+#pragma unroll
+    for (int off = MAXN / 2; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int of = __shfl_xor_sync(0xffffffffu, first, off);
+      if (ob > best || (ob == best && of < first)) {
+        best = ob;
+        first = of;
+      }
+    }
+    float c = s;
+    if (mode == kActivated) c = s > thres ? s : 0.f;
+    if (mode == kArgmax) c = kk == first ? 1.f : 0.f;
+    if (valid) {
+      coef[kk * n + qq] = c;
+      if (blockIdx.x == 0) {
+        soft_out[((size_t)b * n + kk) * n + qq] = s;
+        coef_out[((size_t)b * n + kk) * n + qq] = c;
       }
     }
   }
+  __syncthreads();
+
+  // 3. fuse the columns in flight, then any further ones
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (j0 + c * stride < m4) fuse_column<MAXN>(vals[c], coef, fb, n, m4, j0 + c * stride);
+  for (long long j = j0 + kCols * stride; j < m4; j += stride) {
+    load_column<MAXN>(vals[0], vb, n, m4, j);
+    fuse_column<MAXN>(vals[0], coef, fb, n, m4, j);
+  }
+}
+
+template <int MAXN>
+int launch(const float* q, const float* k, const float* v, float* fused, float* coef,
+           float* soft, int B, int N, int D, long long M, int mode, float diag_bias,
+           float thres, cudaStream_t stream) {
+  auto kernel = comm_fusion_kernel<MAXN>;
+  constexpr int kCols = kMaxAgents / MAXN;
+  const long long m4 = M / 4;
+  const size_t smem = (size_t)2 * N * slice_pitch(D) * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  // the clusters the card holds at once, shared over the batch (one wave
+  // when the batch allows), and no more CTAs per batch element than give
+  // each thread kCols columns. The query is host time on every eval batch,
+  // so it is made once per device and shared-memory size (a stale value
+  // could only change the grid's size).
+  static int active_dev = -1, active = 0;
+  static size_t active_smem = 0;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev != active_dev || smem != active_smem) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    if ((err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg)) != cudaSuccess)
+      return (int)err;
+    active_dev = dev;
+    active_smem = smem;
+  }
+  const long long cols = (m4 + (long long)kThreads * kCols - 1) / ((long long)kThreads * kCols);
+  long long per_b = active / B;  // clusters
+  if (per_b < 1) per_b = 1;
+  if (per_b * kCluster > cols) per_b = (cols + kCluster - 1) / kCluster;
+  const dim3 grid((unsigned)(per_b * kCluster), B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, reinterpret_cast<const float4*>(v), reinterpret_cast<float4*>(fused), coef, soft,
+      N, D, m4, mode, diag_bias, thres);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k: (B, N, D) f32; v, fused: (B, N, M) f32 with M % 4 == 0 and 16-byte
 // aligned rows; coef, soft: (B, N, N) f32. mode: 0 softmax, 1 activated,
-// 2 argmax. Returns cudaGetLastError().
+// 2 argmax. Returns a cudaError_t.
 extern "C" int comm_fusion_f32(const float* q, const float* k, const float* v,
                                float* fused, float* coef, float* soft, int B, int N,
                                int D, long long M, int mode, float diag_bias,
                                float thres, void* stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long m4 = M / 4;
-  // about two blocks per SM over the whole batch; each block strides over M
-  long long tiles = (m4 + kThreads - 1) / kThreads;
-  long long per_b = (2LL * sms + B - 1) / B;
-  if (per_b < 1) per_b = 1;
-  const dim3 grid((unsigned)(tiles < per_b ? tiles : per_b), B);
-  comm_fusion_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      q, k, reinterpret_cast<const float4*>(v), reinterpret_cast<float4*>(fused),
-      coef, soft, N, D, m4, mode, diag_bias, thres);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 8) return launch<8>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
+  return launch<kMaxAgents>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
 }

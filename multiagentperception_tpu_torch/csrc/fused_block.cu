@@ -29,13 +29,12 @@
 // TILE is the largest of 16, 8, 4 whose halo and ring fit the 227 KB of
 // shared memory.
 //
-// The wrapper (ops/kernels/fused_block.py, route()) sends float32 at every
-// C and bfloat16 at C = 256/512 here; bfloat16 at C = 64/128 goes to
-// csrc/fused_block_wgmma.cu on the tensor cores. float32 stays on CUDA
-// cores because K3's float32 check holds it to 1e-4, which TF32 tensor
-// cores cannot meet (an error-compensated 3xTF32 wgmma is later work), and
-// bfloat16 at 256/512 channels because their halo, ring and one tap's
-// weights do not fit shared memory without cutting the channels.
+// The wrapper (ops/kernels/fused_block.py, route()) sends C = 256/512 here
+// in both types; at C = 64/128 bfloat16 goes to csrc/fused_block_wgmma.cu
+// and float32 to csrc/fused_block_tf32.cu (3xTF32 products), both on the
+// tensor cores. C = 256/512 stays on CUDA cores because their halo, ring
+// and one tap's weights do not fit shared memory without cutting the
+// channels into chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled alone by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` under the
-package (a directory ``.gitignore`` lists). The hash covers the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded.
+package (a directory ``.gitignore`` lists). The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded.
 Nothing here runs at import time: this module is imported on hosts that
 have no ``nvcc``.
 
@@ -40,6 +41,7 @@ SIGNATURES = {
     "fused_block": ("fused_basic_block",
                     [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
     "fused_block_wgmma": ("fused_basic_block_wgmma", [P, P, P, P, I32, I32, I32, I32, P]),
+    "fused_block_tf32": ("fused_basic_block_tf32x3", [P, P, P, P, I32, I32, I32, I32, P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,7 +61,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -18,20 +18,24 @@ The JAX function's ``tile``, ``pair`` and ``interpret`` arguments choose the
 TPU kernel's layout and change nothing in the result, so they are not
 taken here.
 
-On CUDA tensors ``fused_basic_block`` launches one of two kernels, as
-``route(dtype, C)`` says (any H and W on both):
+On CUDA tensors ``fused_basic_block`` launches one of three kernels, as
+``route(dtype, C)`` says (any H and W on each):
 
 - ``"wgmma"``: bfloat16 at C in 64/128 (the bench's layer1 and layer2),
   ``csrc/fused_block_wgmma.cu`` on Hopper's tensor cores;
-- ``"fma"``: float32 at any C, and bfloat16 at C in 256/512,
-  ``csrc/fused_block.cu`` on CUDA cores. The float32 check holds K3 to
-  1e-4, which TF32 tensor cores cannot meet; 512 channels of halo, ring
-  and weights do not fit shared memory without cutting the channels.
+- ``"tf32x3"``: float32 at C in 64/128 (the eval's layer1 and layer2),
+  ``csrc/fused_block_tf32.cu`` on the tensor cores with error-compensated
+  3xTF32 products: each float32 operand is split into a TF32 ``hi`` and
+  ``lo`` (``tf32_split``) and a product is ``hi*hi + hi*lo + lo*hi``, which
+  keeps K3's float32 check (1e-4) where a single TF32 product does not;
+- ``"fma"``: C in 256/512 in both types, ``csrc/fused_block.cu`` on CUDA
+  cores (512 channels of halo, ring and weights do not fit shared memory
+  without cutting the channels).
 
 Each route counts its own launches in ``fused_basic_block.route_launches``,
-and ``fused_basic_block.launches`` counts both. A route that fails to
-build or launch raises; neither falls back to the other. On CPU tensors
-the wrapper runs ``fused_basic_block_plain``, the same function in plain
+and ``fused_basic_block.launches`` counts all three. A route that fails to
+build or launch raises; none falls back to another. On CPU tensors the
+wrapper runs ``fused_basic_block_plain``, the same function in plain
 PyTorch.
 """
 
@@ -46,18 +50,21 @@ from multiagentperception_tpu_torch.ops.kernels import _build
 
 CHANNELS = (64, 128, 256, 512)  # ResNet-18's stride-1 blocks; instantiated in csrc
 DTYPES = (torch.float32, torch.bfloat16)
-WGMMA_CHANNELS = (64, 128)  # instantiated in csrc/fused_block_wgmma.cu
-ROUTES = ("wgmma", "fma")
+TENSOR_CORE_CHANNELS = (64, 128)  # instantiated in fused_block_wgmma.cu and fused_block_tf32.cu
+TF32X3_STAGE = {64: 64, 128: 32}  # input channels of a weight stage in fused_block_tf32.cu
+ROUTES = ("wgmma", "tf32x3", "fma")
 
 
 def route(dtype: torch.dtype, c: int) -> str:
-    """The kernel that takes a (dtype, C) block: ``"wgmma"`` or ``"fma"``.
-    Raises on what neither kernel takes."""
+    """The kernel that takes a (dtype, C) block: ``"wgmma"``, ``"tf32x3"``
+    or ``"fma"``. Raises on what no kernel takes."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_basic_block kernel takes float32 or bfloat16, got {dtype}")
     if c not in CHANNELS:
         raise ValueError(f"fused_basic_block kernel takes C in {CHANNELS}, got {c}")
-    return "wgmma" if dtype == torch.bfloat16 and c in WGMMA_CHANNELS else "fma"
+    if c not in TENSOR_CORE_CHANNELS:
+        return "fma"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def wgmma_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -68,6 +75,32 @@ def wgmma_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     c = w1.shape[-1]
     w = torch.stack([w1, w2]).to(torch.bfloat16).reshape(2, 9, c // 64, 8, 8, c)
     return w.permute(0, 1, 2, 3, 5, 4).contiguous()
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest,
+    ties away from zero, keeping 10 of the 23 mantissa bits."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``, both TF32 values, with ``hi = tf32_round(v)`` and
+    ``lo = tf32_round(v - hi)`` (``v - hi`` is exact in float32)."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v.float() - hi)
+
+
+def tf32x3_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Both convs' HWIO weights split by ``tf32_split`` as the tf32x3 kernel
+    streams them: (2, 9, C/KS, 2, KS/4, C, 4) float32 = [conv][tap][KS-channel
+    K chunk][hi, lo][4-channel K group][output channel][4 input channels],
+    KS = ``TF32X3_STAGE[C]``, one stage (hi then lo) after another."""
+    c = w1.shape[-1]
+    ks = TF32X3_STAGE[c]
+    w = torch.stack([w1, w2]).float().reshape(2, 9, c // ks, ks // 4, 4, c)
+    hi, lo = tf32_split(w.permute(0, 1, 2, 3, 5, 4))
+    return torch.stack([hi, lo], dim=3).contiguous()
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -121,14 +154,17 @@ def fused_basic_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-        if path == "wgmma":
-            wk = wgmma_weights(w1, w2)
+        if path in ("wgmma", "tf32x3"):
+            wk = wgmma_weights(w1, w2) if path == "wgmma" else tf32x3_weights(w1, w2)
             sb = torch.cat([v.float() for v in (s1, b1, s2, b2)])
             if x.data_ptr() % 16 or wk.data_ptr() % 16:
-                raise ValueError("fused_basic_block wgmma kernel: x must start 16-byte aligned")
-            rc = _build.load("fused_block_wgmma").fused_basic_block_wgmma(
-                x.data_ptr(), wk.data_ptr(), sb.data_ptr(), out.data_ptr(), bsz, h, w, c,
-                stream)
+                raise ValueError(f"fused_basic_block {path} kernel: x must start 16-byte aligned")
+            if path == "wgmma":
+                fn = _build.load("fused_block_wgmma").fused_basic_block_wgmma
+            else:
+                fn = _build.load("fused_block_tf32").fused_basic_block_tf32x3
+            rc = fn(x.data_ptr(), wk.data_ptr(), sb.data_ptr(), out.data_ptr(), bsz, h, w, c,
+                    stream)
         else:
             w1k, w2k = (wt.to(x.dtype).contiguous() for wt in (w1, w2))
             if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:

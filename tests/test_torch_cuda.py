@@ -66,6 +66,42 @@ def test_comm_fusion_kernel_matches_plain(cuda, mode):
     assert k2.comm_fusion.launches == before + 1
 
 
+@pytest.mark.parametrize("b,n,d,rest,mode", [
+    (1, 6, 1024, (512, 16, 16), "activated"), (1, 6, 1024, (512, 16, 16), "argmax"),
+    (2, 1, 1000, (64, 16, 16), "softmax"), (2, 1, 1000, (64, 16, 16), "argmax"),
+    (20, 6, 37, (257, 4), "softmax"), (20, 6, 37, (257, 4), "activated"),
+    (20, 6, 37, (257, 4), "argmax"),
+    (2, 16, 5, (3, 100), "softmax"), (2, 16, 5, (3, 100), "activated"),
+    (2, 16, 5, (3, 100), "argmax"),
+    (20, 16, 1024, (2, 514), "activated")],
+    ids=["b1_n6_activated", "b1_n6_argmax", "b2_n1_softmax", "b2_n1_argmax",
+         "b20_n6_m1028_softmax", "b20_n6_m1028_activated", "b20_n6_m1028_argmax",
+         "b2_n16_m300_softmax", "b2_n16_m300_activated", "b2_n16_m300_argmax",
+         "b20_n16_m1028_activated"])
+def test_comm_fusion_kernel_other_shapes(cuda, b, n, d, rest, mode):
+    """B from 1 to 20, N from 1 to 16 (one agent has no link to keep, so
+    ``activated`` is checked from N=6), D shorter than the cluster's eight
+    slices, and M (C*h*w) that is no multiple of a CTA's 256 float4 columns."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(b, n, d, generator=g).to(cuda)
+    k = (torch.randn(b, n, d, generator=g) * 3 / d ** 0.5).to(cuda)  # links survive
+    v = torch.randn(b, n, *rest, generator=g).to(cuda)
+    before = k2.comm_fusion.launches
+    checks.check_comm_fusion(q, k, v, mode, diag_bias=0.001)
+    assert k2.comm_fusion.launches == before + 1
+
+
+@pytest.mark.parametrize("what", ["non_contiguous", "m_not_a_multiple_of_4"])
+def test_comm_fusion_kernel_refuses(cuda, what):
+    q, k = (torch.randn(2, 6, 64, device=cuda) for _ in range(2))
+    if what == "non_contiguous":
+        v, err = torch.randn(2, 6, 16, 16, 8, device=cuda).transpose(2, 4), "contiguous"
+    else:
+        v, err = torch.randn(2, 6, 3, 5, device=cuda), "M % 4"
+    with pytest.raises(ValueError, match=err):
+        k2.comm_fusion(q, k, v, mode="softmax")
+
+
 def test_comm_fusion_kernel_refuses_bf16(cuda):
     q, k = (torch.randn(2, 6, 1024, device=cuda, dtype=torch.bfloat16) for _ in range(2))
     v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.bfloat16)
@@ -104,6 +140,21 @@ def test_fused_block_wgmma_route_matches_plain(cuda, b, h, w, c):
     before = dict(k3.fused_basic_block.route_launches)
     checks.check_fused_block(x, *params)
     assert k3.fused_basic_block.route_launches == {**before, "wgmma": before["wgmma"] + 1}
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 16, 16, 64), (1, 8, 16, 128), (1, 5, 7, 64),
+                                     (1, 5, 7, 128), (1, 7, 13, 64), (1, 7, 13, 128),
+                                     (1, 37, 45, 64), (1, 37, 45, 128)],
+                         ids=["c64_one_tile", "c128_one_tile", "c64_5x7", "c128_5x7",
+                              "c64_7x13", "c128_7x13", "c64_37x45", "c128_37x45"])
+def test_fused_block_tf32x3_route_matches_plain(cuda, b, h, w, c):
+    """float32 at C = 64/128 takes the 3xTF32 kernel, held to the float32
+    check (rtol/atol 1e-4): B = 1, images smaller than a tile (16x16 at
+    C=64, 8x16 at C=128), and H, W that are no multiple of it."""
+    x, params = block_inputs(b, h, w, c, torch.float32, cuda, seed=1)
+    before = dict(k3.fused_basic_block.route_launches)
+    checks.check_fused_block(x, *params)
+    assert k3.fused_basic_block.route_launches == {**before, "tf32x3": before["tf32x3"] + 1}
 
 
 @pytest.mark.parametrize("what", ["non_contiguous", "channels_96", "float16"])

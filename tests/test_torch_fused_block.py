@@ -130,8 +130,9 @@ def test_wrapper_refuses_other_layouts():
                                           (torch.bfloat16, 128, "wgmma"),
                                           (torch.bfloat16, 256, "fma"),
                                           (torch.bfloat16, 512, "fma"),
-                                          (torch.float32, 64, "fma"),
-                                          (torch.float32, 128, "fma"),
+                                          (torch.float32, 64, "tf32x3"),
+                                          (torch.float32, 128, "tf32x3"),
+                                          (torch.float32, 256, "fma"),
                                           (torch.float32, 512, "fma")])
 def test_route(dtype, c, want):
     assert k3.route(dtype, c) == want

@@ -9,14 +9,14 @@ layer2 (C=128 at 64x64) by default, layer3 (C=256 at 32x32) and layer4
 (C=512 at 16x16) on request, at B*N = 120 frames (batch 20 x 6 agents),
 bfloat16 by default, seeded inputs. For each it prints one JSON line: the
 route the wrapper takes (``fused_block.route``: ``wgmma`` for bfloat16 and
-``tf32x3`` for float32 at C 64/128, ``fma`` at C 256/512), the kernel's
-median time over ``--iters`` launches timed by CUDA events after a warm-up,
-its TF/s, the least time the card could take (``bound_ms``: the larger of
-the bytes of x, out and the weights over 3.35 TB/s and the block's
-4*B*H*W*9*C^2 operations at the peak for the type: 989 TFLOP/s of bf16
-tensor cores, 67 TFLOP/s of float32 CUDA cores, or on the tf32x3 route
-three TF32 products per operation at 495 TFLOP/s; ``bound_by`` says which
-of bytes and operations), and the same block as a cuDNN
+``tf32x3`` for float32 at C 64/128, ``wgmma_conv`` and ``tf32x3_conv`` at
+C 256/512), the kernel's median time over ``--iters`` launches timed by
+CUDA events after a warm-up, its TF/s, the least time the card could take
+(``bound_ms``: the larger of the bytes of x, out and the weights over
+3.35 TB/s and the block's 4*B*H*W*9*C^2 operations at the peak for the
+type: 989 TFLOP/s of bf16 tensor cores, or on the float32 routes three
+TF32 products per operation at 495 TFLOP/s; ``bound_by`` says which of
+bytes and operations), and the same block as a cuDNN
 composition in channels_last ``--dtype`` with BatchNorm folded into the
 convolutions (``library_ms``, a yardstick the port never calls; float32
 convolutions in TF32 as PyTorch defaults, ``cudnn_tf32``), with
@@ -42,7 +42,6 @@ GEOMETRIES = {"layer1": (64, 128), "layer2": (128, 64), "layer3": (256, 32),
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor cores
 TF32_FLOP_PER_S = 495e12   # dense TF32 tensor cores
-F32_FLOP_PER_S = 67e12     # float32 without tensor cores
 
 
 def block_inputs(b: int, h: int, w: int, c: int, dtype, device, seed: int = 0):
@@ -80,22 +79,17 @@ def block_ops(x: torch.Tensor) -> int:
     return 4 * b * h * w * 9 * c * c
 
 
-def bound_ms(x: torch.Tensor, route: str | None = None) -> tuple[float, str]:
-    """The least time for one block on ``x`` (by ``route``, the wrapper's by
-    default): bytes (x and out once, the two weights, four (C,) vectors) or
-    operations at the peak for x's type: bf16 tensor cores, float32 CUDA
-    cores, or, on the ``tf32x3`` route, three TF32 products per float32
-    operation on the tensor cores."""
+def bound_ms(x: torch.Tensor) -> tuple[float, str]:
+    """The least time for one block on ``x``: bytes (x and out once, the two
+    weights, four (C,) vectors) or operations at the peak of the tensor
+    cores that K3's routes use: bf16, or for float32 three TF32 products per
+    operation (the tf32x3 routes' arithmetic)."""
     c, item = x.shape[-1], x.element_size()
-    route = route or k3.route(x.dtype, c)
     moved = 2 * x.numel() * item + 2 * 9 * c * c * item + 4 * c * 4
-    ops = block_ops(x)
-    if route == "tf32x3":
-        t_ops = 3 * ops / TF32_FLOP_PER_S
-    elif x.dtype == torch.bfloat16:
-        t_ops = ops / BF16_FLOP_PER_S
+    if x.dtype == torch.bfloat16:
+        t_ops = block_ops(x) / BF16_FLOP_PER_S
     else:
-        t_ops = ops / F32_FLOP_PER_S
+        t_ops = 3 * block_ops(x) / TF32_FLOP_PER_S
     t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, t_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 

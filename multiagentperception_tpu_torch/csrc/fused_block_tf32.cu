@@ -4,7 +4,8 @@
 //
 // Replaces, for float32 at C = 64 and 128, the TPU kernel
 // multiagentperception_tpu/ops/pallas/fused_block.py (fused_basic_block ->
-// _kernel_pair / _kernel_plain); csrc/fused_block.cu keeps C = 256 and 512:
+// _kernel_pair / _kernel_plain); csrc/fused_block_tf32_conv.cu takes float32
+// at C = 256 and 512, as two convolutions:
 //     out = relu(s2 * conv2(y1) + b2 + x),  y1 = relu(s1 * conv1(x) + b1)
 // 3x3 stride-1 convs, zero padding at the image border (conv2 reads zeros
 // there too, never relu(b1)), NHWC float32 activations, y1 kept in float32,
@@ -115,40 +116,6 @@ __device__ __forceinline__ void consumers_sync() {
 }
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-}
-
-// cvt.rna: float32 -> tf32 (round to nearest, ties away), low 13 bits zero
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ void split(const float (&v)[4], uint32_t (&hi)[4],
-                                      uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = tf32_rna(v[i]);
-    lo[i] = tf32_rna(__fsub_rn(v[i], __uint_as_float(hi[i])));
-  }
-}
-
-// d (64 x 64, f32, wgmma's register layout) = A (64 x 8, tf32 fragment in
-// registers) * B (8 x 64, tf32 in shared memory) + (scale_d ? d : 0)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 struct Bars {

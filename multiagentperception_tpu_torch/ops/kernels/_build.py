@@ -38,10 +38,12 @@ SIGNATURES = {
                         [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]),
     "comm_fusion": ("comm_fusion_f32",
                     [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]),
-    "fused_block": ("fused_basic_block",
-                    [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
     "fused_block_wgmma": ("fused_basic_block_wgmma", [P, P, P, P, I32, I32, I32, I32, P]),
     "fused_block_tf32": ("fused_basic_block_tf32x3", [P, P, P, P, I32, I32, I32, I32, P]),
+    "fused_block_wgmma_conv": ("fused_basic_block_wgmma_conv",
+                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
+    "fused_block_tf32_conv": ("fused_basic_block_tf32x3_conv",
+                              [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

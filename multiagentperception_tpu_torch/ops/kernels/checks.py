@@ -37,6 +37,21 @@ Tolerances:
   the plain version left none (chip_smoke.py phase 1 on an H100; an open
   question in PERF.md section 7). The checks run C=128 images of at
   least 7x13, where the two agree with float64 alike.
+
+  bfloat16 at C >= 256 (``K3_BF16_WIDE``): the share beyond the near bound
+  from the plain version is held as above, but the far bound is read
+  against the block in float64 (``block_float64``, y1 rounded to bfloat16
+  as both sides round it) instead of against the plain version. A y1 ulp
+  (up to 0.0625 at these values) times a weight moves an output by up to
+  ~1.2e-2 when one side's float32 sum of the 9*C products rounds y1 the
+  other way, beyond 4 ulp + 1e-2, and the chance of such a flip grows with
+  the 9*C values each output reads: on an H100 the plain version itself
+  lay that far from float64 at 2 of 31.5M elements at the bench's layer3
+  (PERF.md section 6). Such an element says which side rounded y1 wrongly,
+  which a kernel-against-plain difference cannot. So the rule is: summed
+  over the seeds run at a geometry (``assert_far_no_worse``), the kernel
+  has no more elements beyond the far bound from float64 than the plain
+  version has. No bound at C <= 128 changes.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ K3_F32_TOL = 1e-4
 K3_BF16_NEAR = (1, 1e-3)  # (ulps, atol) all but a share K3_BF16_RARE_C64 * C/64 meet
 K3_BF16_FAR = (4, 1e-2)   # (ulps, atol) that every element meets
 K3_BF16_RARE_C64 = 1e-4
+K3_BF16_WIDE = 256  # from this C on, the far bound is read against float64
 
 
 def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
@@ -105,18 +121,22 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def assert_bf16_close(got: torch.Tensor, ref: torch.Tensor) -> dict:
-    """K3's bfloat16 comparator (see the module docstring). Returns the
-    largest absolute error, the share of elements that differ at all and
-    the share beyond the near bound."""
+def _bf16_near(got: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, float, float]:
+    """(|got - ref|, the share beyond the near bound, the share allowed)."""
     if got.dtype != torch.bfloat16 or got.shape != ref.shape:
         raise AssertionError(f"K3 gives {got.dtype} {tuple(got.shape)}, "
                              f"plain {ref.dtype} {tuple(ref.shape)}")
     err = (got.float() - ref.float()).abs()
-    ulp = bf16_ulp(ref)
-    far = int((err > K3_BF16_FAR[0] * ulp + K3_BF16_FAR[1]).sum())
-    beyond = (err > K3_BF16_NEAR[0] * ulp + K3_BF16_NEAR[1]).float().mean().item()
-    allowed = K3_BF16_RARE_C64 * got.shape[-1] / 64
+    beyond = (err > K3_BF16_NEAR[0] * bf16_ulp(ref) + K3_BF16_NEAR[1]).float().mean().item()
+    return err, beyond, K3_BF16_RARE_C64 * got.shape[-1] / 64
+
+
+def assert_bf16_close(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K3's bfloat16 comparator (see the module docstring). Returns the
+    largest absolute error, the share of elements that differ at all and
+    the share beyond the near bound."""
+    err, beyond, allowed = _bf16_near(got, ref)
+    far = int((err > K3_BF16_FAR[0] * bf16_ulp(ref) + K3_BF16_FAR[1]).sum())
     if far or beyond > allowed:
         raise AssertionError(f"K3 bf16 disagrees: {far} elements beyond {K3_BF16_FAR}, "
                              f"{beyond:.3e} of them beyond {K3_BF16_NEAR} "
@@ -125,14 +145,67 @@ def assert_bf16_close(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "mismatch_share": (err > 0).float().mean().item(), "beyond_near_share": beyond}
 
 
+def beyond_far(v: torch.Tensor, f64: torch.Tensor) -> int:
+    """Elements of ``v`` beyond the far bound (4 ulp + 1e-2) from ``f64``."""
+    far = K3_BF16_FAR[0] * bf16_ulp(f64) + K3_BF16_FAR[1]
+    return int(((v.double() - f64).abs() > far).sum())
+
+
+def assert_bf16_wide(got: torch.Tensor, ref: torch.Tensor, f64: torch.Tensor) -> dict:
+    """K3's bfloat16 comparator at C >= 256 on one input: the share beyond
+    the near bound from the plain version ``ref``, as ``assert_bf16_close``
+    holds it, and each side's elements beyond the far bound from ``f64``
+    (``beyond_far_from_float64``), which ``assert_far_no_worse`` holds
+    summed over seeds."""
+    err, beyond, allowed = _bf16_near(got, ref)
+    if beyond > allowed:
+        raise AssertionError(f"K3 bf16 disagrees: {beyond:.3e} of the elements beyond "
+                             f"{K3_BF16_NEAR} (allowed {allowed:.1e}), largest error "
+                             f"{err.max().item()}")
+    return {"max_abs_err": err.max().item(),
+            "mismatch_share": (err > 0).float().mean().item(), "beyond_near_share": beyond,
+            "beyond_far_from_float64": {"kernel": beyond_far(got, f64),
+                                        "plain": beyond_far(ref, f64)}}
+
+
+def assert_far_no_worse(results: list[dict]) -> dict:
+    """The far-bound rule at C >= 256 over the seeds of one geometry (each an
+    ``assert_bf16_wide`` result): the kernel has no more elements beyond the
+    far bound from float64 than the plain version. Returns both sums."""
+    sums = {side: sum(r["beyond_far_from_float64"][side] for r in results)
+            for side in ("kernel", "plain")}
+    if sums["kernel"] > sums["plain"]:
+        raise AssertionError(f"K3 bf16 lies beyond {K3_BF16_FAR} of float64 at "
+                             f"{sums['kernel']} elements, its plain version at {sums['plain']}")
+    return sums
+
+
+def block_float64(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
+    """K3's block in float64 on ``x.dtype`` values, y1 rounded to
+    ``x.dtype`` as both K3 and its plain version round it."""
+    xc = x.permute(0, 3, 1, 2).double()
+
+    def conv(v, w, s, b):
+        w = w.to(x.dtype).double().permute(3, 2, 0, 1)
+        return (torch.nn.functional.conv2d(v, w, padding=1) * s.double()[:, None, None]
+                + b.double()[:, None, None])
+
+    y = torch.relu(conv(xc, w1, s1, b1)).to(x.dtype).double()
+    return torch.relu(conv(y, w2, s2, b2) + xc).permute(0, 2, 3, 1)
+
+
 def check_fused_block(x, w1, s1, b1, w2, s2, b2) -> dict:
     """K3 on ``x`` (B, H, W, C) on the card against its plain version, in
-    ``x.dtype``, with the plain version's convolutions in full float32."""
+    ``x.dtype``, with the plain version's convolutions in full float32.
+    bfloat16 at C >= 256 returns the far-bound counts that the caller holds
+    with ``assert_far_no_worse`` over its seeds."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         got = k3.fused_basic_block(x, w1, s1, b1, w2, s2, b2)
         ref = k3.fused_basic_block_plain(x, w1, s1, b1, w2, s2, b2)
+        if x.dtype == torch.bfloat16 and x.shape[-1] >= K3_BF16_WIDE:
+            return assert_bf16_wide(got, ref, block_float64(x, w1, s1, b1, w2, s2, b2))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     if x.dtype == torch.bfloat16:

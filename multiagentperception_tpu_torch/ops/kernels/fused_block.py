@@ -18,8 +18,8 @@ The JAX function's ``tile``, ``pair`` and ``interpret`` arguments choose the
 TPU kernel's layout and change nothing in the result, so they are not
 taken here.
 
-On CUDA tensors ``fused_basic_block`` launches one of three kernels, as
-``route(dtype, C)`` says (any H and W on each):
+On CUDA tensors ``fused_basic_block`` launches the kernels of one of four
+routes, as ``route(dtype, C)`` says (any H and W on each):
 
 - ``"wgmma"``: bfloat16 at C in 64/128 (the bench's layer1 and layer2),
   ``csrc/fused_block_wgmma.cu`` on Hopper's tensor cores;
@@ -28,12 +28,17 @@ On CUDA tensors ``fused_basic_block`` launches one of three kernels, as
   3xTF32 products: each float32 operand is split into a TF32 ``hi`` and
   ``lo`` (``tf32_split``) and a product is ``hi*hi + hi*lo + lo*hi``, which
   keeps K3's float32 check (1e-4) where a single TF32 product does not;
-- ``"fma"``: C in 256/512 in both types, ``csrc/fused_block.cu`` on CUDA
-  cores (512 channels of halo, ring and weights do not fit shared memory
-  without cutting the channels).
+- ``"wgmma_conv"``: bfloat16 at C in 256/512 (layer3 and layer4),
+  ``csrc/fused_block_wgmma_conv.cu``, and ``"tf32x3_conv"``: float32 there,
+  ``csrc/fused_block_tf32_conv.cu``. At these widths a tile's halo, its y1
+  ring and one tap's weights do not fit shared memory, so each entry point
+  runs the block as two implicit-GEMM convolutions on the tensor cores
+  (conv1 into a ``y1`` scratch tensor in ``x.dtype``, then conv2 with the
+  residual), with the same products and per-stage sums as the route of
+  the same type at C in 64/128.
 
-Each route counts its own launches in ``fused_basic_block.route_launches``,
-and ``fused_basic_block.launches`` counts all three. A route that fails to
+Each route counts its own blocks in ``fused_basic_block.route_launches``,
+and ``fused_basic_block.launches`` counts all four. A route that fails to
 build or launch raises; none falls back to another. On CPU tensors the
 wrapper runs ``fused_basic_block_plain``, the same function in plain
 PyTorch.
@@ -50,21 +55,25 @@ from multiagentperception_tpu_torch.ops.kernels import _build
 
 CHANNELS = (64, 128, 256, 512)  # ResNet-18's stride-1 blocks; instantiated in csrc
 DTYPES = (torch.float32, torch.bfloat16)
-TENSOR_CORE_CHANNELS = (64, 128)  # instantiated in fused_block_wgmma.cu and fused_block_tf32.cu
+FUSED_CHANNELS = (64, 128)  # instantiated in fused_block_wgmma.cu and fused_block_tf32.cu
 TF32X3_STAGE = {64: 64, 128: 32}  # input channels of a weight stage in fused_block_tf32.cu
-ROUTES = ("wgmma", "tf32x3", "fma")
+ROUTES = ("wgmma", "tf32x3", "wgmma_conv", "tf32x3_conv")
+# route: (kernel source in csrc/, its C entry point)
+KERNELS = {"wgmma": ("fused_block_wgmma", "fused_basic_block_wgmma"),
+           "tf32x3": ("fused_block_tf32", "fused_basic_block_tf32x3"),
+           "wgmma_conv": ("fused_block_wgmma_conv", "fused_basic_block_wgmma_conv"),
+           "tf32x3_conv": ("fused_block_tf32_conv", "fused_basic_block_tf32x3_conv")}
 
 
 def route(dtype: torch.dtype, c: int) -> str:
-    """The kernel that takes a (dtype, C) block: ``"wgmma"``, ``"tf32x3"``
-    or ``"fma"``. Raises on what no kernel takes."""
+    """The route that takes a (dtype, C) block (one of ``ROUTES``). Raises
+    on what no kernel takes."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_basic_block kernel takes float32 or bfloat16, got {dtype}")
     if c not in CHANNELS:
         raise ValueError(f"fused_basic_block kernel takes C in {CHANNELS}, got {c}")
-    if c not in TENSOR_CORE_CHANNELS:
-        return "fma"
-    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    path = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    return path if c in FUSED_CHANNELS else f"{path}_conv"
 
 
 def wgmma_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -101,6 +110,37 @@ def tf32x3_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     w = torch.stack([w1, w2]).float().reshape(2, 9, c // ks, ks // 4, 4, c)
     hi, lo = tf32_split(w.permute(0, 1, 2, 3, 5, 4))
     return torch.stack([hi, lo], dim=3).contiguous()
+
+
+def wgmma_conv_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Both convs' HWIO weights in bf16 as the wgmma_conv kernel streams them:
+    (2, C/128, C/64, 9, 8, 128, 8) = [conv][128-channel output slice]
+    [64-channel K chunk][tap][8-channel K group][output channel][8 input
+    channels], one 64 x 128 stage after another. The route's entry point
+    arranges them so on the card; this is the layout's reference."""
+    c = w1.shape[-1]
+    w = torch.stack([w1, w2]).to(torch.bfloat16).reshape(2, 9, c // 64, 8, 8, c // 128, 128)
+    return w.permute(0, 5, 2, 1, 3, 6, 4).contiguous()
+
+
+def tf32x3_conv_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Both convs' HWIO weights split by ``tf32_split`` as the tf32x3_conv
+    kernel streams them: (2, C/64, C/64, 9, 2, 16, 64, 4) float32 = [conv]
+    [64-channel output slice][64-channel K chunk][tap][hi, lo][4-channel K
+    group][output channel][4 input channels], one stage after another. The
+    route's entry point arranges them so on the card; this is the layout's
+    reference."""
+    c = w1.shape[-1]
+    w = torch.stack([w1, w2]).float().reshape(2, 9, c // 64, 16, 4, c // 64, 64)
+    hi, lo = tf32_split(w.permute(0, 5, 2, 1, 3, 6, 4))
+    return torch.stack([hi, lo], dim=4).contiguous()
+
+
+# the weights that each route's entry point takes: arranged here for the
+# fused routes; for the conv routes, HWIO float32 that the entry point
+# arranges into a scratch tensor of WEIGHT_SCRATCH[route] * C * C elements
+WEIGHTS = {"wgmma": wgmma_weights, "tf32x3": tf32x3_weights}
+WEIGHT_SCRATCH = {"wgmma_conv": (2 * 9, torch.bfloat16), "tf32x3_conv": (2 * 9 * 2, torch.float32)}
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -152,29 +192,24 @@ def fused_basic_block(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     out = torch.empty_like(x)
+    sb = torch.cat([v.float() for v in (s1, b1, s2, b2)])
+    if x.data_ptr() % 16:
+        raise ValueError(f"fused_basic_block {path} kernel: x must start 16-byte aligned")
+    source, entry = KERNELS[path]
+    fn = getattr(_build.load(source), entry)
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-        if path in ("wgmma", "tf32x3"):
-            wk = wgmma_weights(w1, w2) if path == "wgmma" else tf32x3_weights(w1, w2)
-            sb = torch.cat([v.float() for v in (s1, b1, s2, b2)])
-            if x.data_ptr() % 16 or wk.data_ptr() % 16:
-                raise ValueError(f"fused_basic_block {path} kernel: x must start 16-byte aligned")
-            if path == "wgmma":
-                fn = _build.load("fused_block_wgmma").fused_basic_block_wgmma
-            else:
-                fn = _build.load("fused_block_tf32").fused_basic_block_tf32x3
+        if path in WEIGHTS:
+            wk = WEIGHTS[path](w1, w2)
             rc = fn(x.data_ptr(), wk.data_ptr(), sb.data_ptr(), out.data_ptr(), bsz, h, w, c,
                     stream)
-        else:
-            w1k, w2k = (wt.to(x.dtype).contiguous() for wt in (w1, w2))
-            if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:
-                raise ValueError("fused_basic_block kernel reads weights as 16-byte vectors: "
-                                 "pass w1/w2 that start 16-byte aligned")
-            s1k, b1k, s2k, b2k = (v.float().contiguous() for v in (s1, b1, s2, b2))
-            rc = _build.load("fused_block").fused_basic_block(
-                x.data_ptr(), w1k.data_ptr(), s1k.data_ptr(), b1k.data_ptr(),
-                w2k.data_ptr(), s2k.data_ptr(), b2k.data_ptr(), out.data_ptr(),
-                bsz, h, w, c, int(x.dtype == torch.bfloat16), stream)
+        else:  # the weights arranged on the card, conv1 into y1, conv2 with the residual
+            w1f, w2f = (t.float().contiguous() for t in (w1, w2))
+            per_cc, wk_dtype = WEIGHT_SCRATCH[path]
+            wk = torch.empty(per_cc * c * c, dtype=wk_dtype, device=x.device)
+            y1 = torch.empty_like(x)
+            rc = fn(x.data_ptr(), w1f.data_ptr(), w2f.data_ptr(), wk.data_ptr(), sb.data_ptr(),
+                    y1.data_ptr(), out.data_ptr(), bsz, h, w, c, stream)
     if rc != 0:
         raise RuntimeError(f"fused_basic_block {path} kernel launch failed: error {rc}")
     fused_basic_block.route_launches[path] += 1

@@ -122,7 +122,7 @@ def test_fused_block_kernel_matches_plain(cuda, dtype, b, hw, c):
     before = k3.fused_basic_block.launches
     route = k3.route(dtype, c)
     before_route = k3.fused_basic_block.route_launches[route]
-    checks.check_fused_block(x, *params)
+    _check_block(x, params)
     assert k3.fused_basic_block.launches == before + 1
     assert k3.fused_basic_block.route_launches[route] == before_route + 1
 
@@ -155,6 +155,88 @@ def test_fused_block_tf32x3_route_matches_plain(cuda, b, h, w, c):
     before = dict(k3.fused_basic_block.route_launches)
     checks.check_fused_block(x, *params)
     assert k3.fused_basic_block.route_launches == {**before, "tf32x3": before["tf32x3"] + 1}
+
+
+def _check_block(x, params, more_seeds=()) -> None:
+    """checks.check_fused_block; in bfloat16 at C >= 256 also the far-bound
+    rule against float64, summed over this input and ``more_seeds``."""
+    got = checks.check_fused_block(x, *params)
+    if "beyond_far_from_float64" in got:
+        b, h, w, c = x.shape
+        results = [got]
+        for seed in more_seeds:
+            xs, ps = block_inputs(b, h, w, c, x.dtype, x.device, seed=seed)
+            results.append(checks.check_fused_block(xs, *ps))
+        checks.assert_far_no_worse(results)
+
+
+WIDE_CASES = [(1, 5, 7), (1, 9, 12), (2, 20, 23), (1, 37, 45)]
+WIDE_IDS = ["5x7", "9x12", "b2_20x23", "37x45"]
+
+
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("b,h,w", [*WIDE_CASES, (1, 8, 16), ("bench", 0, 0)],
+                         ids=[*WIDE_IDS, "one_tile", "bench"])
+def test_fused_block_wgmma_conv_route_matches_plain(cuda, b, h, w, c):
+    """bfloat16 at C = 256/512 takes the wgmma_conv kernels (two launches a
+    block), held by checks.assert_bf16_wide: B = 1, an image smaller than a
+    tile (8x16), one tile, H and W that are no multiple of it, and the
+    bench geometry (B*N = 120 at 32x32 or 16x16, seeds 0 and 6 summed)."""
+    more = ()
+    if b == "bench":
+        b, h, w, more = 120, 8192 // c, 8192 // c, (6,)
+    x, params = block_inputs(b, h, w, c, torch.bfloat16, cuda, seed=0 if more else 1)
+    before = dict(k3.fused_basic_block.route_launches)
+    _check_block(x, params, more)
+    assert k3.fused_basic_block.route_launches == {
+        **before, "wgmma_conv": before["wgmma_conv"] + 1 + len(more)}
+
+
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("b,h,w", [*WIDE_CASES, (1, 8, 8), ("eval", 0, 0)],
+                         ids=[*WIDE_IDS, "one_tile", "eval"])
+def test_fused_block_tf32x3_conv_route_matches_plain(cuda, b, h, w, c):
+    """float32 at C = 256/512 takes the tf32x3_conv kernels (two launches a
+    block), held to rtol/atol 1e-4: B = 1, an image smaller than a tile
+    (8x8), one tile, H and W that are no multiple of it, and the eval
+    geometry (B*N = 12 at 32x32 or 16x16)."""
+    if b == "eval":
+        b, h, w = 12, 8192 // c, 8192 // c
+    x, params = block_inputs(b, h, w, c, torch.float32, cuda, seed=1)
+    before = dict(k3.fused_basic_block.route_launches)
+    _check_block(x, params)
+    assert k3.fused_basic_block.route_launches == {
+        **before, "tf32x3_conv": before["tf32x3_conv"] + 1}
+
+
+@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("route,reference", [("wgmma_conv", k3.wgmma_conv_weights),
+                                             ("tf32x3_conv", k3.tf32x3_conv_weights)],
+                         ids=["wgmma_conv", "tf32x3_conv"])
+def test_conv_weights_arranged_on_the_card(cuda, route, reference, c):
+    """The conv routes' entry points arrange the HWIO weights on the card
+    into their scratch tensor exactly as the layout's reference in
+    fused_block.py does (bf16 rounding; TF32 hi/lo split)."""
+    import ctypes
+
+    from multiagentperception_tpu_torch.ops.kernels import _build
+
+    dtype = torch.bfloat16 if route == "wgmma_conv" else torch.float32
+    x, (w1, s1, b1, w2, s2, b2) = block_inputs(1, 8, 16, c, dtype, cuda, seed=2)
+    per_cc, wk_dtype = k3.WEIGHT_SCRATCH[route]
+    wk = torch.empty(per_cc * c * c, dtype=wk_dtype, device=cuda)
+    y1, out = torch.empty_like(x), torch.empty_like(x)
+    sb = torch.cat([s1, b1, s2, b2])
+    source, entry = k3.KERNELS[route]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = getattr(_build.load(source), entry)(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), wk.data_ptr(), sb.data_ptr(), y1.data_ptr(),
+        out.data_ptr(), 1, 8, 16, c, stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = reference(w1, w2).flatten()
+    assert torch.equal(wk.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 @pytest.mark.parametrize("what", ["non_contiguous", "channels_96", "float16"])

@@ -126,14 +126,19 @@ def test_wrapper_refuses_other_layouts():
         k3.fused_basic_block(torch.zeros(2, 3, 64), *(torch.zeros(1),) * 6)
 
 
+# The C = 256/512 cases keep the ids they had when a CUDA-core route ("fma")
+# took those widths, so that each case keeps its name.
 @pytest.mark.parametrize("dtype,c,want", [(torch.bfloat16, 64, "wgmma"),
                                           (torch.bfloat16, 128, "wgmma"),
-                                          (torch.bfloat16, 256, "fma"),
-                                          (torch.bfloat16, 512, "fma"),
+                                          (torch.bfloat16, 256, "wgmma_conv"),
+                                          (torch.bfloat16, 512, "wgmma_conv"),
                                           (torch.float32, 64, "tf32x3"),
                                           (torch.float32, 128, "tf32x3"),
-                                          (torch.float32, 256, "fma"),
-                                          (torch.float32, 512, "fma")])
+                                          (torch.float32, 256, "tf32x3_conv"),
+                                          (torch.float32, 512, "tf32x3_conv")],
+                         ids=["dtype0-64-wgmma", "dtype1-128-wgmma", "dtype2-256-fma",
+                              "dtype3-512-fma", "dtype4-64-tf32x3", "dtype5-128-tf32x3",
+                              "dtype6-256-fma", "dtype7-512-fma"])
 def test_route(dtype, c, want):
     assert k3.route(dtype, c) == want
 

@@ -33,8 +33,10 @@ and the script exits non-zero:
    plain version; and, summed over K3_WIDE_SEEDS, no more elements beyond
    the far bound from the block in float64 than the plain version has).
    Then K3's C = 64/128 tensor-core routes and their plain versions are
-   each compared with the block in float64 over 16 seeds at four small
-   shapes (printed, not checked).
+   each compared with the block in float64, over 16 seeds at two ragged
+   shapes and 64 seeds at six images smaller than one tile (3x3, 5x7, 7x13
+   at C = 64 and 128), with the elements beyond the bound split into the
+   image's border rows and columns and its interior (printed, not checked).
 2. The eval slice at full width. The flagship MIMOcom
    (``configs/multi-request-multi-support/mrms_when2com.yml``, 6 agents at
    512x512, unchanged) from a seeded init is saved as a reference-format
@@ -72,8 +74,24 @@ and the script exits non-zero:
    ~5e-3 (tests/test_torch_train_parts.py). Each side's largest distance
    from the CPU's float64 gradient is printed.
 
-Prints the card's ``nvidia-smi`` name and power limit, then the
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+7. The zoo: each of the other nine reference YAMLs under
+   ``configs/multi-request-multi-support/`` and
+   ``configs/single-request-multiple-support/`` at its own size (512x512,
+   its agents and batch size, unchanged), one model each from
+   ``models.init_weights``, saved as a reference-format ``.pkl`` and loaded
+   through ``Evaluator.load_weight``. Two seeded batches (labels of the
+   YAML's ``commun_label`` kind) are evaluated in the architecture's
+   default mode and in every other inference mode it has, K1's launch
+   count zeroed just before each and read just after (each must be >= 1);
+   ms per batch, bandwidth and selection accuracy where the architecture
+   has them. Then ``Trainer.train`` for 3 iterations with a loss readback
+   each (finite losses), ms per step and peak device memory. Then card
+   against CPU at 256x256 with TF32 off, one set of weights and one seed:
+   actions and bandwidth equal, class maps on at least 99.9% of pixels.
+
+Prints each phase's seconds, the card's ``nvidia-smi`` name and power
+limit, then the ``{"kernels": [...]}`` line (K1's record also holds its
+launch counts on phase 7's paths), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -310,26 +328,45 @@ def check_fused_block() -> list[dict]:
     return records
 
 
-K3_F64_SHAPES = ((1, 5, 7, 128), (1, 7, 13, 128), (1, 37, 45, 128), (1, 37, 45, 64))
+K3_F64_SHAPES = ((1, 37, 45, 128), (1, 37, 45, 64))
 K3_F64_SEEDS = 16
+# images smaller than one tile (16x16 at C=64, 8x16 at C=128), where the
+# wgmma route's (1, 5, 7, 128) count stood unsettled: more seeds, and where
+# the elements beyond the bound lie
+K3_F64_SMALL = tuple((1, h, w, c) for h, w in ((3, 3), (5, 7), (7, 13)) for c in (64, 128))
+K3_F64_SMALL_SEEDS = 64
+
+
+def _border(shape) -> torch.Tensor:
+    """(1, H, W, 1) mask of the image's first and last rows and columns."""
+    _, h, w, _ = shape
+    mask = torch.zeros(1, h, w, 1, dtype=torch.bool, device="cuda")
+    mask[:, 0], mask[:, -1], mask[:, :, 0], mask[:, :, -1] = True, True, True, True
+    return mask
 
 
 @_no_tf32()
 def k3_against_float64() -> list[dict]:
     """K3's C = 64/128 routes (wgmma in bfloat16, tf32x3 in float32) and
-    their plain versions, each against the block in float64, over
-    K3_F64_SEEDS seeds a shape: the elements beyond the dtype's check bound
+    their plain versions, each against the block in float64: K3_F64_SEEDS
+    seeds at the ragged shapes, K3_F64_SMALL_SEEDS at the images smaller
+    than a tile. Per side: the elements beyond the dtype's check bound
     against float64 (bf16: its near bound, 1 ulp + 1e-3; float32: rtol/atol
-    1e-4), the largest and the mean error. Reported, not checked:
-    checks.py decides pass or fail."""
+    1e-4), split into the image's border rows and columns and its interior,
+    the largest and the mean error. Reported, not checked: checks.py
+    decides pass or fail."""
     near_ulps, near_atol = checks.K3_BF16_NEAR
     tol = checks.K3_F32_TOL
     rows = []
+    shapes = [(sh, K3_F64_SEEDS) for sh in K3_F64_SHAPES] + \
+        [(sh, K3_F64_SMALL_SEEDS) for sh in K3_F64_SMALL]
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in K3_F64_SHAPES:
-            acc = {side: {"beyond_near": 0, "max_err": 0.0, "mean_err": 0.0}
+        for shape, seeds in shapes:
+            border = _border(shape)
+            acc = {side: {"beyond_near": 0, "beyond_border": 0, "beyond_interior": 0,
+                          "max_err": 0.0, "mean_err": 0.0}
                    for side in ("kernel", "plain")}
-            for seed in range(K3_F64_SEEDS):
+            for seed in range(seeds):
                 x, params = k3_bench.block_inputs(*shape, dtype, "cuda", seed=seed)
                 ref = checks.block_float64(x, *params)
                 if dtype == torch.bfloat16:
@@ -339,11 +376,18 @@ def k3_against_float64() -> list[dict]:
                 for side, fn in (("kernel", k3.fused_basic_block),
                                  ("plain", k3.fused_basic_block_plain)):
                     err = (fn(x, *params).double() - ref).abs()
-                    acc[side]["beyond_near"] += int((err > near).sum())
+                    beyond = err > near
+                    on_border = int((beyond & border).sum())
+                    acc[side]["beyond_near"] += int(beyond.sum())
+                    acc[side]["beyond_border"] += on_border
+                    acc[side]["beyond_interior"] += int(beyond.sum()) - on_border
                     acc[side]["max_err"] = max(acc[side]["max_err"], err.max().item())
-                    acc[side]["mean_err"] += err.mean().item() / K3_F64_SEEDS
+                    acc[side]["mean_err"] += err.mean().item() / seeds
+            h, w = shape[1:3]
             rows.append({"route": k3.route(dtype, shape[-1]), "shape": list(shape),
-                         "seeds": K3_F64_SEEDS, **acc})
+                         "seeds": seeds,
+                         "border_share": (2 * (h + w) - 4) / (h * w) if min(h, w) > 1 else 1.0,
+                         **acc})
     return rows
 
 
@@ -375,10 +419,11 @@ def resource_lines(log: str) -> list[str]:
 
 # ------------------------------------------------------------------ phase 2
 
-def seeded_batches(count, b, n, size, seed):
-    """(images, labels, commun_label) as the AirSim loader yields them:
-    normalized float32 (B, N, H, W, 3), int32 (B, N, H, W) labels with some
-    ignore-index pixels, and mimo labels (B, 2, N)."""
+def seeded_batches(count, b, n, size, seed, kind="mimo"):
+    """Batches as the AirSim loader yields them: normalized float32
+    (B, N, H, W, 3) images, int32 (B, N, H, W) labels with some ignore-index
+    pixels, and the ``commun_label`` of ``kind``: mimo (B, 2, N) noise
+    flags and links, when2com (B,) in [-1, N-2], or none ("None")."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(count):
@@ -386,9 +431,14 @@ def seeded_batches(count, b, n, size, seed):
         images = normalize_images(torch.from_numpy(raw)).numpy()
         labels = rng.integers(0, 11, (b, n, size, size)).astype(np.int32)
         labels[rng.random(labels.shape) < 0.01] = 250
-        noise = rng.integers(0, 2, (b, n))
-        link = rng.integers(0, n, (b, n))
-        out.append((images, labels, np.stack([noise, link], axis=1).astype(np.int64)))
+        if kind == "mimo":
+            noise = rng.integers(0, 2, (b, n))
+            link = rng.integers(0, n, (b, n))
+            out.append((images, labels, np.stack([noise, link], axis=1).astype(np.int64)))
+        elif kind == "when2com":
+            out.append((images, labels, rng.integers(-1, n - 1, (b,)).astype(np.int64)))
+        else:
+            out.append((images, labels))
     return out
 
 
@@ -480,26 +530,38 @@ def profile_window(ev, batches, wall_s: float, kernels) -> dict:
 # ------------------------------------------------------------------ phase 3
 
 @_no_tf32()
-def card_vs_cpu() -> dict:
-    cfg = load_config(str(FLAGSHIP))
-    cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = 256
+def card_vs_cpu(yml: Path = FLAGSHIP, size: int = 256) -> dict:
+    """The YAML at ``size`` with TF32 off, one set of weights, one batch and
+    one seed (so the selection baselines draw the same partners): actions
+    and bandwidth equal (LearnWhen2Com's ``activated`` action is its
+    thresholded row: the same links, weights within 1e-5), class maps agree
+    on at least 99.9% of pixels."""
+    cfg = load_config(str(yml))
+    cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = size
     b, n = cfg["training"]["batch_size"], cfg["model"]["agent_num"]
     state = init_weights(get_model(cfg, N_CLASSES), SEED + 1).state_dict()
-    images = seeded_batches(1, b, n, 256, SEED + 1)[0][0]
+    images = seeded_batches(1, b, n, size, SEED + 1, "None")[0][0]
     out = {}
     for dev in ("cuda", "cpu"):
         ev = Evaluator(cfg, device=dev)
         ev.model.load_state_dict(state, strict=True)
-        out[dev] = [t.cpu() for t in ev.predict(images)]
+        out[dev] = [None if t is None else t.cpu() for t in ev.predict(images)]
     (g_cls, g_act, g_nc), (c_cls, c_act, c_nc) = out["cuda"], out["cpu"]
+    if (g_act is None) != (c_act is None) or (g_nc is None) != (c_nc is None):
+        raise AssertionError(f"{yml.name}: card and CPU return other outputs")
+    if g_act is not None:
+        same = torch.equal(g_act, c_act) if not g_act.is_floating_point() else (
+            torch.equal(g_act != 0, c_act != 0) and torch.allclose(g_act, c_act, 0, 1e-5))
+        if not same:
+            raise AssertionError(f"{yml.name}: card and CPU choose other links: "
+                                 f"{g_act.tolist()} vs {c_act.tolist()}")
+    if g_nc is not None and float(g_nc) != float(c_nc):
+        raise AssertionError(f"{yml.name}: bandwidth card {float(g_nc)} cpu {float(c_nc)}")
     agree = (g_cls == c_cls).float().mean().item()
-    if not torch.equal(g_act, c_act) or float(g_nc) != float(c_nc):
-        raise AssertionError(f"card and CPU choose other links: {g_act.tolist()} "
-                             f"vs {c_act.tolist()}, {float(g_nc)} vs {float(c_nc)}")
     if agree < 0.999:
-        raise AssertionError(f"card and CPU class maps agree on only {agree:.6f}")
-    return {"size": 256, "pixel_agreement": agree, "num_connect": float(g_nc),
-            "tf32": False}
+        raise AssertionError(f"{yml.name}: card and CPU class maps agree on only {agree:.6f}")
+    return {"size": size, "pixel_agreement": agree,
+            "num_connect": None if g_nc is None else float(g_nc), "tf32": False}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -523,6 +585,20 @@ def run_bench_path() -> dict:
 
 # ------------------------------------------------------------------ phase 5
 
+def _recording_loss(cfg):
+    """The config's loss, and the list it appends each train step's loss to
+    (not validation's: those run without gradients)."""
+    loss_fn, recorded = get_loss_function(cfg), []
+
+    def recording_loss(**kw):
+        loss = loss_fn(**kw)
+        if torch.is_grad_enabled():
+            recorded.append(loss.detach())
+        return loss
+
+    return recording_loss, recorded
+
+
 def run_training(eval_kernels) -> dict:
     """The flagship trains TRAIN_WARMUP + TRAIN_STEPS iterations through
     ``Trainer.train``; its best checkpoint is then evaluated in ``activated``
@@ -533,15 +609,7 @@ def run_training(eval_kernels) -> dict:
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
     train_batches = seeded_batches(total, b, n, size, SEED + 2)
     val_batches = seeded_batches(2, b, n, size, SEED + 3)
-    recorded = []
-    loss_fn = get_loss_function(cfg)
-
-    def recording_loss(**kw):
-        loss = loss_fn(**kw)
-        if torch.is_grad_enabled():  # the train steps', not validation's
-            recorded.append(loss.detach())
-        return loss
-
+    recording_loss, recorded = _recording_loss(cfg)
     trainer = Trainer(cfg, logging.getLogger("chip_smoke"), recording_loss, train_batches,
                       val_batches, device="cuda", logdir=str(WORK / "train"))
     init_weights(trainer.model, SEED)
@@ -679,6 +747,88 @@ def train_card_vs_cpu() -> dict:
             "worst_grad_rel_l2": worst, "worst_rel_l2_to_cpu_float64": worst_f64}
 
 
+# ------------------------------------------------------------------ phase 7
+
+ZOO = tuple(sorted(p for d in ("multi-request-multi-support", "single-request-multiple-support")
+                   for p in (ROOT / "configs" / d).glob("*.yml") if p.name != FLAGSHIP.name))
+ZOO_EVAL_BATCHES = 2
+ZOO_TRAIN_STEPS = 3
+# every inference mode of an architecture, its eval default first
+ZOO_MODES = {"MIMOcomWho": ("activated", "softmax", "argmax_test"),
+             "LearnWhen2Com": ("activated", "softmax", "argmax_test"),
+             "LearnWho2Com": ("argmax_test", "softmax")}
+
+
+def run_zoo_config(yml: Path) -> dict:
+    """One reference YAML at its own size: a seeded model saved as a
+    reference-format ``.pkl`` and loaded through ``load_weight``, evaluated
+    over ZOO_EVAL_BATCHES batches in each inference mode (K1 must launch in
+    each), then ZOO_TRAIN_STEPS iterations of ``Trainer.train`` with a loss
+    readback each. One model per YAML serves both. The score tables and
+    the training log go to WORK/zoo/<name>.log."""
+    cfg = load_config(str(yml))
+    cfg["training"].update(train_iters=ZOO_TRAIN_STEPS, val_interval=ZOO_TRAIN_STEPS,
+                           print_interval=1)
+    arch, kind = cfg["model"]["arch"], cfg["data"]["commun_label"]
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    batches = seeded_batches(ZOO_EVAL_BATCHES, b, n, size, SEED + 7, kind)
+    train_batches = seeded_batches(ZOO_TRAIN_STEPS, b, n, size, SEED + 8, kind)
+    recording_loss, recorded = _recording_loss(cfg)
+    logdir = WORK / "zoo" / yml.stem
+    logdir.mkdir(parents=True, exist_ok=True)
+    trainer = Trainer(cfg, logging.getLogger("chip_smoke"), recording_loss, train_batches,
+                      batches, device="cuda", logdir=str(logdir))
+    init_weights(trainer.model, SEED)
+    pkl = logdir / "seed0.pkl"
+    torch.save({"epoch": 0, "model_state": trainer.model.state_dict(), "best_iou": 0.0}, pkl)
+    trainer.load_weight(str(pkl))
+    result = {"config": yml.relative_to(ROOT).as_posix(), "arch": arch, "batch": b,
+              "agents": n, "size": size, "commun_label": kind, "eval": {}}
+    with open(logdir.with_suffix(".log"), "w") as log, contextlib.redirect_stdout(log):
+        trainer.evaluate(batches[:1])  # warm-up: cuDNN's and the allocator's first calls
+        for mode in ZOO_MODES.get(arch, (None,)):
+            k1.upsample_argmax.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            score, class_iou = trainer.evaluate(batches, inference_mode=mode)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = k1.upsample_argmax.launches
+            if launches < 1:
+                raise AssertionError(f"{yml.name} {mode}: K1 never launched")
+            metrics = trainer.last_eval_metrics
+            labels = np.stack([bt[1] for bt in batches])  # (batches, B, N, H, W)
+            if not (trainer.mo_flag and arch != "All_agents"):
+                labels = labels[:, :, 0]  # the target is agent 0's
+            if int(metrics.confusion_matrix.sum()) != int((labels < N_CLASSES).sum()):
+                raise AssertionError(f"{yml.name} {mode}: confusion matrix miscounts")
+            if not all(np.isfinite(float(v)) for v in score.values()):
+                raise AssertionError(f"{yml.name} {mode}: non-finite scores")
+            row = {"k1_launches": launches, "batch_ms": seconds / len(batches) * 1e3,
+                   "miou": float(score["Mean IoU : \t"])}
+            if metrics.count:
+                row["bandwidth"] = metrics.get_avg_bandW()
+            if metrics.total_agent:
+                row["when2com_acc"], row["who2com_acc"] = metrics.get_selection_accuracy()
+            result["eval"][mode or "-"] = row
+
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+        peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in recorded]
+    if len(losses) != ZOO_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{yml.name}: train losses {losses}")
+    steps = trainer.iter_seconds
+    result.update({"losses": losses, "train_first_step_ms": steps[0] * 1e3,
+                   "train_ms_per_step": float(np.mean(steps[1:])) * 1e3,
+                   "peak_device_bytes": peak})
+    del trainer
+    shutil.rmtree(logdir)
+    torch.cuda.empty_cache()
+    result["card_vs_cpu"] = card_vs_cpu(yml)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -688,7 +838,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    seconds = {"build": time.perf_counter() - t0}
+    print(f"built {sorted(logs)} in {seconds['build']:.1f} s")
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", file=sys.stderr)
     for name in logs:
@@ -703,7 +858,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     records = [check_upsample_argmax(gen), check_comm_fusion(gen), *check_fused_block()]
     print("kernel checks passed; K3 " + json.dumps(records[2:]))
+    lap("1_kernels")
     print("k3_float64 " + json.dumps(k3_against_float64()))
+    lap("1_k3_float64")
 
     slice_result = run_slice(eval_kernels)
     print("slice " + json.dumps(slice_result))
@@ -712,15 +869,30 @@ def main() -> int:
         rec["path_device_ms"] = slice_result["path_kernel_device_ms"][kern.__name__]
         rec["kernel_ms"] = rec["ms"]
 
+    lap("2_slice")
     print("card_vs_cpu " + json.dumps(card_vs_cpu()))
+    lap("3_card_vs_cpu")
 
     bench = run_bench_path()
     for rec in records[2:]:
         rec["launches"] = bench[rec["k3_route"]]["launches"]
     print("k3_path " + json.dumps(bench))
+    lap("4_k3_path")
 
     print("train " + json.dumps(run_training(eval_kernels)))
+    lap("5_train")
     print("train_card_vs_cpu " + json.dumps(train_card_vs_cpu()))
+    lap("6_train_card_vs_cpu")
+
+    zoo = {}
+    for yml in ZOO:
+        zoo[yml.stem] = run_zoo_config(yml)
+        print(f"zoo {yml.stem} " + json.dumps(zoo[yml.stem]))
+    records[0]["zoo_launches"] = {name: {mode: row["k1_launches"]
+                                         for mode, row in z["eval"].items()}
+                                  for name, z in zoo.items()}
+    lap("7_zoo")
+    print("phase_seconds " + json.dumps(seconds))
 
     print(_card_line())
     print(json.dumps({"kernels": records}))

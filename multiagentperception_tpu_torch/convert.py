@@ -1,8 +1,7 @@
-"""flax variables -> the port's state_dict (MIMOcom, resnet_encoder,
-simple_decoder).
+"""flax variables -> the port's state_dict, for every architecture with the
+resnet_encoder / simple_decoder backbones.
 
-The port's own copy of that branch of
-``multiagentperception_tpu/compat/torch_export.py:163-235``. The port's
+The port's own copy of ``multiagentperception_tpu/compat/torch_export.py:163-237``. The port's
 modules carry the reference's ptsemseg names, so the result is also a
 reference state_dict, and a reference ``.pkl`` (``{'model_state': ...}``,
 as ``compat.save_reference_checkpoint`` writes it) loads into the port
@@ -10,7 +9,9 @@ directly.
 
 Transforms: conv kernel ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``;
 dense ``(in, out)`` -> ``(out, in)``; the first Dense after the flatten also
-permutes its inputs HWC -> CHW; BatchNorm scale/bias/mean/var ->
+permutes its inputs HWC -> CHW, over the policy map's own size
+(``models.modules.policy_map_shape``, so image sides need not be multiples
+of 128); BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var (+ ``num_batches_tracked``).
 """
 
@@ -21,6 +22,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from multiagentperception_tpu_torch.models.modules import policy_map_shape
 
 
 class _Out:
@@ -85,35 +88,86 @@ def _img_encoder(out: _Out, tp: str, p, s) -> None:
     _cbr(out, f"{tp}.squeezer", p["ConvBNRelu_0"], s["ConvBNRelu_0"])
 
 
-def _km(out: _Out, tp: str, p, hw: tuple[int, int]) -> None:
+def _km(out: _Out, tp: str, p, chw: tuple[int, int, int]) -> None:
     mlp = p["MLP_0"]
-    _dense_chw(out, f"{tp}.fc.0", mlp["Dense_0"], 256, *hw)
+    _dense_chw(out, f"{tp}.fc.0", mlp["Dense_0"], *chw)
     _dense(out, f"{tp}.fc.2", mlp["Dense_1"])
     _dense(out, f"{tp}.fc.4", mlp["Dense_2"])
 
 
-def state_dict_from_flax(cfg: Mapping[str, Any],
-                         variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ``{'params', 'batch_stats'}`` (nested dicts of arrays) of a JAX
-    MIMOcom -> the port's MIMOcom state_dict (loads with ``strict=True``)."""
-    m = cfg["model"]
-    if (m["arch"], m["enc_backbone"], m["dec_backbone"]) != (
-            "MIMOcom", "resnet_encoder", "simple_decoder") or not m["query"] \
-            or (m.get("feat_squeezer") or -1) != -1:
-        raise NotImplementedError("the weight bridge covers the flagship MIMOcom "
-                                  "(resnet_encoder, simple_decoder, query, no squeezer)")
-    hw = (cfg["data"]["img_rows"] // 128, cfg["data"]["img_cols"] // 128)
-    P, S = variables["params"], variables["batch_stats"]
-    out = _Out()
-    _img_encoder(out, "u_encoder", P["u_encoder"], S["u_encoder"])
-    qk_p, qk_s = P["query_key_net"], S["query_key_net"]
-    _img_encoder(out, "query_key_net.img_encoder", qk_p["ImgEncoder_0"], qk_s["ImgEncoder_0"])
+def _policy_net(out: _Out, tp: str, p, s) -> None:
+    _img_encoder(out, f"{tp}.img_encoder", p["ImgEncoder_0"], s["ImgEncoder_0"])
     for i in range(5):
-        _cbr(out, f"query_key_net.conv{i + 1}", qk_p[f"ConvBNRelu_{i}"], qk_s[f"ConvBNRelu_{i}"])
-    _km(out, "key_net", P["key_net"], hw)
-    _km(out, "query_net", P["query_net"], hw)
-    _dense(out, "attention_net.linear", P["MIMOGeneralDotAttention_0"]["proj"])
+        _cbr(out, f"{tp}.conv{i + 1}", p[f"ConvBNRelu_{i}"], s[f"ConvBNRelu_{i}"])
+
+
+def _decoder(out: _Out, P) -> None:
     dec = P["ImgDecoder_0"]["SimpleDecoder_0"]
     _conv(out, "decoder.output_decoder.pred.0", dec["Conv_0"])
     _conv(out, "decoder.output_decoder.pred.2", dec["Conv_1"])
+
+
+def state_dict_from_flax(cfg: Mapping[str, Any],
+                         variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``{'params', 'batch_stats'}`` (nested dicts of arrays) of any of
+    the seven JAX models (``resnet_encoder``, ``simple_decoder``, no
+    squeezer) -> the port's state_dict of that model (loads with
+    ``strict=True``). Flax names -> torch names: ``ImgEncoder_0`` ->
+    ``encoder``, ``degraded_encoder`` -> ``degarded_encoder`` (the
+    reference's spelling), ``PolicyNet4_0`` -> ``query_key_net``,
+    ``GeneralDotAttention_0.Dense_0`` / ``MIMOGeneralDotAttention_0.proj`` /
+    ``MIMOWhoGeneralDotAttention_0.Dense_0`` -> ``attention_net.linear``,
+    ``AdditiveAttention_0.Dense_0..2`` -> ``attention_net.linear_feat`` /
+    ``linear_context`` / ``linear_out``; the scaled attention has no weights."""
+    m = cfg["model"]
+    arch = m["arch"]
+    if (m["enc_backbone"], m["dec_backbone"]) != ("resnet_encoder", "simple_decoder") \
+            or (m.get("feat_squeezer") or -1) != -1:
+        raise NotImplementedError("the weight bridge covers resnet_encoder, simple_decoder "
+                                  "and no squeezer")
+    chw = policy_map_shape((cfg["data"]["img_rows"], cfg["data"]["img_cols"]))
+    P, S = variables["params"], variables["batch_stats"]
+    out = _Out()
+
+    def enc(flax_name: str, torch_name: str | None = None) -> None:
+        _img_encoder(out, torch_name or flax_name, P[flax_name], S[flax_name])
+
+    if arch in ("Single_agent", "MIMO_All_agents"):
+        enc("ImgEncoder_0", "encoder")
+    elif arch == "All_agents":
+        for i in range(m["agent_num"]):
+            enc(f"encoder{i + 1}")
+    elif arch in ("LearnWho2Com", "LearnWhen2Com"):
+        shared = m["shared_img_encoder"]
+        if shared == "unified":
+            enc("u_encoder")
+        elif shared == "only_normal_agents":
+            enc("degraded_encoder", "degarded_encoder")
+            enc("normal_encoder")
+        else:
+            for i in range(m["agent_num"]):
+                enc(f"encoder{i + 1}")
+        _policy_net(out, "query_key_net", P["PolicyNet4_0"], S["PolicyNet4_0"])
+    elif arch in ("MIMOcom", "MIMOcomWho"):
+        enc("u_encoder")
+        _policy_net(out, "query_key_net", P["query_key_net"], S["query_key_net"])
+    else:
+        raise KeyError(f"Model {arch} not available")
+
+    if "key_net" in P:
+        _km(out, "key_net", P["key_net"], chw)
+        if m["query"]:
+            _km(out, "query_net", P["query_net"], chw)
+    if arch == "MIMOcom":
+        _dense(out, "attention_net.linear", P["MIMOGeneralDotAttention_0"]["proj"])
+    elif arch == "MIMOcomWho":
+        _dense(out, "attention_net.linear", P["MIMOWhoGeneralDotAttention_0"]["Dense_0"])
+    elif arch in ("LearnWho2Com", "LearnWhen2Com"):
+        if m["attention"] == "general":
+            _dense(out, "attention_net.linear", P["GeneralDotAttention_0"]["Dense_0"])
+        elif m["attention"] == "additive":
+            a = P["AdditiveAttention_0"]
+            for i, name in enumerate(("linear_feat", "linear_context", "linear_out")):
+                _dense(out, f"attention_net.{name}", a[f"Dense_{i}"])
+    _decoder(out, P)
     return out.sd

@@ -1,19 +1,30 @@
-"""Evaluation of a MIMOcom checkpoint (port of the eval part of
-multiagentperception_tpu/trainer.py: ``_labels`` :235-246, ``_eval_step_fn``
-:457-544, ``_update_selection`` :615-622, ``_pipelined_eval`` :809-824,
+"""Evaluation of any of the seven architectures (port of the eval part of
+multiagentperception_tpu/trainer.py: the arch families and eval defaults
+:61-87, ``_model_inputs`` / ``_labels`` / ``_apply_kwargs`` :226-256, the
+selection draw :208-211 and :493-498, ``_eval_step_fn`` :457-544,
+``_update_selection`` :615-622, ``_pipelined_eval`` :809-824,
 ``load_weight`` :1182-1221 (the ``.pkl`` branch) and ``evaluate``
 :1223-1281). ``trainer.Trainer`` extends it with training.
 
 Per batch the card computes the class map from the decoder's pre-upsample
 logits with the upsample+argmax kernel — the full-resolution logits are
-never built — and the Normal/Noise/Overall confusion matrices; the host
-reads back three (C, C) histograms, the graph's actions and the bandwidth.
-With ``with_loss`` (the trainer's validation) the step instead takes the
-argmax of the full-resolution logits and also returns the loss.
+never built — for every architecture, and the Normal/Noise/Overall
+confusion matrices; the host reads back three (C, C) histograms, the
+actions and the bandwidth where the forward returns them. With
+``with_loss`` (the trainer's validation) the step instead takes the argmax
+of the full-resolution logits and also returns the loss.
+
+The ``selection`` baselines (All_agents / MIMO_All_agents with
+``shuffle_features: selection``) draw their partners on the host, from a
+CPU ``torch.Generator`` seeded from the run's seed: one draw per eval batch
+(the stream restarts with each evaluation, as the JAX package folds the
+batch index into one key) and one per train step. A card run and a CPU
+run with one seed pick the same partners.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from collections import deque
 
@@ -28,61 +39,137 @@ from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import upsample_
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
 
 N_CLASSES = 11  # hard-coded in every reference trainer (trainer.py:44, ...)
-EVAL_DEFAULT = "activated"  # MIMOcom's eval mode (reference trainer.py:774)
 PIPELINE_DEPTH = 2  # batches in flight before the oldest is read back
+# arch families (JAX trainer.py:61-87)
+COMM_ARCHS = {"MIMOcom", "MIMOcomWho", "LearnWho2Com", "LearnWhen2Com"}
+SELECTION_ARCHS = {"All_agents", "MIMO_All_agents"}
+EVAL_DEFAULT = {"LearnWhen2Com": "activated", "LearnWho2Com": "argmax_test",
+                "MIMOcom": "activated", "MIMOcomWho": "activated"}
+# draw streams: offsets from the run's seed, as the JAX trainer's keys
+DRAW_STREAMS = {"train": 2, "eval": 3}
 
 
 class Evaluator:
-    """Evaluates MIMOcom on ``device`` (default ``cuda``; raises without a
-    card unless ``device='cpu'`` is asked for)."""
+    """Evaluates the model of ``cfg`` on ``device`` (default ``cuda``;
+    raises without a card unless ``device='cpu'`` is asked for). ``seed``
+    (default ``training.seed``) seeds the selection baselines' draws."""
 
-    def __init__(self, cfg, device: str | torch.device | None = None, loss_fn=None):
+    def __init__(self, cfg, device: str | torch.device | None = None, loss_fn=None,
+                 seed: int | None = None):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
         self.n_classes = N_CLASSES
         self.model = get_model(cfg, N_CLASSES).to(self.device).eval()
+        m = cfg["model"]
+        self.arch = m["arch"]
+        self.mo_flag = bool(m.get("multiple_output"))
+        self.agent_num = int(m.get("agent_num") or 5)
         self.if_commun_label = cfg["data"].get("commun_label", "None")
-        if self.if_commun_label not in ("None", "mimo"):
-            raise NotImplementedError(
-                f"data.commun_label={self.if_commun_label!r}: MIMOcom evaluates "
-                "with 'mimo' labels or none")
-        self.eval_default = cfg["model"].get("eval_inference") or EVAL_DEFAULT
+        self.eval_default = m.get("eval_inference") or EVAL_DEFAULT.get(self.arch)
         self.normalize_on_device = bool(cfg["data"].get("on_device_normalize"))
+        self.seed = int(cfg.get("training", {}).get("seed", 1337) if seed is None else seed)
+        self.draws_ids = self.arch in SELECTION_ARCHS and \
+            m.get("shuffle_features") == "selection"
+        self._draws = {name: torch.Generator().manual_seed(self.seed + off)
+                       for name, off in DRAW_STREAMS.items()}
         self.last_eval_metrics: runningScore | None = None
 
     def load_weight(self, model_path: str) -> None:
         """Load a reference-format ``.pkl`` (``{'model_state': state_dict}``,
-        the file ``compat.save_reference_checkpoint`` writes), strictly."""
+        the file ``compat.save_reference_checkpoint`` writes), strictly. A
+        reference LearnWhen2Com file also holds ``argmax_decoder.*``, a
+        module eval never uses that the port does not have: those keys are
+        dropped with one logged line."""
         if not os.path.isfile(model_path):
             raise FileNotFoundError(
                 f"{model_path}: the port loads reference-format .pkl files; turn a "
                 "JAX checkpoint into one with compat.save_reference_checkpoint")
         blob = torch.load(model_path, map_location="cpu", weights_only=True)
         state = blob.get("model_state", blob) if isinstance(blob, dict) else blob
+        unused = [k for k in state if k.startswith("argmax_decoder.")]
+        if unused and self.arch == "LearnWhen2Com":
+            logging.getLogger("multiagentperception_tpu_torch").info(
+                "%s: dropping %d argmax_decoder.* keys (unused at eval, no port module)",
+                model_path, len(unused))
+            state = {k: v for k, v in state.items() if k not in set(unused)}
         self.model.load_state_dict(state, strict=True)
 
-    @staticmethod
-    def _labels(labels: np.ndarray) -> np.ndarray:
-        """(B, N, H, W) -> (B*N, H, W) uint8, batch-major: class ids 0..10 and
-        the ignore index 250 both fit."""
+    # ------------------------------------------------------------------
+    # per-architecture plumbing
+    # ------------------------------------------------------------------
+    def _model_inputs(self, images) -> np.ndarray:
+        """(B, N, H, W, 3) batch -> the model's input: Single_agent folds
+        the views with multiple outputs and takes agent 0 without."""
+        images = np.asarray(images)
+        if self.arch == "Single_agent":
+            if self.mo_flag:
+                return images.reshape((-1,) + images.shape[2:])
+            return np.ascontiguousarray(images[:, 0])
+        return images
+
+    def _labels(self, labels) -> np.ndarray:
+        """(B, N, H, W) -> the target as uint8 (class ids 0..10 and the
+        ignore index 250 both fit): batch-major ``(B*N, H, W)`` with
+        multiple outputs (but for All_agents), else agent 0's ``(B, H, W)``."""
         labels = np.asarray(labels)
-        return labels.reshape((-1,) + labels.shape[2:]).astype(np.uint8, copy=False)
+        if self.mo_flag and self.arch != "All_agents":
+            labels = labels.reshape((-1,) + labels.shape[2:])
+        else:
+            labels = labels[:, 0]
+        return labels.astype(np.uint8, copy=False)
+
+    def draw_ids(self, stream: str) -> torch.Tensor:
+        """The selection baselines' partners, on the host: one supporter for
+        the batch (All_agents) or one partner per agent (MIMO_All_agents)."""
+        n = self.agent_num
+        shape = (n,) if self.arch == "MIMO_All_agents" else ()
+        return torch.randint(0, n, shape, generator=self._draws[stream])
+
+    def _forward_kwargs(self, inference: str | None, stream: str) -> dict:
+        """The forward's arguments (JAX ``_apply_kwargs``): comm models take
+        the inference mode, the selection baselines the drawn partners."""
+        if self.arch in COMM_ARCHS:
+            return {"inference": inference or "softmax"}
+        if self.draws_ids:
+            return {"rand_ids": self.draw_ids(stream).to(self.device)}
+        return {}
+
+    @staticmethod
+    def _outputs(out) -> tuple:
+        """(prediction, action or None, num_connect or None) of any forward's
+        output: a bare tensor, ``(pred, rand_action)``, or a 3- or 4-tuple."""
+        if not isinstance(out, tuple):
+            return out, None, None
+        if len(out) == 2:
+            return out[0], out[1], None
+        return out[0], out[2], out[3] if len(out) > 3 else None
+
+    # ------------------------------------------------------------------
+    def _images(self, images) -> torch.Tensor:
+        """A host batch's model input on the device, normalized there if the
+        loader left it raw."""
+        x = torch.as_tensor(self._model_inputs(images)).to(self.device)
+        return normalize_images(x) if self.normalize_on_device else x
 
     @torch.inference_mode()
     def predict(self, images, inference: str | None = None):
-        """(B, N, H, W, 3) images -> ((B*N, H, W) int32 class map, action
-        (B, N), num_connect), device tensors. The class map comes from the
-        decoder's pre-upsample logits through the upsample+argmax kernel."""
+        """(B, N, H, W, 3) images -> (class map (B', H, W) int32, action or
+        None, num_connect or None), device tensors. The class map comes from
+        the decoder's pre-upsample logits through the upsample+argmax kernel."""
         x = self._images(images)
-        pre, _, action, num_connect = self.model(
-            x, inference=inference or self.eval_default, full_res=False)
-        return upsample_argmax(pre, x.shape[2], x.shape[3]), action, num_connect
+        pre, action, num_connect = self._outputs(self.model(
+            x, full_res=False, **self._forward_kwargs(inference or self.eval_default, "eval")))
+        return upsample_argmax(pre, x.shape[-3], x.shape[-2]), action, num_connect
 
-    def _images(self, images) -> torch.Tensor:
-        """A host batch on the device, normalized there if the loader left it raw."""
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
-        return normalize_images(x) if self.normalize_on_device else x
+    def _flags(self, commun_label) -> torch.Tensor:
+        """Per prediction, whether its frame is a normal one (JAX :529-541)."""
+        cl = torch.as_tensor(np.asarray(commun_label), device=self.device)
+        if self.if_commun_label == "mimo":
+            normal = cl[:, 0, :] == 0  # (B, N)
+            return normal.reshape(-1) if self.mo_flag and self.arch != "All_agents" \
+                else normal[:, 0]
+        return cl == -1  # when2com: (B,)
 
     @torch.inference_mode()
     def eval_step(self, images, labels, commun_label=None,
@@ -92,25 +179,29 @@ class Evaluator:
         resolution and adds the loss, as the JAX validation step does."""
         y = torch.as_tensor(self._labels(labels)).to(self.device)
         if with_loss:
-            logits, _, action, num_connect = self.model(
-                self._images(images), inference=inference or "softmax")
+            logits, action, num_connect = self._outputs(self.model(
+                self._images(images), **self._forward_kwargs(inference, "eval")))
             pred = logits.argmax(1)
         else:
             pred, action, num_connect = self.predict(images, inference)
-        res = {"hist": confusion_matrix(y, pred, self.n_classes),
-               "action": action, "num_connect": num_connect}
+        res = {"hist": confusion_matrix(y, pred, self.n_classes)}
+        if action is not None:
+            res["action"] = action
+        if num_connect is not None:
+            res["num_connect"] = num_connect
         if with_loss:
             res["loss"] = self.loss_fn(input=logits, target=y)
         if commun_label is not None:
-            cl = torch.as_tensor(np.asarray(commun_label), device=self.device)
-            normal = (cl[:, 0, :] == 0).reshape(-1)  # (B*N,), batch-major
+            normal = self._flags(commun_label)
             res["hist_pos"] = confusion_matrix(y, pred, self.n_classes, normal)
             res["hist_neg"] = confusion_matrix(y, pred, self.n_classes, ~normal)
         return res
 
     def _pipelined(self, loader, **step_kw):
         """Yield ``(eval_step result, commun_label)`` per batch, with up to
-        ``PIPELINE_DEPTH`` batches running ahead of the readback."""
+        ``PIPELINE_DEPTH`` batches running ahead of the readback. The eval
+        draw stream restarts here, so each pass over a loader draws alike."""
+        self._draws["eval"].manual_seed(self.seed + DRAW_STREAMS["eval"])
         pending: deque = deque()
         for data_list in loader:
             commun_label = data_list[2] if self.if_commun_label != "None" else None
@@ -122,13 +213,16 @@ class Evaluator:
             yield pending.popleft()
 
     def _record(self, metrics: runningScore, res: dict, commun_label,
-                bandwidth: bool = True) -> dict:
+                bandwidth: bool = True, selection: bool = True) -> dict:
         host = {k: v.cpu().numpy() for k, v in res.items()}
         metrics.update_hist(host["hist"], host.get("hist_pos"), host.get("hist_neg"))
-        if bandwidth:
+        if bandwidth and "num_connect" in host:
             metrics.update_bandW(float(host["num_connect"]))
-        if commun_label is not None:
-            metrics.update_selection("mimo", np.asarray(commun_label), host["action"])
+        if selection and commun_label is not None and "action" in host:
+            action = host["action"]
+            if self.arch == "LearnWho2Com":
+                action = action + 1  # the requester is not a candidate key (:615-622)
+            metrics.update_selection(self.if_commun_label, np.asarray(commun_label), action)
         return host
 
     def _print_scores(self, metrics: runningScore, bandwidth: bool = True) -> None:
@@ -149,11 +243,13 @@ class Evaluator:
 
     def evaluate(self, loader, inference_mode: str | None = None):
         """Test-split evaluation with the Normal/Noise/Overall breakdown,
-        selection accuracy and bandwidth (reference: trainer.py:774-840)."""
+        selection accuracy (not for LearnWhen2Com, as the reference) and
+        bandwidth where the forward reports it (reference: trainer.py:774-840)."""
         self.model.eval()
         metrics = runningScore(self.n_classes)
         for res, commun_label in self._pipelined(loader, inference=inference_mode):
-            self._record(metrics, res, commun_label)
+            self._record(metrics, res, commun_label,
+                         selection=self.arch != "LearnWhen2Com")
         self._print_scores(metrics)
         self.last_eval_metrics = metrics
         return metrics.get_scores()

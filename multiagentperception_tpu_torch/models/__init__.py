@@ -1,55 +1,105 @@
 """Model registry (port of multiagentperception_tpu/models/__init__.py:28-129).
 
-This slice ports MIMOcom in the flagship shape: unified ResNet-18 encoder,
-simple decoder, queries on, multiple outputs, float32. Anything else raises
-``NotImplementedError`` naming ROADMAP.md, never a silent substitute.
-``model.pallas_comm`` is accepted and has no effect: the port's pruned eval
+All seven reference architectures with the ``resnet_encoder`` /
+``simple_decoder`` backbones in float32: every model the ten reference
+YAMLs reach. What the port does not carry yet raises
+``NotImplementedError`` naming the key and ROADMAP.md, never a silent
+substitute: ``feat_squeezer``, other backbones, ``sparse: true`` on the
+SRMS attentions, ``model.dtype`` / mixed precision, ``agent_parallel*``,
+and ``topk`` (``topk_k``, ``eval_inference: topk``). MIMOcom keeps the
+flagship's shape (``query: true``, ``multiple_output: true``).
+``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
 modes always run the fused comm step (models/agents.py).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Any, Mapping
 
 import torch
 from torch import nn
 
-from multiagentperception_tpu_torch.models.agents import MIMOcom
+from multiagentperception_tpu_torch.models.agents import (
+    AllAgents,
+    LearnWhen2Com,
+    LearnWho2Com,
+    MIMOAllAgents,
+    MIMOcom,
+    MIMOcomWho,
+    SingleAgent,
+)
 
+MODELS = {
+    "Single_agent": SingleAgent,
+    "All_agents": AllAgents,
+    "MIMO_All_agents": MIMOAllAgents,
+    "LearnWho2Com": LearnWho2Com,
+    "LearnWhen2Com": LearnWhen2Com,
+    "MIMOcom": MIMOcom,
+    "MIMOcomWho": MIMOcomWho,
+}
 _LATER = "not ported yet; see ROADMAP.md queue A"
 
 
-def get_model(cfg: Mapping[str, Any], n_classes: int) -> MIMOcom:
+def _refuse(key: str, value) -> None:
+    raise NotImplementedError(f"model.{key}={value!r}: {_LATER}")
+
+
+def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
     """Build the model of a reference-schema config dict."""
     m = cfg["model"]
-    wanted = {
-        "arch": "MIMOcom", "enc_backbone": "resnet_encoder",
-        "dec_backbone": "simple_decoder", "shared_img_encoder": "unified",
-        "attention": "general", "query": True, "multiple_output": True,
-    }
-    for key, value in wanted.items():
+    name = m["arch"]
+    if name not in MODELS:
+        raise KeyError(f"Model {name} not available")
+    if name != "MIMOcom":
+        # MIMOcom-only extension keys on another arch are ignored, loudly (JAX :41-53)
+        for k in ("pallas_comm", "topk_k", "remat", "agent_parallel", "agent_parallel_train"):
+            if m.get(k):
+                logging.getLogger("multiagentperception_tpu_torch").warning(
+                    "config: model.%s is a MIMOcom extension and is ignored for arch %s",
+                    k, name)
+    for key, value in (("enc_backbone", "resnet_encoder"), ("dec_backbone", "simple_decoder")):
         if m.get(key) != value:
-            raise NotImplementedError(f"model.{key}={m.get(key)!r}: {_LATER}")
+            _refuse(key, m.get(key))
     if (m.get("feat_squeezer") or -1) != -1:
-        raise NotImplementedError(f"model.feat_squeezer={m['feat_squeezer']!r}: {_LATER}")
+        _refuse("feat_squeezer", m["feat_squeezer"])
     if m.get("dtype") not in (None, "None", "float32") or \
             cfg.get("training", {}).get("mixed_precision"):
-        raise NotImplementedError(f"mixed precision: {_LATER}")
+        raise NotImplementedError(f"mixed precision (model.dtype, "
+                                  f"training.mixed_precision): {_LATER}")
     for key in ("agent_parallel", "agent_parallel_train"):
         if m.get(key):
-            raise NotImplementedError(f"model.{key}: {_LATER}")
-    rows, cols = cfg["data"]["img_rows"], cfg["data"]["img_cols"]
-    if rows % 128 or cols % 128:
-        raise ValueError(f"image size {rows}x{cols} must be a multiple of 128")
-    return MIMOcom(
-        n_classes=n_classes,
-        feat_channel=m.get("feat_channel", 512),
-        agent_num=m["agent_num"],
-        key_size=m["key_size"],
-        query_size=m["query_size"],
-        img_size=(rows, cols),
-    )
+            _refuse(key, m[key])
+    if m.get("eval_inference") == "topk":
+        _refuse("eval_inference", "topk")
+
+    common = dict(n_classes=n_classes, feat_channel=m.get("feat_channel", 512))
+    if name == "Single_agent":
+        return SingleAgent(**common)
+    if name in ("All_agents", "MIMO_All_agents"):
+        return MODELS[name](shuffle_flag=m.get("shuffle_features"),
+                            agent_num=m["agent_num"], **common)
+    img_size = (cfg["data"]["img_rows"], cfg["data"]["img_cols"])
+    comm = dict(agent_num=m["agent_num"], key_size=m["key_size"],
+                query_size=m["query_size"], img_size=img_size, **common)
+    if name in ("MIMOcom", "MIMOcomWho") and m.get("shared_img_encoder") != "unified":
+        raise ValueError("Incorrect shared_img_encoder flag")  # as the JAX models
+    if name == "MIMOcom":
+        for key in ("query", "multiple_output"):
+            if not m.get(key):
+                _refuse(key, m.get(key))
+        if m.get("topk_k") is not None:
+            _refuse("topk_k", m["topk_k"])
+        return MIMOcom(**comm)
+    if name == "MIMOcomWho":
+        return MIMOcomWho(has_query=bool(m["query"]),
+                          mo_flag=bool(m.get("multiple_output")), **comm)
+    if m.get("sparse"):
+        _refuse("sparse", m["sparse"])  # sparsemax: ROADMAP A.6
+    return MODELS[name](attention=m["attention"], has_query=bool(m["query"]),
+                        shared_img_encoder=m["shared_img_encoder"], **comm)
 
 
 @torch.no_grad()
@@ -74,4 +124,4 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-__all__ = ["MIMOcom", "get_model", "init_weights"]
+__all__ = ["MODELS", "get_model", "init_weights", *(cls.__name__ for cls in MODELS.values())]

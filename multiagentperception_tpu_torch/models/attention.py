@@ -1,10 +1,14 @@
-"""MIMO general dot-product attention (port of
-multiagentperception_tpu/models/attention.py:81-108; reference agent.py:242-286).
+"""Communication-graph attentions (port of
+multiagentperception_tpu/models/attention.py; reference agent.py:194-368).
 
 Queries ``(B, Q, query_size)``, keys ``(B, K, key_size)``, values
-``(B, K, ...)``; returns the fused values ``(B, Q, ...)`` and the graph
-``(B, K, Q)``, softmaxed over keys. The reference's ``sparse`` flag is
-ignored here as it is there.
+``(B, K, C, h, w)`` (NCHW per agent). The SRMS attentions take Q = 1 and
+return the fused map ``(B, C, h, w)`` and the probability row ``(B, 1, K)``;
+the MIMO attentions return ``(B, Q, C, h, w)`` and the graph ``(B, K, Q)``,
+normalized over keys. Submodule names are the reference's
+(``attention_net.linear``, ``linear_feat``/``linear_context``/``linear_out``).
+``sparse`` (sparsemax) is not ported: ``models.get_model`` refuses it where
+it would change the result; the MIMO attentions ignore it, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -12,10 +16,65 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multiagentperception_tpu_torch.ops.comm import fuse_values
+from multiagentperception_tpu_torch.ops.comm import drop_diagonal_softmax, fuse_values
+
+
+class _SRMSAttention(nn.Module):
+    """``graph(q, k)`` -> the (B, K, 1) coefficients, normalized over keys;
+    the forward fuses the values along them."""
+
+    def forward(self, q, k, v):
+        coef = self.graph(q, k)
+        return fuse_values(coef, v)[:, 0], coef.transpose(1, 2)
+
+
+class ScaledDotAttention(_SRMSAttention):
+    """softmax over keys of K Q^T / sqrt(128); no weights (reference: agent.py:194-213)."""
+
+    temperature = 128.0 ** 0.5
+
+    def graph(self, q, k):
+        return torch.softmax(torch.einsum("bkd,bqd->bkq", k, q) / self.temperature, dim=1)
+
+
+class AdditiveAttention(_SRMSAttention):
+    """Bahdanau scoring out(feat(k) + context(q)) (reference: agent.py:215-239)."""
+
+    def __init__(self, query_size: int, key_size: int, hidden: int = 128):
+        super().__init__()
+        self.linear_feat = nn.Linear(key_size, hidden)
+        self.linear_context = nn.Linear(query_size, hidden)
+        self.linear_out = nn.Linear(hidden, 1)
+
+    def graph(self, q, k):
+        logits = self.linear_out(self.linear_feat(k) + self.linear_context(q))  # (B, K, 1)
+        return torch.softmax(logits, dim=1)
+
+
+class GeneralDotAttention(_SRMSAttention):
+    """Single-query general dot product, Q' = W q (reference: agent.py:345-368)."""
+
+    def __init__(self, query_size: int, key_size: int):
+        super().__init__()
+        self.linear = nn.Linear(query_size, key_size)
+
+    def graph(self, q, k):
+        return torch.softmax(torch.einsum("bkd,bqd->bkq", k, self.linear(q)), dim=1)
+
+
+def get_srms_attention(name: str, query_size: int, key_size: int) -> nn.Module:
+    """The SRMS attention of ``model.attention`` (reference: agent.py:530-536):
+    ``additive``, ``general``, anything else ``scaled``."""
+    if name == "additive":
+        return AdditiveAttention(query_size, key_size)
+    if name == "general":
+        return GeneralDotAttention(query_size, key_size)
+    return ScaledDotAttention()
 
 
 class MIMOGeneralDotAttention(nn.Module):
+    """The full N x N graph, softmax over keys (reference: agent.py:242-286)."""
+
     def __init__(self, query_size: int, key_size: int):
         super().__init__()
         self.linear = nn.Linear(query_size, key_size)
@@ -24,12 +83,22 @@ class MIMOGeneralDotAttention(nn.Module):
         """Q' = W q, the projected queries the fused comm kernel consumes."""
         return self.linear(q)
 
+    def _logits(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        logits = torch.einsum("bkd,bqd->bkq", k, self.project(q))
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
     def graph(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """(B, K, Q) softmax over keys of K Q'^T, in float32 (or float64)."""
-        logits = torch.einsum("bkd,bqd->bkq", k, self.project(q))
-        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
-        return torch.softmax(logits, dim=1)
+        return torch.softmax(self._logits(q, k), dim=1)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         coef = self.graph(q, k)
         return fuse_values(coef, v), coef
+
+
+class MIMOWhoGeneralDotAttention(MIMOGeneralDotAttention):
+    """The graph with self-links deleted before the softmax, the who2com
+    always-communicate baseline (reference: agent.py:289-343)."""
+
+    def graph(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        return drop_diagonal_softmax(self._logits(q, k), dim=1)

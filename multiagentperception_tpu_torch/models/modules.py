@@ -3,6 +3,8 @@ reference: ptsemseg/models/agent.py:39-189)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -53,6 +55,17 @@ class PolicyNet4(nn.Module):
         for i in range(1, 6):
             x = getattr(self, f"conv{i}")(x)
         return x
+
+
+@functools.lru_cache(maxsize=None)
+def policy_map_shape(img_size: tuple[int, int]) -> tuple[int, int, int]:
+    """(C, h, w) of PolicyNet4's map for an ``img_size`` input: one forward
+    on the ``meta`` device, so the tower's own shape arithmetic decides
+    (seven stride-2 stages rounding up: 256 x 2 x 3 at 192 x 320). The JAX
+    KMGenerator infers its input width the same way (modules.py:83-92)."""
+    with torch.device("meta"):
+        out = PolicyNet4().eval()(torch.empty(1, 3, *img_size))
+    return tuple(out.shape[1:])
 
 
 class KMGenerator(MLP):

@@ -37,6 +37,16 @@ def num_connect_offdiag(coef: torch.Tensor, agent_num: int) -> torch.Tensor:
     return ((offdiag != 0).sum().to(torch.float64) / (agent_num * b)).to(torch.float32)
 
 
+def drop_diagonal_softmax(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Softmax over keys with self-links removed (port of ops/comm.py:122-133):
+    the diagonal is masked to ``-inf`` before the softmax, so the other K-1
+    keys renormalize, and written back as exact zeros."""
+    k, q = logits.shape[-2:]
+    eye = torch.eye(k, q, dtype=torch.bool, device=logits.device)
+    out = torch.softmax(logits.masked_fill(eye, float("-inf")), dim=dim)
+    return out.masked_fill(eye, 0.0)
+
+
 def argmax_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int):
     """Hard top-1 graph. Returns (fused, coef (B, K, Q), num_connect)."""
     coef = one_hot_argmax(prob, dim=1)

@@ -3,9 +3,13 @@
     python -m multiagentperception_tpu_torch.test --config <yml> \\
         --model_path <ckpt.pkl> [--inference_mode MODE] [--device cpu]
 
-Takes the reference YAMLs unchanged, loads a reference-format ``.pkl`` and
-evaluates the config's test split on the card (``--device cpu`` to run on
-the CPU; without a card and without it, the run stops with an error).
+Takes any of the ten reference YAMLs under ``configs/multi-request-multi-support/``
+and ``configs/single-request-multiple-support/`` unchanged (all seven
+architectures; the ``topk`` extension is refused by name), loads a
+reference-format ``.pkl`` and evaluates the config's test split on the
+card (``--device cpu`` to run on the CPU; without a card and without it,
+the run stops with an error). Every architecture's class map comes from
+the upsample+argmax kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ def main(argv=None):
                         default="configs/your_configs.yml")
     parser.add_argument("--model_path", nargs="?", type=str, required=True)
     parser.add_argument("--inference_mode", nargs="?", type=str, default=None,
-                        help="override the default eval mode (activated)")
+                        help="override the architecture's eval mode (activated for "
+                        "the when2com models and MIMOcomWho, argmax_test for "
+                        "LearnWho2Com)")
     parser.add_argument("--device", nargs="?", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)

@@ -4,12 +4,17 @@ train.py:34-232).
     python -m multiagentperception_tpu_torch.train --config <yml> \\
         [--device cpu] [--run_time N]
 
-Takes the reference YAMLs unchanged and trains on the card (``--device
-cpu`` for the CPU; without a card and without it, the run stops with an
-error). Each run writes to ``runs/<config name>/<timestamp>``: the config,
-``train.log`` and the ``.pkl`` checkpoints. After training it loads the
-best checkpoint and evaluates the test split in the config's eval mode
-(``activated`` for MIMOcom), as the reference does.
+Takes any of the ten reference YAMLs under ``configs/multi-request-multi-support/``
+and ``configs/single-request-multiple-support/`` unchanged (all seven
+architectures; ``configs/extensions/mrms_when2com_topk.yml`` is refused by
+name) and trains on the card (``--device cpu`` for the CPU; without a card
+and without it, the run stops with an error). Each run writes to
+``runs/<config name>/<timestamp>``: the config, ``train.log`` and the
+``.pkl`` checkpoints ``<arch>_<dataset>_best_model.pkl``. After training it
+loads the best checkpoint and evaluates the test split in the
+architecture's eval mode (``activated`` for the when2com models and
+MIMOcomWho, ``argmax_test`` for LearnWho2Com, none for the baselines), as
+the reference does.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ def main(argv=None):
 
         schedule = get_scheduler(t_cfg.get("lr_schedule"), t_cfg["optimizer"]["lr"])
         trainer = Trainer(cfg, logger, get_loss_function(cfg), trainloader, valloader,
-                          schedule=schedule, device=device, logdir=logdir)
+                          schedule=schedule, device=device, logdir=logdir, seed=seed)
         init_weights(trainer.model, seed)
         save_path = trainer.train()
 

@@ -1,14 +1,16 @@
-"""Training of MIMOcom (port of multiagentperception_tpu/trainer.py:
+"""Training of any of the seven architectures (port of multiagentperception_tpu/trainer.py:
 ``_train_step_body`` :397-455, ``train``/``_train_loop`` :829-1022,
 ``_validate``/``_log_val_scores`` :1024-1065 and the checkpoints
 :1067-1180).
 
 ``Trainer`` extends ``evaluate.Evaluator``: one object trains, validates,
 saves and loads checkpoints and evaluates, as the JAX ``Trainer`` does.
-One train step is the forward in training mode (the soft fusion; BatchNorm
-on batch statistics, updating its running ones), the loss, the backward and
-the optimizer update with the lr ``schedule(step)``. Validation runs the
-``softmax`` forward in eval mode with the loss, at full resolution.
+One train step is the forward in training mode (the comm models' soft
+fusion, the selection baselines' partners drawn on the host; BatchNorm on
+batch statistics, updating its running ones), the loss on the prediction
+(``out[0]`` of a tuple), the backward and the optimizer update with the lr
+``schedule(step)``. Validation runs the ``softmax`` forward in eval mode
+with the loss, at full resolution.
 
 Checkpoints are reference-layout ``.pkl`` files
 (``{"epoch", "model_state", "optimizer_state", "best_iou"}``, the layout of
@@ -74,16 +76,17 @@ def refuse_unported(cfg) -> None:
 
 
 class Trainer(Evaluator):
-    """Trains, validates and checkpoints MIMOcom on ``device`` (default the
-    card). The model starts as ``models.get_model`` builds it; initialize or
-    load its weights before ``train``. ``schedule`` maps an update's index
-    to its lr (default: the config's constant lr)."""
+    """Trains, validates and checkpoints the model of ``cfg`` on ``device``
+    (default the card). The model starts as ``models.get_model`` builds it;
+    initialize or load its weights before ``train``. ``schedule`` maps an
+    update's index to its lr (default: the config's constant lr); ``seed``
+    (default ``training.seed``) seeds the selection baselines' draws."""
 
     def __init__(self, cfg, logger: logging.Logger | None, loss_fn, trainloader, valloader,
                  schedule=None, device: str | torch.device | None = None,
-                 logdir: str | None = None):
+                 logdir: str | None = None, seed: int | None = None):
         refuse_unported(cfg)
-        super().__init__(cfg, device, loss_fn=loss_fn)
+        super().__init__(cfg, device, loss_fn=loss_fn, seed=seed)
         self.logger = logger or logging.getLogger("multiagentperception_tpu_torch")
         self.trainloader = trainloader
         self.valloader = valloader
@@ -107,25 +110,28 @@ class Trainer(Evaluator):
                     mod.eval()
 
     def _batch(self, images, labels) -> tuple[torch.Tensor, torch.Tensor]:
-        """Host batch -> device images (as the loader gives them: raw uint8 ones
-        are normalized in ``train_step``) and (B*N, H, W) uint8 labels. On the
-        card the copies leave from pinned memory without blocking the host."""
+        """Host batch -> the model's device input (as the loader gives it: raw
+        uint8 frames are normalized in ``train_step``) and the uint8 target
+        (``_model_inputs``, ``_labels``). On the card the copies leave from
+        pinned memory without blocking the host."""
         def put(a):
             t = torch.as_tensor(np.asarray(a))
             if self.device.type == "cuda":
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
 
-        return put(images), put(self._labels(labels))
+        return put(self._model_inputs(images)), put(self._labels(labels))
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """One update on a device batch; returns the loss (not read back).
-        The gradients stay in ``.grad`` until the next step."""
+        The gradients stay in ``.grad`` until the next step. The selection
+        baselines draw one set of partners per step."""
         self.train_mode()
         x = normalize_images(images) if self.normalize_on_device else images
         set_lr(self.optimizer, self.schedule(self.step))
         self.optimizer.zero_grad(set_to_none=True)
-        pred = self.model(x, inference="softmax")[0]
+        out = self.model(x, **self._forward_kwargs("softmax", "train"))
+        pred = out[0] if isinstance(out, tuple) else out
         loss = self.loss_fn(input=pred, target=labels)
         loss.backward()
         self.optimizer.step()

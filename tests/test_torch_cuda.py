@@ -278,3 +278,53 @@ def test_one_training_step_on_the_card(cuda):
     assert np.isfinite(loss) and trainer.step == 1
     moved = [n for n, p in trainer.model.named_parameters() if not torch.equal(p, before[n])]
     assert len(moved) > 100
+
+
+ZOO = {"Single_agent": {}, "All_agents": {"shuffle_features": "selection"},
+       "MIMO_All_agents": {"shuffle_features": "selection"}, "MIMOcom": {},
+       "MIMOcomWho": {"query": False}, "LearnWhen2Com": {},
+       "LearnWho2Com": {"shared_img_encoder": "only_normal_agents"}}
+MRMS = {"Single_agent", "MIMO_All_agents", "MIMOcom", "MIMOcomWho"}
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_eval_step_of_every_arch_launches_k1(cuda, arch, monkeypatch):
+    """One eval step of each architecture (3 agents at 128x128) on the card:
+    the class map comes from K1, which launches once, and the evaluator
+    hands its wrapper a card tensor (a CPU one would take the plain
+    version). The confusion matrix counts every labelled pixel."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch import evaluate
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.models import init_weights
+
+    mrms = arch in MRMS
+    cfg = normalize_config({
+        "model": {"arch": arch, "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": mrms, **ZOO[arch]},
+        "data": {"img_rows": 128, "img_cols": 128,
+                 "commun_label": "mimo" if mrms else "when2com"}})
+    ev = evaluate.Evaluator(cfg, device=cuda)
+    init_weights(ev.model, 0)
+    devices = []
+    wrapper = evaluate.upsample_argmax
+
+    def spy(x, out_h, out_w):
+        devices.append(x.device.type)
+        return wrapper(x, out_h, out_w)
+
+    monkeypatch.setattr(evaluate, "upsample_argmax", spy)
+    rng = np.random.default_rng(0)
+    images = (rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32)
+    labels = rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32)
+    commun = (np.stack([rng.integers(0, 2, (2, 3)), rng.integers(0, 3, (2, 3))], axis=1)
+              if mrms else rng.integers(-1, 2, (2,)))
+    before = k1.upsample_argmax.launches
+    res = ev.eval_step(images, labels, commun)
+    torch.cuda.synchronize()
+    assert k1.upsample_argmax.launches == before + 1
+    assert devices == ["cuda"]
+    assert int(res["hist"].sum()) == (labels.size if mrms and arch != "All_agents"
+                                      else labels[:, 0].size)
+    assert int(res["hist_pos"].sum() + res["hist_neg"].sum()) == int(res["hist"].sum())

@@ -133,6 +133,6 @@ def test_unported_configs_raise_not_implemented():
     from multiagentperception_tpu_torch.config import load_config
     from multiagentperception_tpu_torch.models import get_model
 
-    cfg = load_config(str(ROOT / "configs" / "multi-request-multi-support" / "mrms_who2com.yml"))
+    cfg = load_config(str(ROOT / "configs" / "extensions" / "mrms_when2com_topk.yml"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, 11)

@@ -19,10 +19,12 @@ and the script exits non-zero:
    instructions (the counts are printed). Hold each kernel against its
    plain PyTorch version on the card, and time the kernel, the plain
    version and one PyTorch library call (a yardstick only: the port never
-   calls it). The checks and their tolerances are ``ops/kernels/checks.py``'s:
-   K1 agrees on at least 99.99% of pixels and every disagreement is a
-   near-tie (the plain version's top two upsampled logits within 1e-4); an
-   all-equal input gives class 0. K2: fused within rtol/atol 1e-5, graphs
+   calls it); K1 and K2 also by CUPTI alone, back to back (``cupti_warm_ms``,
+   to set beside their time on the eval path). The checks and their
+   tolerances are ``ops/kernels/checks.py``'s: K1 agrees on at least
+   99.99% of pixels and every disagreement is a near-tie (the plain
+   version's top two upsampled logits within 1e-4); an all-equal input
+   gives class 0. K2: fused within rtol/atol 1e-5, graphs
    within 1e-6, masks equal, in all three modes. K3 at the flagship's four
    stride-1 blocks (C=64 at 128x128, C=128 at 64x64, C=256 at 32x32, C=512
    at 16x16), in float32 at the eval's B*N = 12 within rtol/atol 1e-4 (the
@@ -43,7 +45,8 @@ and the script exits non-zero:
    ``.pkl``, loaded through ``Evaluator.load_weight`` and evaluated in
    ``activated`` mode over seeded in-memory batches of the loader's
    shapes. K1's and K2's launch counts are zeroed just before and read
-   just after; each must have launched. Prints eval frames/s (a frame is
+   just after; each must have launched its float32 route once per batch
+   and its bf16 route never. Prints eval frames/s (a frame is
    one agent's view) over the timed window, then traces the same batches
    again under ``torch.profiler``: the device's busy share is the traced
    device time over the untraced window's wall time.
@@ -88,10 +91,28 @@ and the script exits non-zero:
    each (finite losses), ms per step and peak device memory. Then card
    against CPU at 256x256 with TF32 off, one set of weights and one seed:
    actions and bandwidth equal, class maps on at least 99.9% of pixels.
+8. Mixed precision (``model.dtype: bfloat16`` / ``training.mixed_precision``).
+   K1's and K2's bf16 routes against their plain versions at the
+   flagship's shapes (``checks``: K1's near-tie rule; K2's graphs within
+   1e-6 and fused within one bf16 ulp + 1e-5), timed as phase 1 times the
+   float32 routes. The flagship's bf16 ``activated`` eval as phase 2 runs
+   it, at the YAML's batch 2 x 6 and at the JAX bench's 16 x 6
+   (bench.py:125): each kernel's bf16 route launches once per batch and
+   its float32 route never; frames/s, ms per batch, device time, busy
+   share, peak memory. Card against CPU in bf16 at 256x256 (TF32 off):
+   over 4 seeds the card's bf16 pre-upsample logits lie no further from
+   its float32 ones than twice the CPU's bf16 from the CPU's float32
+   (relative L2, summed). Training with ``training.mixed_precision`` as
+   phase 5 runs it: finite float32 losses, float32 parameters that moved,
+   ms per step. Each of the nine other reference YAMLs with
+   ``model.dtype: bfloat16``: one evaluation of 2 batches in its default
+   mode, K1's bf16 route launched once per batch.
 
 Prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, then the ``{"kernels": [...]}`` line (K1's record also holds its
-launch counts on phase 7's paths), and last ``{"ok": true, "device": {...}}``.
+launch counts on phase 7's paths; ``upsample_argmax_bf16`` and
+``comm_fusion_bf16`` are the bf16 routes, with their launches on phase 8's
+paths), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -165,6 +186,23 @@ def _time_ms(fn, iters: int = 50) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def _traced_ms(fn, kernel: str, iters: int = 50) -> float:
+    """Device time per launch of the kernel whose name holds ``kernel``
+    over ``iters`` back-to-back runs of ``fn`` under ``torch.profiler``
+    (CUPTI): the kernel alone, its inputs warm in L2, no launch gaps. Set
+    beside its time on the eval path, it shows what the path adds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in _device_events(prof) if kernel in e.key]
+    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+
+
 def _device_events(prof) -> list:
     """The trace's device work: kernels and copies, without the ranges that
     ``record_function`` annotations (such as ``Optimizer.step``) draw over
@@ -192,9 +230,18 @@ def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ phase 1
 
-def check_upsample_argmax(gen) -> dict:
+def _suffix(dtype: torch.dtype) -> str:
+    """A bf16 route's record name suffix; the float32 routes keep their names."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def _short(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def check_upsample_argmax(gen, dtype: torch.dtype = torch.float32) -> dict:
     n, c, h, w, out = 12, 11, 16, 16, 512  # B*N decoder logits at 512x512
-    x = torch.randn(n, c, h, w, generator=gen).to("cuda")
+    x = torch.randn(n, c, h, w, generator=gen).to("cuda", dtype)
     checked = checks.check_upsample_argmax(x, out, out)
 
     def library():
@@ -202,29 +249,31 @@ def check_upsample_argmax(gen) -> dict:
             x, size=(out, out), mode="bilinear", align_corners=False).argmax(1)
 
     taps_bytes = 2 * (out * 2 * 4) * 2  # row and column (idx, weight) tables
-    bytes_moved = x.numel() * 4 + taps_bytes + n * out * out * 4
+    bytes_moved = x.numel() * x.element_size() + taps_bytes + n * out * out * 4
     # vertical taps once per (row, source column, class), horizontal per pixel
     flops = 3 * n * c * (out * w + out * out)
     bound_ms, bound_by = _bound(bytes_moved, flops)
     return {
-        "name": "upsample_argmax", "route": "cuda",
+        "name": "upsample_argmax" + _suffix(dtype), "route": "cuda",
         "source": "multiagentperception_tpu_torch/csrc/upsample_argmax.cu",
         "replaces": "multiagentperception_tpu/ops/pallas/upsample_argmax.py:56",
         **checked,
         "ms": _time_ms(lambda: k1.upsample_argmax(x, out, out)),
+        "cupti_warm_ms": _traced_ms(lambda: k1.upsample_argmax(x, out, out),
+                                    "upsample_argmax_kernel"),
         "plain_ms": _time_ms(lambda: k1.upsample_argmax_plain(x, out, out)),
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"({n}, {c}, {h}, {w}) f32 -> ({n}, {out}, {out}) int32",
+        "shape": f"({n}, {c}, {h}, {w}) {_short(dtype)} -> ({n}, {out}, {out}) int32",
     }
 
 
-def check_comm_fusion(gen) -> dict:
+def check_comm_fusion(gen, dtype: torch.dtype = torch.float32) -> dict:
     b, n, d, c, h, w = 2, 6, 1024, 512, 16, 16  # flagship value maps, NCHW per agent
-    q = torch.randn(b, n, d, generator=gen).to("cuda")
+    q = torch.randn(b, n, d, generator=gen).to("cuda", dtype)
     # logits with a spread of about 2, so `activated` keeps off-diagonal links
-    k = (torch.randn(b, n, d, generator=gen) * 2 / d ** 0.5).to("cuda")
-    v = torch.randn(b, n, c, h, w, generator=gen).to("cuda")
+    k = (torch.randn(b, n, d, generator=gen) * 2 / d ** 0.5).to("cuda", dtype)
+    v = torch.randn(b, n, c, h, w, generator=gen).to("cuda", dtype)
     max_err = max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS, THRES)
                   for mode in ("softmax", "activated", "argmax"))
 
@@ -232,25 +281,28 @@ def check_comm_fusion(gen) -> dict:
     bias = DIAG_BIAS * torch.eye(n, device="cuda")
 
     def library():
-        soft = torch.softmax(torch.bmm(k, q.transpose(1, 2)), dim=1) + bias
+        soft = torch.softmax(torch.bmm(k, q.transpose(1, 2)).float(), dim=1) + bias
         coef = torch.where(soft > THRES, soft, torch.zeros_like(soft))
-        return torch.bmm(coef.transpose(1, 2), flat)
+        return torch.bmm(coef.transpose(1, 2).to(dtype), flat)
 
     m = c * h * w
-    bytes_moved = (q.numel() + k.numel() + 2 * v.numel() + 2 * b * n * n) * 4
+    bytes_moved = ((q.numel() + k.numel() + 2 * v.numel()) * v.element_size()
+                   + 2 * b * n * n * 4)  # coef and soft are float32
     flops = 2 * b * n * n * d + 2 * b * n * n * m
     bound_ms, bound_by = _bound(bytes_moved, flops)
     run = lambda: k2.comm_fusion(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
     plain = lambda: k2.comm_fusion_plain(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
     return {
-        "name": "comm_fusion", "route": "cuda",
+        "name": "comm_fusion" + _suffix(dtype), "route": "cuda",
         "source": "multiagentperception_tpu_torch/csrc/comm_fusion.cu",
         "replaces": "multiagentperception_tpu/ops/pallas/comm_fusion.py:73",
         "max_abs_err": max_err,
-        "ms": _time_ms(run), "plain_ms": _time_ms(plain),
+        "ms": _time_ms(run), "cupti_warm_ms": _traced_ms(run, "comm_fusion_kernel"),
+        "plain_ms": _time_ms(plain),
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) f32, activated",
+        "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) {_short(dtype)}, "
+                 "activated",
     }
 
 
@@ -442,9 +494,21 @@ def seeded_batches(count, b, n, size, seed, kind="mimo"):
     return out
 
 
-def run_slice(kernels) -> dict:
+def run_slice(kernels, dtype: str | None = None, batch: int | None = None,
+              timed: int = EVAL_BATCHES) -> dict:
+    """The flagship's ``activated`` eval through ``Evaluator``: ``timed``
+    batches after 2 warm-up batches, then the same batches traced. ``dtype``
+    sets ``model.dtype`` (phase 8: ``bfloat16``), ``batch`` the batch size
+    (default the YAML's). Each kernel must launch on the route of the
+    model's type once per timed batch (K2: the bf16 route in bf16) and
+    never on another."""
     cfg = load_config(str(FLAGSHIP))
+    if dtype is not None:
+        cfg["model"]["dtype"] = dtype
+    if batch is not None:
+        cfg["training"]["batch_size"] = batch
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    route = "bf16" if dtype == "bfloat16" else "f32"
     model = init_weights(get_model(cfg, N_CLASSES), SEED)
     WORK.mkdir(parents=True, exist_ok=True)
     pkl = WORK / "mrms_when2com_seed0.pkl"
@@ -453,19 +517,25 @@ def run_slice(kernels) -> dict:
 
     ev = Evaluator(cfg)  # the card: the default device
     ev.load_weight(str(pkl))
-    batches = seeded_batches(EVAL_BATCHES + 2, b, n, size, SEED)
+    batches = seeded_batches(timed + 2, b, n, size, SEED)
     ev.evaluate(batches[:2])  # warm-up
 
     for kern in kernels:
         kern.launches = 0
+        kern.route_launches.update(dict.fromkeys(kern.route_launches, 0))
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     score, class_iou = ev.evaluate(batches[2:])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
     launches = {kern.__name__: kern.launches for kern in kernels}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the eval path never launched: {launches}")
+    routes = {kern.__name__: dict(kern.route_launches) for kern in kernels}
+    for name, counts in routes.items():
+        if counts != {**dict.fromkeys(counts, 0), route: timed}:
+            raise AssertionError(f"{name} did not launch its {route} route once per "
+                                 f"batch ({timed} batches): {counts}")
 
     metrics = ev.last_eval_metrics
     labels = np.stack([bt[1] for bt in batches[2:]])
@@ -478,25 +548,27 @@ def run_slice(kernels) -> dict:
     if not all(np.isfinite(float(x)) for x in list(score.values()) + list(class_iou.values())):
         raise AssertionError("non-finite eval scores")
 
-    frames = EVAL_BATCHES * b * n
+    frames = timed * b * n
     result = {"config": FLAGSHIP.relative_to(ROOT).as_posix(), "inference": "activated",
-              "batch": b, "agents": n, "size": size, "batches": EVAL_BATCHES,
-              "eval_frames_per_s": frames / seconds,
-              "batch_ms": seconds / EVAL_BATCHES * 1e3, "bandwidth": bandwidth,
+              "dtype": dtype or "float32", "batch": b, "agents": n, "size": size,
+              "batches": timed, "eval_frames_per_s": frames / seconds,
+              "batch_ms": seconds / timed * 1e3, "bandwidth": bandwidth,
               "when2com_acc": metrics.get_selection_accuracy()[0],
               "who2com_acc": metrics.get_selection_accuracy()[1],
-              "launches": launches}
-    result.update(profile_window(ev, batches[2:], seconds, kernels))
+              "peak_device_bytes": peak_bytes, "launches": launches,
+              "route_launches": routes}
+    result.update(profile_window(ev, batches[2:], seconds, kernels,
+                                 WORK / f"profile_{result['dtype']}_b{b}.txt"))
     return result
 
 
-def profile_window(ev, batches, wall_s: float, kernels) -> dict:
+def profile_window(ev, batches, wall_s: float, kernels, out: Path = PROFILE_OUT) -> dict:
     """Trace the timed window's batches again. The device is busy for the
     traced device time (one stream: kernels and copies do not overlap) over
     ``wall_s``, the untraced window's wall time; the tracer's own cost shows
     in the traced wall time. Each kernel's traced device time per launch
     on the path (``<wrapper>_kernel`` in csrc) is free of host gaps, unlike
-    an event-timed launch. The full table goes to PROFILE_OUT."""
+    an event-timed launch. The full table goes to ``out``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -507,7 +579,7 @@ def profile_window(ev, batches, wall_s: float, kernels) -> dict:
         traced_s = time.perf_counter() - t0
     events = _device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    PROFILE_OUT.write_text(prof.key_averages().table(
+    out.write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     per_batch = len(batches)
@@ -599,19 +671,23 @@ def _recording_loss(cfg):
     return recording_loss, recorded
 
 
-def run_training(eval_kernels) -> dict:
+def run_training(eval_kernels, mixed_precision: bool = False) -> dict:
     """The flagship trains TRAIN_WARMUP + TRAIN_STEPS iterations through
-    ``Trainer.train``; its best checkpoint is then evaluated in ``activated``
+    ``Trainer.train`` (phase 8: with ``training.mixed_precision``): finite
+    float32 losses, float32 parameters, some of them moved, a checkpoint of
+    float32 tensors. Its best checkpoint is then evaluated in ``activated``
     mode, which runs K1 and K2."""
     cfg = load_config(str(FLAGSHIP))
     total = TRAIN_WARMUP + TRAIN_STEPS
-    cfg["training"].update(train_iters=total, val_interval=total, print_interval=1)
+    cfg["training"].update(train_iters=total, val_interval=total, print_interval=1,
+                           mixed_precision=mixed_precision)
+    tag = "_bf16" if mixed_precision else ""
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
     train_batches = seeded_batches(total, b, n, size, SEED + 2)
     val_batches = seeded_batches(2, b, n, size, SEED + 3)
     recording_loss, recorded = _recording_loss(cfg)
     trainer = Trainer(cfg, logging.getLogger("chip_smoke"), recording_loss, train_batches,
-                      val_batches, device="cuda", logdir=str(WORK / "train"))
+                      val_batches, device="cuda", logdir=str(WORK / f"train{tag}"))
     init_weights(trainer.model, SEED)
     start = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
@@ -620,16 +696,22 @@ def run_training(eval_kernels) -> dict:
     if best is None:
         raise AssertionError("training saved no best checkpoint")
     losses = [float(v) for v in recorded]
-    if len(losses) != total or not all(np.isfinite(losses)):
+    if len(losses) != total or not all(np.isfinite(losses)) or \
+            any(v.dtype != torch.float32 for v in recorded):
         raise AssertionError(f"train losses {losses}")
+    if any(v.dtype != torch.float32 for v in trainer.model.state_dict().values()
+           if v.is_floating_point()):
+        raise AssertionError("a parameter or BatchNorm statistic left float32")
     saved = torch.load(best, map_location="cpu", weights_only=True)
     moved = sum(not torch.equal(saved["model_state"][k], v) for k, v in start.items()
                 if v.is_floating_point())
-    if moved == 0:
-        raise AssertionError("no parameter changed in training")
+    if moved == 0 or any(saved["model_state"][k].dtype != v.dtype for k, v in start.items()):
+        raise AssertionError(f"training: {moved} tensors moved; the checkpoint's dtypes "
+                             f"{sorted({str(v.dtype) for v in saved['model_state'].values()})}")
 
     timed = trainer.iter_seconds[TRAIN_WARMUP:]
-    result = {"config": FLAGSHIP.relative_to(ROOT).as_posix(), "batch": b, "agents": n,
+    result = {"config": FLAGSHIP.relative_to(ROOT).as_posix(),
+              "mixed_precision": mixed_precision, "batch": b, "agents": n,
               "size": size, "iterations": total, "timed_iterations": len(timed),
               "train_frames_per_s": len(timed) * b * n / sum(timed),
               "ms_per_step": float(np.mean(timed)) * 1e3,
@@ -638,7 +720,8 @@ def run_training(eval_kernels) -> dict:
               "peak_device_bytes": peak_bytes, "tensors_changed": moved,
               "cudnn_tf32": torch.backends.cudnn.allow_tf32,
               "best_checkpoint_iter": int(saved["epoch"])}
-    result.update(profile_train_window(trainer, train_batches[:PROFILE_STEPS]))
+    result.update(profile_train_window(trainer, train_batches[:PROFILE_STEPS],
+                                       WORK / f"train_profile{tag}.txt"))
 
     ev = Evaluator(cfg)
     ev.load_weight(best)
@@ -653,7 +736,7 @@ def run_training(eval_kernels) -> dict:
     return result
 
 
-def profile_train_window(trainer, batches) -> dict:
+def profile_train_window(trainer, batches, out: Path) -> dict:
     """Train steps (host batch to update) untraced, then the same steps under
     ``torch.profiler``: the busy share is the traced device time over the
     untraced wall time, as phase 2 takes it."""
@@ -674,7 +757,7 @@ def profile_train_window(trainer, batches) -> dict:
         traced_s = time.perf_counter() - t0
     events = _device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    (WORK / "train_profile.txt").write_text(prof.key_averages().table(
+    out.write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     per = len(batches)
@@ -829,6 +912,104 @@ def run_zoo_config(yml: Path) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 8
+
+BENCH_BATCH = 16  # the JAX bench's eval batch (bench.py:125)
+BENCH_EVAL_BATCHES = 5
+MP_SEEDS = (0, 1, 2, 3)
+MP_RATIO = 2.0  # the card's bf16 distance from float32 over the CPU's, at most
+
+
+def _pre_logits(ev, images, inference: str):
+    """``Evaluator.predict``'s forward without K1: the decoder's pre-upsample
+    logits (float32, on the CPU), the action and the bandwidth."""
+    with torch.inference_mode():
+        x = ev._images(images)
+        pre, action, nc = ev._outputs(ev.model(
+            x, full_res=False, **ev._forward_kwargs(inference, "eval")))
+    return pre.float().cpu(), action.cpu(), float(nc)
+
+
+@_no_tf32()
+def bf16_card_vs_cpu(size: int = 256) -> dict:
+    """The flagship's ``activated`` eval at ``size`` in bf16 and in float32
+    (TF32 off), on the card and on the CPU, from one set of weights per
+    seed: over MP_SEEDS, the card's bf16 pre-upsample logits lie no further
+    from its float32 ones than MP_RATIO times the CPU's bf16 logits from
+    the CPU's float32 ones (relative L2, summed over the seeds), the rule
+    tests/test_torch_mixed_precision_models.py holds the port to against
+    JAX. Actions and bandwidth of card and CPU in bf16 are reported."""
+    cfg32 = load_config(str(FLAGSHIP))
+    cfg32["data"]["img_rows"] = cfg32["data"]["img_cols"] = size
+    cfg16 = copy.deepcopy(cfg32)
+    cfg16["model"]["dtype"] = "bfloat16"
+    b, n = cfg32["training"]["batch_size"], cfg32["model"]["agent_num"]
+    errs = {"cuda": [], "cpu": []}
+    same_actions, same_bandwidth = 0, 0
+    for seed in MP_SEEDS:
+        state = init_weights(get_model(cfg32, N_CLASSES), SEED + 20 + seed).state_dict()
+        images = seeded_batches(1, b, n, size, SEED + 20 + seed, "None")[0][0]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
+                ev = Evaluator(cfg, device=dev)
+                ev.model.load_state_dict(state, strict=True)
+                out[dev, name] = _pre_logits(ev, images, "activated")
+            errs[dev].append(_rel(out[dev, "bf16"][0], out[dev, "f32"][0]))
+        same_actions += torch.equal(out["cuda", "bf16"][1], out["cpu", "bf16"][1])
+        same_bandwidth += out["cuda", "bf16"][2] == out["cpu", "bf16"][2]
+    card, cpu = sum(errs["cuda"]), sum(errs["cpu"])
+    if not card <= MP_RATIO * cpu:
+        raise AssertionError(f"bf16 card vs float32 card {errs['cuda']} beyond {MP_RATIO} x "
+                             f"bf16 CPU vs float32 CPU {errs['cpu']}")
+    return {"size": size, "seeds": len(MP_SEEDS), "tf32": False,
+            "rel_l2_bf16_to_f32": errs, "ratio": card / cpu,
+            "seeds_with_equal_actions": same_actions,
+            "seeds_with_equal_bandwidth": same_bandwidth}
+
+
+def run_zoo_bf16(yml: Path) -> dict:
+    """One reference YAML with ``model.dtype: bfloat16`` at its own size: a
+    seeded model evaluated over ZOO_EVAL_BATCHES batches in its default
+    mode (after a warm-up batch), K1's routes zeroed just before and read
+    just after: its bf16 route launches once a batch, its float32 route
+    never. The score tables go to WORK/zoo_bf16/<name>.log."""
+    cfg = load_config(str(yml))
+    cfg["model"]["dtype"] = "bfloat16"
+    arch, kind = cfg["model"]["arch"], cfg["data"]["commun_label"]
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    mode = ZOO_MODES.get(arch, (None,))[0]
+    batches = seeded_batches(ZOO_EVAL_BATCHES, b, n, size, SEED + 7, kind)
+    ev = Evaluator(cfg)
+    init_weights(ev.model, SEED)
+    log_path = WORK / "zoo_bf16" / f"{yml.stem}.log"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        ev.evaluate(batches[:1], inference_mode=mode)  # warm-up
+        routes = k1.upsample_argmax.route_launches
+        routes.update(dict.fromkeys(routes, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score, _ = ev.evaluate(batches, inference_mode=mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = dict(k1.upsample_argmax.route_launches)
+    if counts != {"f32": 0, "bf16": ZOO_EVAL_BATCHES}:
+        raise AssertionError(f"{yml.name} bf16 {mode}: K1 routes {counts}")
+    if not all(np.isfinite(float(v)) for v in score.values()):
+        raise AssertionError(f"{yml.name} bf16 {mode}: non-finite scores")
+    metrics = ev.last_eval_metrics
+    row = {"config": yml.relative_to(ROOT).as_posix(), "arch": arch, "dtype": "bfloat16",
+           "mode": mode or "-", "batch": b, "agents": n, "size": size,
+           "k1_bf16_launches": counts["bf16"], "batch_ms": seconds / len(batches) * 1e3,
+           "miou": float(score["Mean IoU : \t"])}
+    if metrics.count:
+        row["bandwidth"] = metrics.get_avg_bandW()
+    del ev
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -892,6 +1073,36 @@ def main() -> int:
                                          for mode, row in z["eval"].items()}
                                   for name, z in zoo.items()}
     lap("7_zoo")
+
+    gen8 = torch.Generator().manual_seed(SEED + 8)
+    bf16_records = [check_upsample_argmax(gen8, torch.bfloat16),
+                    check_comm_fusion(gen8, torch.bfloat16)]
+    print("kernel checks passed (bf16); " + json.dumps(bf16_records))
+    lap("8_kernels_bf16")
+    mp_eval = {"yaml_batch": run_slice(eval_kernels, dtype="bfloat16"),
+               "bench_batch": run_slice(eval_kernels, dtype="bfloat16", batch=BENCH_BATCH,
+                                        timed=BENCH_EVAL_BATCHES)}
+    for rec, kern in zip(bf16_records, eval_kernels):
+        rec["launches"] = mp_eval["yaml_batch"]["route_launches"][kern.__name__]["bf16"]
+        rec["path_device_ms"] = mp_eval["yaml_batch"]["path_kernel_device_ms"][kern.__name__]
+        rec["launches_bench_batch"] = \
+            mp_eval["bench_batch"]["route_launches"][kern.__name__]["bf16"]
+        rec["path_device_ms_bench_batch"] = \
+            mp_eval["bench_batch"]["path_kernel_device_ms"][kern.__name__]
+        rec["kernel_ms"] = rec["ms"]
+    print("mixed_precision_eval " + json.dumps(mp_eval))
+    lap("8_eval_bf16")
+    print("mixed_precision_card_vs_cpu " + json.dumps(bf16_card_vs_cpu()))
+    lap("8_card_vs_cpu_bf16")
+    print("mixed_precision_train " + json.dumps(run_training(eval_kernels, True)))
+    lap("8_train_bf16")
+    zoo16 = {}
+    for yml in ZOO:
+        zoo16[yml.stem] = run_zoo_bf16(yml)
+        print(f"zoo_bf16 {yml.stem} " + json.dumps(zoo16[yml.stem]))
+    bf16_records[0]["zoo_launches"] = {name: z["k1_bf16_launches"] for name, z in zoo16.items()}
+    records += bf16_records
+    lap("8_zoo_bf16")
     print("phase_seconds " + json.dumps(seconds))
 
     print(_card_line())

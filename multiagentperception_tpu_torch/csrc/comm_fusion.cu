@@ -10,8 +10,8 @@
 //
 // Bound on the H100: bytes. V is read once and fused written once
 // (2 x 2 x 6 x 131,072 x 4 B = 12.6 MB at the flagship, ~3.8 us at
-// 3.35 TB/s); the graph is ~37k FMAs per batch element and the fusion
-// 2*N FLOPs per byte of V.
+// 3.35 TB/s; half that in bf16); the graph is ~37k FMAs per batch element
+// and the fusion 2*N FLOPs per value of V.
 //
 // Design: grid (tiles of M, B) in clusters of kCluster CTAs along M (a
 // cluster belongs to one batch element), no more clusters than the card
@@ -21,9 +21,10 @@
 // 1. Each thread loads its part of this CTA's slice of Q' and K (rank r of
 //    the cluster takes the r-th 1/kCluster of D: 6 KB at the flagship) into
 //    shared memory, and only then issues its loads of V: kCols columns
-//    (16-byte float4s) of every agent's row, in registers (kCols = 2 for
-//    N <= 8, 1 above). Issued first, the whole card's V requests queue in L2
-//    ahead of the slices', and the graph waited ~3.5 us for its 6 KB.
+//    (16-byte packs: 4 floats or 8 bf16) of every agent's row, in
+//    registers (kCols = 2 for N <= 8, 1 above). Issued first, the whole
+//    card's V requests queue in L2 ahead of the slices', and the graph
+//    waited ~3.5 us for its 6 KB.
 // 2. The CTA's partial logits over its slice are
 //    summed in registers per 8 x 8 group of (key, query) pairs, then by
 //    warp shuffles (warp_sum_scatter) and over the warps in order. Each CTA
@@ -34,8 +35,8 @@
 //    any load is issued: a release there would wait for V. One thread per (key,
 //    query) pair then forms the softmax over keys, the diagonal bias, the
 //    argmax and the mode mask by shuffles among its query's lanes.
-// 3. Each thread combines its N float4s of a column with coef and writes N
-//    fused float4s; columns beyond the grid's are streamed after. Loads and
+// 3. Each thread combines its N packs of a column with coef and writes N
+//    fused packs; columns beyond the grid's are streamed after. Loads and
 //    stores of V stream (evict-first).
 // Measured on an H100 (globaltimer probes inside the kernel): a design in
 // which every block built the whole graph, one warp per pair and the
@@ -43,7 +44,16 @@
 // dependent round trips; a block-wide graph of register sums still spent
 // ~4 us reading all of Q' and K in every block.
 // Block (0, b) also writes coef and soft. N <= kMaxAgents (16).
+//
+// Types: comm_fusion_f32 takes float32 Q', K and V; comm_fusion_bf16 takes
+// bfloat16 ones (the mixed-precision MIMOcom's), as the TPU kernel does
+// (comm_fusion.py:42-43, 63-67): Q' and K are converted to float32 as they
+// are staged into shared memory, so the graph is the float32 route's; V
+// moves in 16-byte loads of 8 bf16 values, each converted to float32, the
+// fusion accumulates in float32 registers, and fused is rounded to bf16
+// once, at the store. coef and soft are float32 in both.
 
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "hopper.cuh"
@@ -59,12 +69,51 @@ constexpr int kPre = 2;      // float4s of the slice a thread loads at once (the
 
 enum Mode { kSoftmax = 0, kActivated = 1, kArgmax = 2 };
 
-__device__ __forceinline__ void axpy4(float4& acc, float c, const float4& v) {
-  acc.x += c * v.x;
-  acc.y += c * v.y;
-  acc.z += c * v.z;
-  acc.w += c * v.w;
-}
+// The two halves of a word of two bf16 values, as float32 (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// V's 16-byte pack of T values, converted to and from float32.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  static constexpr int kElems = 4;
+  __device__ static __forceinline__ void unpack(const uint4& p, float (&v)[4]) {
+    v[0] = __uint_as_float(p.x);
+    v[1] = __uint_as_float(p.y);
+    v[2] = __uint_as_float(p.z);
+    v[3] = __uint_as_float(p.w);
+  }
+  __device__ static __forceinline__ uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ static __forceinline__ void unpack(const uint4& p, float (&v)[8]) {
+    const uint32_t w[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf16_lo(w[i]);
+      v[2 * i + 1] = bf16_hi(w[i]);
+    }
+  }
+  __device__ static __forceinline__ uint4 pack(const float (&v)[8]) {  // round to nearest even
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // The cluster barrier's halves. A release waits for this thread's loads in
 // flight, so the kernel arrives before it issues any.
@@ -95,10 +144,10 @@ __device__ __forceinline__ void store_remote(uint32_t addr, float v, uint32_t ba
 
 // Loads issued where they stand (volatile: the compiler may not sink them
 // below the graph's barriers).
-__device__ __forceinline__ float4 load_stream(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.cs.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
 }
@@ -110,25 +159,51 @@ __device__ __forceinline__ float4 load_now(const float4* p) {
   return v;
 }
 
-template <int MAXN>
-__device__ __forceinline__ void load_column(float4 (&vals)[MAXN], const float4* vb, int n,
-                                            long long m4, long long j) {
-#pragma unroll
-  for (int kk = 0; kk < MAXN; ++kk)
-    if (kk < n) vals[kk] = load_stream(vb + kk * m4 + j);
+// 4 values of Q' or K at p (4-value aligned) as float32; `now`: a load
+// issued where it stands.
+__device__ __forceinline__ float4 load_qk4(const float* p, bool now) {
+  return now ? load_now(reinterpret_cast<const float4*>(p)) : *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_qk4(const __nv_bfloat16* p, bool now) {
+  uint2 u;
+  if (now)
+    asm volatile("ld.global.v2.u32 {%0, %1}, [%2];" : "=r"(u.x), "=r"(u.y) : "l"(p));
+  else
+    u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
 }
 
 template <int MAXN>
-__device__ __forceinline__ void fuse_column(const float4 (&vals)[MAXN], const float* coef,
-                                            float4* fb, int n, long long m4, long long j) {
+__device__ __forceinline__ void load_column(uint4 (&vals)[MAXN], const uint4* vb, int n,
+                                            long long mp, long long j) {
+#pragma unroll
+  for (int kk = 0; kk < MAXN; ++kk)
+    if (kk < n) vals[kk] = load_stream(vb + kk * mp + j);
+}
+
+// fused[qq] = sum over kk of coef[kk][qq] V[kk] for one pack of every
+// agent's row, summed in float32 in key order, rounded to T at the store.
+template <typename T, int MAXN>
+__device__ __forceinline__ void fuse_column(const uint4 (&vals)[MAXN], const float* coef,
+                                            uint4* fb, int n, long long mp, long long j) {
+  constexpr int kE = Pack<T>::kElems;
 #pragma unroll
   for (int qq = 0; qq < MAXN; ++qq) {
     if (qq < n) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      float acc[kE];
 #pragma unroll
-      for (int kk = 0; kk < MAXN; ++kk)
-        if (kk < n) axpy4(acc, coef[kk * n + qq], vals[kk]);
-      __stcs(fb + qq * m4 + j, acc);
+      for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MAXN; ++kk) {
+        if (kk < n) {
+          float v[kE];
+          Pack<T>::unpack(vals[kk], v);
+          const float c = coef[kk * n + qq];
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[e] += c * v[e];
+        }
+      }
+      __stcs(fb + qq * mp + j, Pack<T>::pack(acc));
     }
   }
 }
@@ -139,8 +214,8 @@ __host__ __device__ __forceinline__ int slice_pitch(int d) {
 }
 
 // Row `row` of the batch element's K (rows 0..n-1) and Q' (rows n..2n-1).
-__device__ __forceinline__ const float* qk_row(const float* kb, const float* qb, int n, int d,
-                                               int row) {
+template <typename T>
+__device__ __forceinline__ const T* qk_row(const T* kb, const T* qb, int n, int d, int row) {
   return row < n ? kb + (size_t)row * d : qb + (size_t)(row - n) * d;
 }
 
@@ -208,12 +283,13 @@ __device__ __forceinline__ void slice_logits(const float* slice, int n, int pitc
   }
 }
 
-template <int MAXN>
+// mp: 16-byte packs of V per agent row (M / Pack<T>::kElems)
+template <typename T, int MAXN>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-comm_fusion_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float4* __restrict__ v, float4* __restrict__ fused,
+comm_fusion_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const uint4* __restrict__ v, uint4* __restrict__ fused,
                    float* __restrict__ coef_out, float* __restrict__ soft_out,
-                   int n, int d, long long m4, int mode, float diag_bias,
+                   int n, int d, long long mp, int mode, float diag_bias,
                    float thres) {
   constexpr int kCols = kMaxAgents / MAXN;  // columns of V a thread has in flight
   extern __shared__ float4 slice4[];  // this CTA's slice of D: K's n rows, then Q''s n
@@ -232,25 +308,23 @@ comm_fusion_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   cluster_arrive();  // the mbarrier is ready for the others' stores
   const int b = blockIdx.y;
-  const float* const kb = k + (size_t)b * n * d;
-  const float* const qb = q + (size_t)b * n * d;
-  const float4* vb = v + (size_t)b * n * m4;
-  float4* fb = fused + (size_t)b * n * m4;
+  const T* const kb = k + (size_t)b * n * d;
+  const T* const qb = q + (size_t)b * n * d;
+  const uint4* vb = v + (size_t)b * n * mp;
+  uint4* fb = fused + (size_t)b * n * mp;
 
   // 1. this CTA's slice of K and Q' into shared memory (float4s where D and
   //    the rows allow; zeros past its end), then V's loads (see the note above)
   const int pitch = slice_pitch(d);
   const int d0 = min(d, (int)cluster_rank() * pitch), len = min(d, d0 + pitch) - d0;
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(kb) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(qb) % 16 == 0;
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(kb) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(qb) % (4 * sizeof(T)) == 0;
   const int row4 = max(len / 4, 1), total4 = vec ? 2 * n * (len / 4) : 0;
   float4 pre[kPre];
 #pragma unroll
   for (int u = 0; u < kPre; ++u) {
     const int i = threadIdx.x + u * kThreads;
-    if (i < total4)
-      pre[u] = load_now(reinterpret_cast<const float4*>(qk_row(kb, qb, n, d, i / row4) + d0) +
-                        i % row4);
+    if (i < total4) pre[u] = load_qk4(qk_row(kb, qb, n, d, i / row4) + d0 + 4 * (i % row4), true);
   }
   if (vec && len == pitch) {
 #pragma unroll
@@ -259,19 +333,19 @@ comm_fusion_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (i < total4) slice4[i] = pre[u];  // rows of len == pitch floats
     }
     for (int i = threadIdx.x + kPre * kThreads; i < total4; i += kThreads)
-      slice4[i] = reinterpret_cast<const float4*>(qk_row(kb, qb, n, d, i / row4) + d0)[i % row4];
+      slice4[i] = load_qk4(qk_row(kb, qb, n, d, i / row4) + d0 + 4 * (i % row4), false);
   } else {
     for (int i = threadIdx.x; i < 2 * n * pitch; i += kThreads) {
       const int row = i / pitch, col = i % pitch;
-      slice[i] = col < len ? qk_row(kb, qb, n, d, row)[d0 + col] : 0.f;
+      slice[i] = col < len ? to_float(qk_row(kb, qb, n, d, row)[d0 + col]) : 0.f;
     }
   }
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long j0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float4 vals[kCols][MAXN];
+  uint4 vals[kCols][MAXN];
 #pragma unroll
   for (int c = 0; c < kCols; ++c)
-    if (j0 + c * stride < m4) load_column<MAXN>(vals[c], vb, n, m4, j0 + c * stride);
+    if (j0 + c * stride < mp) load_column<MAXN>(vals[c], vb, n, mp, j0 + c * stride);
   __syncthreads();
 
   // 2. the graph
@@ -331,20 +405,20 @@ comm_fusion_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // 3. fuse the columns in flight, then any further ones
 #pragma unroll
   for (int c = 0; c < kCols; ++c)
-    if (j0 + c * stride < m4) fuse_column<MAXN>(vals[c], coef, fb, n, m4, j0 + c * stride);
-  for (long long j = j0 + kCols * stride; j < m4; j += stride) {
-    load_column<MAXN>(vals[0], vb, n, m4, j);
-    fuse_column<MAXN>(vals[0], coef, fb, n, m4, j);
+    if (j0 + c * stride < mp) fuse_column<T, MAXN>(vals[c], coef, fb, n, mp, j0 + c * stride);
+  for (long long j = j0 + kCols * stride; j < mp; j += stride) {
+    load_column<MAXN>(vals[0], vb, n, mp, j);
+    fuse_column<T, MAXN>(vals[0], coef, fb, n, mp, j);
   }
 }
 
-template <int MAXN>
-int launch(const float* q, const float* k, const float* v, float* fused, float* coef,
-           float* soft, int B, int N, int D, long long M, int mode, float diag_bias,
-           float thres, cudaStream_t stream) {
-  auto kernel = comm_fusion_kernel<MAXN>;
+template <typename T, int MAXN>
+int launch(const T* q, const T* k, const T* v, T* fused, float* coef, float* soft, int B,
+           int N, int D, long long M, int mode, float diag_bias, float thres,
+           cudaStream_t stream) {
+  auto kernel = comm_fusion_kernel<T, MAXN>;
   constexpr int kCols = kMaxAgents / MAXN;
-  const long long m4 = M / 4;
+  const long long mp = M / Pack<T>::kElems;
   const size_t smem = (size_t)2 * N * slice_pitch(D) * sizeof(float);
   cudaError_t err;
   if (smem > 48 * 1024 &&
@@ -371,27 +445,42 @@ int launch(const float* q, const float* k, const float* v, float* fused, float* 
     active_dev = dev;
     active_smem = smem;
   }
-  const long long cols = (m4 + (long long)kThreads * kCols - 1) / ((long long)kThreads * kCols);
+  const long long cols = (mp + (long long)kThreads * kCols - 1) / ((long long)kThreads * kCols);
   long long per_b = active / B;  // clusters
   if (per_b < 1) per_b = 1;
   if (per_b * kCluster > cols) per_b = (cols + kCluster - 1) / kCluster;
   const dim3 grid((unsigned)(per_b * kCluster), B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, reinterpret_cast<const float4*>(v), reinterpret_cast<float4*>(fused), coef, soft,
-      N, D, m4, mode, diag_bias, thres);
+      q, k, reinterpret_cast<const uint4*>(v), reinterpret_cast<uint4*>(fused), coef, soft,
+      N, D, mp, mode, diag_bias, thres);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_n(const T* q, const T* k, const T* v, T* fused, float* coef, float* soft, int B,
+             int N, int D, long long M, int mode, float diag_bias, float thres, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 8)
+    return launch<T, 8>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
+  return launch<T, kMaxAgents>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres,
+                               st);
 }
 
 }  // namespace
 
-// q, k: (B, N, D) f32; v, fused: (B, N, M) f32 with M % 4 == 0 and 16-byte
-// aligned rows; coef, soft: (B, N, N) f32. mode: 0 softmax, 1 activated,
-// 2 argmax. Returns a cudaError_t.
+// q, k: (B, N, D); v, fused: (B, N, M) with 16-byte aligned rows, M % 4 == 0
+// (f32) or M % 8 == 0 (bf16); coef, soft: (B, N, N) f32. mode: 0 softmax,
+// 1 activated, 2 argmax. Returns a cudaError_t.
 extern "C" int comm_fusion_f32(const float* q, const float* k, const float* v,
                                float* fused, float* coef, float* soft, int B, int N,
                                int D, long long M, int mode, float diag_bias,
                                float thres, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 8) return launch<8>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
-  return launch<kMaxAgents>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
+  return launch_n(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, stream);
+}
+
+extern "C" int comm_fusion_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                const __nv_bfloat16* v, __nv_bfloat16* fused, float* coef,
+                                float* soft, int B, int N, int D, long long M, int mode,
+                                float diag_bias, float thres, void* stream) {
+  return launch_n(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, stream);
 }

@@ -35,7 +35,14 @@
 // loop addresses them by immediate offsets), keeps 16 independent argmax
 // chains, and writes one 16-byte int4 a run. Other shapes, and other
 // class counts than the model's 11, take the per-pixel path.
+//
+// The logits come in float32 (upsample_argmax_f32) or bfloat16
+// (upsample_argmax_bf16, the mixed-precision models' decoder output). A
+// bf16 value is converted to float32 as phase 1 reads it, as the TPU
+// kernel upcasts each class's slice (upsample_argmax.py:38); everything
+// after, the shared rows included, is the float32 route's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,11 +54,14 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = 4;     // runs of 4 columns a lane keeps in flight on the span path
 constexpr int kClasses = 11;   // the model's classes: the span path's class loop is unrolled
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // kC > 0: C == kC, known to the compiler (the span path runs at the model's
 // kClasses only); kC == 0: any C.
-template <bool kSpan4, int kC>
+template <typename T, bool kSpan4, int kC>
 __global__ void __launch_bounds__(kThreads)
-upsample_argmax_kernel(const float* __restrict__ x, int C, int h, int w,
+upsample_argmax_kernel(const T* __restrict__ x, int C, int h, int w,
                        const int* __restrict__ ytap, const float* __restrict__ ywt,
                        const int* __restrict__ xtap, const float* __restrict__ xwt,
                        int H, int W, int32_t* __restrict__ out) {
@@ -63,7 +73,7 @@ upsample_argmax_kernel(const float* __restrict__ x, int C, int h, int w,
   const int row0 = blockIdx.x * kRows;
   const int nrows = min(kRows, H - row0);
   const int tid = threadIdx.x;
-  const float* xi = x + (size_t)img * C * h * w;
+  const T* xi = x + (size_t)img * C * h * w;
   if (tid < 2 * nrows) {
     ty[tid] = ytap[2 * row0 + tid] * w;
     tw[tid] = ywt[2 * row0 + tid];
@@ -80,16 +90,18 @@ upsample_argmax_kernel(const float* __restrict__ x, int C, int h, int w,
 #pragma unroll 4
     for (int rc = tid / w; rc < nrows * kC; rc += kThreads / w) {
       const int r = rc / kC, c = rc - r * kC;
-      const float* xc = xi + (size_t)c * h * w + col;
-      rows[(r * w + col) * kC + c] = tw[2 * r] * xc[ty[2 * r]] + tw[2 * r + 1] * xc[ty[2 * r + 1]];
+      const T* xc = xi + (size_t)c * h * w + col;
+      rows[(r * w + col) * kC + c] =
+          tw[2 * r] * to_float(xc[ty[2 * r]]) + tw[2 * r + 1] * to_float(xc[ty[2 * r + 1]]);
     }
   } else {
     int col = tid % w, rc = tid / w;
     int r = rc / C, c = rc % C;
     const int dcol = kThreads % w, drc = kThreads / w;
     while (r < nrows) {
-      const float* xc = xi + (size_t)c * h * w + col;
-      rows[(r * w + col) * C + c] = tw[2 * r] * xc[ty[2 * r]] + tw[2 * r + 1] * xc[ty[2 * r + 1]];
+      const T* xc = xi + (size_t)c * h * w + col;
+      rows[(r * w + col) * C + c] =
+          tw[2 * r] * to_float(xc[ty[2 * r]]) + tw[2 * r + 1] * to_float(xc[ty[2 * r + 1]]);
       col += dcol;
       c += drc;
       if (col >= w) {
@@ -181,24 +193,39 @@ upsample_argmax_kernel(const float* __restrict__ x, int C, int h, int w,
   }
 }
 
+template <typename T>
+int launch(const T* x, int n_img, int C, int h, int w, const int* ytap, const float* ywt,
+           const int* xtap, const float* xwt, int H, int W, int span4, int32_t* out,
+           cudaStream_t st) {
+  const dim3 grid((H + kRows - 1) / kRows, n_img);
+  const size_t smem = (size_t)kRows * C * w * sizeof(float);  // <= 48 KB, checked by the wrapper
+  if (span4 && C == kClasses)
+    upsample_argmax_kernel<T, true, kClasses><<<grid, kThreads, smem, st>>>(
+        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
+  else
+    upsample_argmax_kernel<T, false, 0><<<grid, kThreads, smem, st>>>(
+        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x: (n_img, C, h, w) f32; taps: (H, 2) / (W, 2) int32 indices and f32
-// weights; span4: 1 if W % 4 == 0 and every aligned run of 4 output
+// x: (n_img, C, h, w) f32 or bf16; taps: (H, 2) / (W, 2) int32 indices and
+// f32 weights; span4: 1 if W % 4 == 0 and every aligned run of 4 output
 // columns shares one tap pair, else 0; out: (n_img, H, W) int32, 16-byte
 // aligned when span4. Returns cudaGetLastError().
 extern "C" int upsample_argmax_f32(const float* x, int n_img, int C, int h, int w,
                                    const int* ytap, const float* ywt,
                                    const int* xtap, const float* xwt,
                                    int H, int W, int span4, int32_t* out, void* stream) {
-  const dim3 grid((H + kRows - 1) / kRows, n_img);
-  const size_t smem = (size_t)kRows * C * w * sizeof(float);  // <= 48 KB, checked by the wrapper
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (span4 && C == kClasses)
-    upsample_argmax_kernel<true, kClasses><<<grid, kThreads, smem, st>>>(
-        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
-  else
-    upsample_argmax_kernel<false, 0><<<grid, kThreads, smem, st>>>(
-        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
-  return (int)cudaGetLastError();
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                (cudaStream_t)stream);
+}
+
+extern "C" int upsample_argmax_bf16(const __nv_bfloat16* x, int n_img, int C, int h, int w,
+                                    const int* ytap, const float* ywt,
+                                    const int* xtap, const float* xwt,
+                                    int H, int W, int span4, int32_t* out, void* stream) {
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                (cudaStream_t)stream);
 }

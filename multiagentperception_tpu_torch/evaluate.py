@@ -20,6 +20,11 @@ CPU ``torch.Generator`` seeded from the run's seed: one draw per eval batch
 (the stream restarts with each evaluation, as the JAX package folds the
 batch index into one key) and one per train step. A card run and a CPU
 run with one seed pick the same partners.
+
+A mixed-precision model (``model.dtype: bfloat16`` or
+``training.mixed_precision``) takes the same float32 frames (its first
+convolution casts them) and hands the kernel bf16 pre-upsample logits,
+which it upcasts, as the JAX evaluation hands its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -214,7 +219,10 @@ class Evaluator:
 
     def _record(self, metrics: runningScore, res: dict, commun_label,
                 bandwidth: bool = True, selection: bool = True) -> dict:
-        host = {k: v.cpu().numpy() for k, v in res.items()}
+        # numpy has no bfloat16: a bf16 model's thresholded row reads back as
+        # float32 (the same values)
+        host = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+                for k, v in res.items()}
         metrics.update_hist(host["hist"], host.get("hist_pos"), host.get("hist_neg"))
         if bandwidth and "num_connect" in host:
             metrics.update_bandW(float(host["num_connect"]))

@@ -11,6 +11,9 @@ Logits are NCHW ``(B, C, H, W)``; targets ``(B, H, W)`` of any integer type
 - ``multi_scale_cross_entropy2d`` weighs a tuple of outputs 1.0, 0.4, 0.16...
 - ``bootstrapped_cross_entropy2d`` averages each image's K largest pixel
   losses (unweighted, as the JAX package's).
+
+bf16 logits (mixed precision) are resized in bf16 and then upcast: the
+log-softmax and the mean run in float32, as in JAX (loss.py:44, 94).
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """Model registry (port of multiagentperception_tpu/models/__init__.py:28-129).
 
 All seven reference architectures with the ``resnet_encoder`` /
-``simple_decoder`` backbones in float32: every model the ten reference
-YAMLs reach. What the port does not carry yet raises
-``NotImplementedError`` naming the key and ROADMAP.md, never a silent
-substitute: ``feat_squeezer``, other backbones, ``sparse: true`` on the
-SRMS attentions, ``model.dtype`` / mixed precision, ``agent_parallel*``,
-and ``topk`` (``topk_k``, ``eval_inference: topk``). MIMOcom keeps the
-flagship's shape (``query: true``, ``multiple_output: true``).
+``simple_decoder`` backbones: every model the ten reference YAMLs reach,
+in float32 or, with ``model.dtype: bfloat16`` or the
+``training.mixed_precision`` shorthand, computing in bf16 with float32
+parameters and BatchNorm statistics (``compute_dtype``). What the port does
+not carry yet raises ``NotImplementedError`` naming the key and
+ROADMAP.md, never a silent substitute: ``feat_squeezer``, other backbones,
+``sparse: true`` on the SRMS attentions, ``model.dtype: float16``,
+``agent_parallel*``, and ``topk`` (``topk_k``, ``eval_inference: topk``).
+MIMOcom keeps the flagship's shape (``query: true``, ``multiple_output:
+true``).
 ``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
 modes always run the fused comm step (models/agents.py).
 """
@@ -47,6 +50,22 @@ def _refuse(key: str, value) -> None:
     raise NotImplementedError(f"model.{key}={value!r}: {_LATER}")
 
 
+def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype | None:
+    """The models' compute dtype (JAX models/__init__.py:57-66):
+    ``model.dtype``, else ``bfloat16`` when ``training.mixed_precision`` is
+    set; ``None`` for float32."""
+    name = cfg["model"].get("dtype")
+    if name is None and cfg.get("training", {}).get("mixed_precision"):
+        name = "bfloat16"
+    if name in (None, "None", "float32"):
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name == "float16":
+        _refuse("dtype", name)
+    raise KeyError(f"model.dtype={name!r}: bfloat16, float32 or None")
+
+
 def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
     """Build the model of a reference-schema config dict."""
     m = cfg["model"]
@@ -65,17 +84,14 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
             _refuse(key, m.get(key))
     if (m.get("feat_squeezer") or -1) != -1:
         _refuse("feat_squeezer", m["feat_squeezer"])
-    if m.get("dtype") not in (None, "None", "float32") or \
-            cfg.get("training", {}).get("mixed_precision"):
-        raise NotImplementedError(f"mixed precision (model.dtype, "
-                                  f"training.mixed_precision): {_LATER}")
     for key in ("agent_parallel", "agent_parallel_train"):
         if m.get(key):
             _refuse(key, m[key])
     if m.get("eval_inference") == "topk":
         _refuse("eval_inference", "topk")
 
-    common = dict(n_classes=n_classes, feat_channel=m.get("feat_channel", 512))
+    common = dict(n_classes=n_classes, feat_channel=m.get("feat_channel", 512),
+                  dtype=compute_dtype(cfg))
     if name == "Single_agent":
         return SingleAgent(**common)
     if name in ("All_agents", "MIMO_All_agents"):
@@ -124,4 +140,5 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-__all__ = ["MODELS", "get_model", "init_weights", *(cls.__name__ for cls in MODELS.values())]
+__all__ = ["MODELS", "compute_dtype", "get_model", "init_weights",
+           *(cls.__name__ for cls in MODELS.values())]

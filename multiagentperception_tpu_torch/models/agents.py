@@ -34,6 +34,14 @@ The ``selection`` baselines (``shuffle_features: selection``) take their
 random partners as ``rand_ids``, drawn by the caller on the host (the
 evaluator and trainer draw them from a seeded CPU generator), so a card
 run and a CPU run with one seed pick the same partners.
+
+Every architecture takes ``dtype``, the compute dtype (``None`` for
+float32, ``torch.bfloat16`` for ``model.dtype: bfloat16`` /
+``training.mixed_precision``), and hands it to every tower, head and
+attention, as the JAX models do (agents.py:79, 105, 150, 205, 287, 382).
+The parameters stay float32; the frames enter in float32 and the first
+convolution casts them. In bf16 the predictions are bf16, the MIMO graphs
+float32, and MIMOcom's pruned modes hand the comm step bf16 Q', K and V.
 """
 
 from __future__ import annotations
@@ -103,10 +111,11 @@ def _need_ids(rand_ids):
 class SingleAgent(nn.Module):
     """Encoder -> decoder, no communication (reference: agent.py:375-395)."""
 
-    def __init__(self, n_classes: int = 11, feat_channel: int = 512):
+    def __init__(self, n_classes: int = 11, feat_channel: int = 512,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.encoder = ImgEncoder(feat_channel)
-        self.decoder = ImgDecoder(feat_channel, n_classes)
+        self.encoder = ImgEncoder(feat_channel, dtype)
+        self.decoder = ImgDecoder(feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True) -> torch.Tensor:
         return self.decoder(self.encoder(_nchw(x)), full_res)
@@ -119,14 +128,14 @@ class AllAgents(nn.Module):
     baseline; returns ``(pred, rand_action)``) (reference: agent.py:399-469)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
-                 shuffle_flag=None, agent_num: int = 5):
+                 shuffle_flag=None, agent_num: int = 5, dtype: torch.dtype | None = None):
         super().__init__()
         self.shuffle_flag = shuffle_flag
         self.agent_num = agent_num
         for i in range(agent_num):
-            setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel))
+            setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel, dtype))
         width = 2 if shuffle_flag in ("selection", "fixed2") else agent_num
-        self.decoder = ImgDecoder(width * feat_channel, n_classes)
+        self.decoder = ImgDecoder(width * feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True,
                 rand_ids: torch.Tensor | None = None):
@@ -150,13 +159,13 @@ class MIMOAllAgents(nn.Module):
     (reference: agent.py:892-980)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
-                 shuffle_flag=None, agent_num: int = 6):
+                 shuffle_flag=None, agent_num: int = 6, dtype: torch.dtype | None = None):
         super().__init__()
         self.shuffle_flag = shuffle_flag
         self.agent_num = agent_num
-        self.encoder = ImgEncoder(feat_channel)
+        self.encoder = ImgEncoder(feat_channel, dtype)
         width = 2 if shuffle_flag in ("selection", "ComNet") else agent_num
-        self.decoder = ImgDecoder(width * feat_channel, n_classes)
+        self.decoder = ImgDecoder(width * feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True,
                 rand_ids: torch.Tensor | None = None):
@@ -183,27 +192,27 @@ class _SRMSComm(nn.Module):
     policy tower and its key/query heads, the SRMS attention, the decoder."""
 
     def __init__(self, n_classes, feat_channel, attention, has_query, agent_num,
-                 shared_img_encoder, key_size, query_size, img_size, dec_width):
+                 shared_img_encoder, key_size, query_size, img_size, dec_width, dtype):
         super().__init__()
         self.agent_num = agent_num
         self.has_query = has_query
         self.query_size = query_size
         self.shared_img_encoder = shared_img_encoder
         if shared_img_encoder == "unified":
-            self.u_encoder = ImgEncoder(feat_channel)
+            self.u_encoder = ImgEncoder(feat_channel, dtype)
         elif shared_img_encoder == "only_normal_agents":
-            self.degarded_encoder = ImgEncoder(feat_channel)  # the reference's spelling
-            self.normal_encoder = ImgEncoder(feat_channel)
+            self.degarded_encoder = ImgEncoder(feat_channel, dtype)  # the reference's spelling
+            self.normal_encoder = ImgEncoder(feat_channel, dtype)
         else:
             for i in range(agent_num):
-                setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel))
+                setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel, dtype))
         policy_features = math.prod(policy_map_shape(tuple(img_size)))
-        self.query_key_net = PolicyNet4()
-        self.key_net = KMGenerator(policy_features, key_size)
+        self.query_key_net = PolicyNet4(dtype)
+        self.key_net = KMGenerator(policy_features, key_size, dtype)
         if has_query:
-            self.query_net = KMGenerator(policy_features, query_size)
-        self.attention_net = get_srms_attention(attention, query_size, key_size)
-        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes)
+            self.query_net = KMGenerator(policy_features, query_size, dtype)
+        self.attention_net = get_srms_attention(attention, query_size, key_size, dtype)
+        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes, dtype)
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, 3) -> value maps (B, N, C, h, w)."""
@@ -241,9 +250,11 @@ class LearnWho2Com(_SRMSComm):
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  attention: str = "general", has_query: bool = True, agent_num: int = 5,
                  shared_img_encoder: str = "unified", key_size: int = 1024,
-                 query_size: int = 8, img_size: tuple[int, int] = (512, 512)):
+                 query_size: int = 8, img_size: tuple[int, int] = (512, 512),
+                 dtype: torch.dtype | None = None):
         super().__init__(n_classes, feat_channel, attention, has_query, agent_num,
-                         shared_img_encoder, key_size, query_size, img_size, dec_width=2)
+                         shared_img_encoder, key_size, query_size, img_size, dec_width=2,
+                         dtype=dtype)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax", full_res: bool = True):
         _check_mode(self, inference, self.MODES)
@@ -273,9 +284,11 @@ class LearnWhen2Com(_SRMSComm):
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  attention: str = "general", has_query: bool = True, agent_num: int = 5,
                  shared_img_encoder: str = "unified", key_size: int = 1024,
-                 query_size: int = 8, img_size: tuple[int, int] = (512, 512)):
+                 query_size: int = 8, img_size: tuple[int, int] = (512, 512),
+                 dtype: torch.dtype | None = None):
         super().__init__(n_classes, feat_channel, attention, has_query, agent_num,
-                         shared_img_encoder, key_size, query_size, img_size, dec_width=1)
+                         shared_img_encoder, key_size, query_size, img_size, dec_width=1,
+                         dtype=dtype)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax", full_res: bool = True):
         _check_mode(self, inference)
@@ -310,19 +323,19 @@ class _MIMOComm(nn.Module):
     of ones without ``query_net``), the MIMO attention, the decoder."""
 
     def __init__(self, n_classes, feat_channel, agent_num, key_size, query_size, img_size,
-                 has_query, attention, dec_width):
+                 has_query, attention, dec_width, dtype):
         super().__init__()
         self.agent_num = agent_num
         self.has_query = has_query
         self.query_size = query_size
         policy_features = math.prod(policy_map_shape(tuple(img_size)))
-        self.u_encoder = ImgEncoder(feat_channel)
-        self.query_key_net = PolicyNet4()
-        self.key_net = KMGenerator(policy_features, key_size)
+        self.u_encoder = ImgEncoder(feat_channel, dtype)
+        self.query_key_net = PolicyNet4(dtype)
+        self.key_net = KMGenerator(policy_features, key_size, dtype)
         if has_query:
-            self.query_net = KMGenerator(policy_features, query_size)
-        self.attention_net = attention(query_size, key_size)
-        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes)
+            self.query_net = KMGenerator(policy_features, query_size, dtype)
+        self.attention_net = attention(query_size, key_size, dtype)
+        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes, dtype)
 
     def _towers(self, x: torch.Tensor):
         """(values (B, N, C, h, w), keys (B, N, key_size), queries (B, N, query_size))."""
@@ -345,9 +358,10 @@ class MIMOcom(_MIMOComm):
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  agent_num: int = 6, key_size: int = 1024, query_size: int = 32,
-                 img_size: tuple[int, int] = (512, 512)):
+                 img_size: tuple[int, int] = (512, 512), dtype: torch.dtype | None = None):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
-                         has_query=True, attention=MIMOGeneralDotAttention, dec_width=1)
+                         has_query=True, attention=MIMOGeneralDotAttention, dec_width=1,
+                         dtype=dtype)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):
@@ -382,10 +396,10 @@ class MIMOcomWho(_MIMOComm):
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  has_query: bool = True, agent_num: int = 6, key_size: int = 1024,
                  query_size: int = 32, img_size: tuple[int, int] = (512, 512),
-                 mo_flag: bool = True):
+                 mo_flag: bool = True, dtype: torch.dtype | None = None):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
                          has_query=has_query, attention=MIMOWhoGeneralDotAttention,
-                         dec_width=2)
+                         dec_width=2, dtype=dtype)
         self.mo_flag = mo_flag
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",

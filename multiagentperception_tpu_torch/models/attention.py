@@ -9,6 +9,13 @@ normalized over keys. Submodule names are the reference's
 (``attention_net.linear``, ``linear_feat``/``linear_context``/``linear_out``).
 ``sparse`` (sparsemax) is not ported: ``models.get_model`` refuses it where
 it would change the result; the MIMO attentions ignore it, as the JAX ones do.
+
+``dtype`` is the compute dtype of the linear layers (``models.blocks``).
+In bf16 the SRMS attentions stay in bf16 end to end, the logits' softmax
+included, as the JAX ones do; the MIMO attentions take the bf16 einsum
+``K Q'^T``, upcast it to float32 and return a float32 graph
+(attention.py:102-106, 121-126), and the fusion casts the graph to the
+values' dtype (``ops.comm.fuse_values``).
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multiagentperception_tpu_torch.models.blocks import Linear
 from multiagentperception_tpu_torch.ops.comm import drop_diagonal_softmax, fuse_values
 
 
@@ -40,11 +48,12 @@ class ScaledDotAttention(_SRMSAttention):
 class AdditiveAttention(_SRMSAttention):
     """Bahdanau scoring out(feat(k) + context(q)) (reference: agent.py:215-239)."""
 
-    def __init__(self, query_size: int, key_size: int, hidden: int = 128):
+    def __init__(self, query_size: int, key_size: int, hidden: int = 128,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.linear_feat = nn.Linear(key_size, hidden)
-        self.linear_context = nn.Linear(query_size, hidden)
-        self.linear_out = nn.Linear(hidden, 1)
+        self.linear_feat = Linear(key_size, hidden, compute_dtype=dtype)
+        self.linear_context = Linear(query_size, hidden, compute_dtype=dtype)
+        self.linear_out = Linear(hidden, 1, compute_dtype=dtype)
 
     def graph(self, q, k):
         logits = self.linear_out(self.linear_feat(k) + self.linear_context(q))  # (B, K, 1)
@@ -54,30 +63,31 @@ class AdditiveAttention(_SRMSAttention):
 class GeneralDotAttention(_SRMSAttention):
     """Single-query general dot product, Q' = W q (reference: agent.py:345-368)."""
 
-    def __init__(self, query_size: int, key_size: int):
+    def __init__(self, query_size: int, key_size: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.linear = nn.Linear(query_size, key_size)
+        self.linear = Linear(query_size, key_size, compute_dtype=dtype)
 
     def graph(self, q, k):
         return torch.softmax(torch.einsum("bkd,bqd->bkq", k, self.linear(q)), dim=1)
 
 
-def get_srms_attention(name: str, query_size: int, key_size: int) -> nn.Module:
+def get_srms_attention(name: str, query_size: int, key_size: int,
+                       dtype: torch.dtype | None = None) -> nn.Module:
     """The SRMS attention of ``model.attention`` (reference: agent.py:530-536):
     ``additive``, ``general``, anything else ``scaled``."""
     if name == "additive":
-        return AdditiveAttention(query_size, key_size)
+        return AdditiveAttention(query_size, key_size, dtype=dtype)
     if name == "general":
-        return GeneralDotAttention(query_size, key_size)
+        return GeneralDotAttention(query_size, key_size, dtype)
     return ScaledDotAttention()
 
 
 class MIMOGeneralDotAttention(nn.Module):
     """The full N x N graph, softmax over keys (reference: agent.py:242-286)."""
 
-    def __init__(self, query_size: int, key_size: int):
+    def __init__(self, query_size: int, key_size: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.linear = nn.Linear(query_size, key_size)
+        self.linear = Linear(query_size, key_size, compute_dtype=dtype)
 
     def project(self, q: torch.Tensor) -> torch.Tensor:
         """Q' = W q, the projected queries the fused comm kernel consumes."""
@@ -88,7 +98,8 @@ class MIMOGeneralDotAttention(nn.Module):
         return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
     def graph(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-        """(B, K, Q) softmax over keys of K Q'^T, in float32 (or float64)."""
+        """(B, K, Q) softmax over keys of K Q'^T, in float32 (or float64):
+        the product in the inputs' dtype, then upcast."""
         return torch.softmax(self._logits(q, k), dim=1)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

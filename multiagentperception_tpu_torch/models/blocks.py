@@ -8,12 +8,64 @@ normalizes with ``running_mean``/``running_var`` and eps 1e-5; in training
 mode with the batch's mean and biased variance, and it moves the running
 statistics by momentum 0.1 towards the batch mean and the unbiased
 variance ``n/(n-1)``, as torch does.
+
+Mixed precision follows the JAX blocks' ``dtype=`` (blocks.py:17-19): with
+``dtype=torch.bfloat16`` the convolutions and linear layers cast their
+input, weight and bias to bf16 at the call and return bf16 (``Conv2d``,
+``Linear``), while every parameter and BatchNorm statistic stays float32.
+``nn.BatchNorm2d`` with float32 parameters takes the bf16 input, works in
+float32 and returns bf16, in both modes, which is the JAX ``TorchBatchNorm``
+with ``dtype`` set (blocks.py:61-77). ``dtype=None`` is the float32 program.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` when one is set: the
+    input, weight and bias are cast at the call, the parameters stay float32
+    (flax ``nn.Conv(dtype=...)``). ``None`` runs ``nn.Conv2d`` unchanged.
+
+    On CPU tensors a bf16 convolution runs as the float32 convolution of
+    the bf16-rounded operands, rounded once to bf16: the same exact products
+    and float32 sums, without oneDNN's bf16 kernels, whose weight gradient
+    is wrong (NaN, inf or garbage) for a 1x1 input at stride 2 in torch
+    2.13's CPU build (the policy tower's ``conv5`` below 128x128)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        x, weight = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if x.device.type == "cpu":
+            bias = None if bias is None else bias.float()
+            return self._conv_forward(x.float(), weight.float(), bias).to(dt)
+        return self._conv_forward(x, weight, bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` when one is set, as
+    ``Conv2d`` does (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class ConvBNRelu(nn.Module):
@@ -25,10 +77,10 @@ class ConvBNRelu(nn.Module):
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, relu: bool = True):
+                 stride: int = 1, relu: bool = True, dtype: torch.dtype | None = None):
         super().__init__()
         p = (kernel_size - 1) // 2
-        layers = [nn.Conv2d(in_ch, out_ch, kernel_size, stride, p, bias=True),
+        layers = [Conv2d(in_ch, out_ch, kernel_size, stride, p, bias=True, compute_dtype=dtype),
                   nn.BatchNorm2d(out_ch)]
         if relu:
             layers.append(nn.ReLU(inplace=True))
@@ -45,11 +97,12 @@ class MLP(nn.Module):
     ``convert.state_dict_from_flax`` permutes the first layer's inputs.
     """
 
-    def __init__(self, in_features: int, features: tuple[int, ...]):
+    def __init__(self, in_features: int, features: tuple[int, ...],
+                 dtype: torch.dtype | None = None):
         super().__init__()
         layers: list[nn.Module] = []
         for i, f in enumerate(features):
-            layers.append(nn.Linear(in_features, f))
+            layers.append(Linear(in_features, f, compute_dtype=dtype))
             if i < len(features) - 1:
                 layers.append(nn.ReLU(inplace=True))
             in_features = f
@@ -66,17 +119,18 @@ class BasicBlock(nn.Module):
     (also (1, 1)); the projection is a 1x1 conv at the stride, unpadded.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, stride, 1, bias=False, compute_dtype=dtype)
         self.bn1 = nn.BatchNorm2d(out_ch)
         self.relu = nn.ReLU(inplace=True)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, 1, 1, bias=False, compute_dtype=dtype)
         self.bn2 = nn.BatchNorm2d(out_ch)
         self.downsample = None
         if stride != 1 or in_ch != out_ch:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride, 0, bias=False),
+                Conv2d(in_ch, out_ch, 1, stride, 0, bias=False, compute_dtype=dtype),
                 nn.BatchNorm2d(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

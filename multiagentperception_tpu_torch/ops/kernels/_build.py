@@ -32,18 +32,18 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 
-# C entry point and its signature, per kernel source
+_K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]
+_K2_ARGS = [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]
+# C entry points and their signatures, per kernel source
 SIGNATURES = {
-    "upsample_argmax": ("upsample_argmax_f32",
-                        [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]),
-    "comm_fusion": ("comm_fusion_f32",
-                    [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]),
-    "fused_block_wgmma": ("fused_basic_block_wgmma", [P, P, P, P, I32, I32, I32, I32, P]),
-    "fused_block_tf32": ("fused_basic_block_tf32x3", [P, P, P, P, I32, I32, I32, I32, P]),
-    "fused_block_wgmma_conv": ("fused_basic_block_wgmma_conv",
-                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
-    "fused_block_tf32_conv": ("fused_basic_block_tf32x3_conv",
-                              [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
+    "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS},
+    "comm_fusion": {"comm_fusion_f32": _K2_ARGS, "comm_fusion_bf16": _K2_ARGS},
+    "fused_block_wgmma": {"fused_basic_block_wgmma": [P, P, P, P, I32, I32, I32, I32, P]},
+    "fused_block_tf32": {"fused_basic_block_tf32x3": [P, P, P, P, I32, I32, I32, I32, P]},
+    "fused_block_wgmma_conv": {"fused_basic_block_wgmma_conv":
+                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
+    "fused_block_tf32_conv": {"fused_basic_block_tf32x3_conv":
+                              [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -107,9 +107,9 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib

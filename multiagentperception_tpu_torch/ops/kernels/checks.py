@@ -5,12 +5,16 @@ shapes, and ``tests/test_torch_cuda.py`` runs them too. Each check raises
 returns what it measured.
 
 Tolerances:
-- K1 (``upsample_argmax``): at least 99.99% of pixels agree. At every
-  pixel that differs, the plain version's top two upsampled logits lie
-  within 1e-4 (a near-tie), because the kernel sums its taps in another
-  order than the dense matmuls. An all-equal input gives class 0.
+- K1 (``upsample_argmax``), float32 or bfloat16 logits: at least 99.99% of
+  pixels agree. At every pixel that differs, the plain version's top two
+  upsampled logits (in float32, as both sides upcast bf16 logits first)
+  lie within 1e-4 (a near-tie), because the kernel sums its taps in
+  another order than the dense matmuls. An all-equal input gives class 0.
 - K2 (``comm_fusion``): masks equal, ``coef`` and ``soft`` within atol
-  1e-6, fused within rtol/atol 1e-5.
+  1e-6, in both types. fused: float32 within rtol/atol 1e-5; bfloat16
+  (both sides sum in float32 and round once) within one bf16 ulp of the
+  larger of the two values plus atol 1e-5, the float32 route's atol, for
+  sums that cancel to near zero, where an ulp is tiny.
 - K3 (``fused_basic_block``), with TF32 off for the plain version's
   convolutions: float32 within rtol/atol 1e-4 (tests/test_fused_block.py's
   bound). bfloat16: both sides form exact bf16 products and sum them in
@@ -65,6 +69,7 @@ from multiagentperception_tpu_torch.ops.resize import bilinear_resize
 
 K1_MIN_AGREEMENT = 0.9999
 K1_NEAR_TIE = 1e-4
+K2_ATOL = 1e-5
 K3_F32_TOL = 1e-4
 K3_BF16_NEAR = (1, 1e-3)  # (ulps, atol) all but a share K3_BF16_RARE_C64 * C/64 meet
 K3_BF16_FAR = (4, 1e-2)   # (ulps, atol) that every element meets
@@ -81,7 +86,7 @@ def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
     if got.dtype != torch.int32 or got.shape != ref.shape:
         raise AssertionError(f"K1 gives {got.dtype} {tuple(got.shape)}, "
                              f"plain {ref.dtype} {tuple(ref.shape)}")
-    up = bilinear_resize(x, out_h, out_w)
+    up = bilinear_resize(x.float(), out_h, out_w)
     top2 = up.topk(2, dim=1).values
     gap = top2[:, 0] - top2[:, 1]
     miss = got != ref
@@ -98,8 +103,8 @@ def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
 
 def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str,
                       diag_bias: float, thres: float = 0.2) -> float:
-    """K2 in one mode against its plain version; returns the largest
-    absolute error over fused and coef."""
+    """K2 in one mode against its plain version, float32 or bfloat16 inputs;
+    returns the largest absolute error over fused and coef."""
     fused, coef, soft = k2.comm_fusion(q, k, v, mode=mode, diag_bias=diag_bias, thres=thres)
     r_fused, r_coef, r_soft = k2.comm_fusion_plain(q, k, v, mode=mode,
                                                   diag_bias=diag_bias, thres=thres)
@@ -107,18 +112,38 @@ def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: s
         raise AssertionError(f"K2 {mode}: masks differ")
     torch.testing.assert_close(coef, r_coef, rtol=0, atol=1e-6)
     torch.testing.assert_close(soft, r_soft, rtol=0, atol=1e-6)
-    torch.testing.assert_close(fused, r_fused, rtol=1e-5, atol=1e-5)
+    if fused.dtype != v.dtype or r_fused.dtype != v.dtype:
+        raise AssertionError(f"K2 fused in {fused.dtype}, plain {r_fused.dtype}, V {v.dtype}")
+    if v.dtype == torch.bfloat16:
+        assert_within_bf16_ulp(fused, r_fused, K2_ATOL)
+    else:
+        torch.testing.assert_close(fused, r_fused, rtol=K2_ATOL, atol=K2_ATOL)
     if mode == "activated":
         eye = torch.eye(coef.shape[1], dtype=torch.bool, device=coef.device)
         if not bool(((coef != 0) & ~eye).any(2).any(1).all()):
             raise AssertionError("K2 check input prunes every link of a sample")
-    return max((fused - r_fused).abs().max().item(), (coef - r_coef).abs().max().item())
+    return max((fused.float() - r_fused.float()).abs().max().item(),
+               (coef - r_coef).abs().max().item())
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     """The spacing of bfloat16 numbers (8 significant bits) at ``|v|``."""
     mag = v.float().abs().clamp(min=2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def assert_within_bf16_ulp(got: torch.Tensor, ref: torch.Tensor, atol: float) -> None:
+    """Every element of ``got`` within one bf16 ulp (of the larger of the
+    two values) plus ``atol`` of ``ref``: two float32 sums of one set of
+    terms in another order, each rounded once to bf16."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    bound = bf16_ulp(torch.maximum(g.abs(), r.abs())) + atol
+    if bool((err > bound).any()):
+        worst = int((err - bound).argmax())
+        raise AssertionError(f"{int((err > bound).sum())} elements beyond one bf16 ulp + "
+                             f"{atol}: e.g. {g.flatten()[worst].item()} vs "
+                             f"{r.flatten()[worst].item()}")
 
 
 def _bf16_near(got: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, float, float]:

@@ -4,8 +4,13 @@ Port of the TPU kernel ``multiagentperception_tpu/ops/pallas/comm_fusion.py``
 (``fused_comm_step``). Per batch element: logits = K Q'^T, softmax over
 keys, + ``diag_bias`` I (the pre-mask graph ``soft``), the mode mask
 (``softmax`` | ``activated`` strict ``> thres`` | ``argmax`` one-hot,
-lowest key on ties) giving ``coef``, and fused = coef^T V. On CUDA tensors
-``comm_fusion`` launches ``csrc/comm_fusion.cu``; on CPU tensors it runs
+lowest key on ties) giving ``coef``, and fused = coef^T V. As the TPU
+kernel does (comm_fusion.py:42-43, 63-67), Q', K and V are read in their
+dtype (float32 or bfloat16) and upcast, the graph and the fusion are
+float32, ``coef`` and ``soft`` are float32, and ``fused`` is rounded once to
+V's dtype. On CUDA tensors ``comm_fusion`` launches ``csrc/comm_fusion.cu``
+(entry point ``comm_fusion_f32`` or ``comm_fusion_bf16``, counted in
+``comm_fusion.route_launches``); on CPU tensors it runs
 ``comm_fusion_plain``, the same function in plain PyTorch.
 """
 
@@ -20,15 +25,21 @@ from multiagentperception_tpu_torch.ops.kernels import _build
 
 MODES = ("softmax", "activated", "argmax")
 MAX_AGENTS = 16  # kMaxAgents in csrc/comm_fusion.cu
+# dtype: (route, C entry point, elements of V in one 16-byte load)
+ROUTES = {torch.float32: ("f32", "comm_fusion_f32", 4),
+          torch.bfloat16: ("bf16", "comm_fusion_bf16", 8)}
 
 
 def comm_fusion_plain(query_proj: torch.Tensor, keys: torch.Tensor,
                       vals: torch.Tensor, mode: str = "softmax",
                       diag_bias: float = 0.0, thres: float = 0.2):
-    """Plain PyTorch version: returns (fused, coef, soft) like the kernel."""
+    """Plain PyTorch version: returns (fused, coef, soft) like the kernel.
+    Float64 inputs stay float64; any other dtype is upcast to float32 first
+    and ``fused`` rounded once to V's dtype."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    logits = torch.einsum("bkd,bqd->bkq", keys, query_proj).float()
+    work = torch.promote_types(vals.dtype, torch.float32)
+    logits = torch.einsum("bkd,bqd->bkq", keys.to(work), query_proj.to(work))
     soft = torch.softmax(logits, dim=1)
     if diag_bias:
         n = soft.shape[1]
@@ -39,7 +50,7 @@ def comm_fusion_plain(query_proj: torch.Tensor, keys: torch.Tensor,
         coef = one_hot_argmax(soft, dim=1)
     else:
         coef = soft
-    return fuse_values(coef, vals), coef, soft
+    return fuse_values(coef, vals.to(work)).to(vals.dtype), coef, soft
 
 
 def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
@@ -56,9 +67,10 @@ def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor
     for name, t in (("query_proj", query_proj), ("keys", keys), ("vals", vals)):
         if t.device != vals.device:
             raise ValueError(f"{name} on {t.device}, vals on {vals.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"comm_fusion kernel takes float32 (bf16 waits for the "
-                            f"mixed-precision slice); {name} is {t.dtype}")
+        if t.dtype != vals.dtype or t.dtype not in ROUTES:
+            raise TypeError(f"comm_fusion kernel takes query_proj, keys and vals all "
+                            f"float32 or all bfloat16; {name} is {t.dtype}, vals "
+                            f"{vals.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"comm_fusion kernel takes contiguous tensors; {name} is not")
     if vals.dim() < 2 or query_proj.dim() != 3 or keys.dim() != 3:
@@ -73,24 +85,27 @@ def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor
         raise ValueError(f"comm_fusion kernel takes 1..{MAX_AGENTS} agents, got {n}")
     if not (0 < b <= 65535) or d == 0 or m == 0:
         raise ValueError(f"comm_fusion kernel: unsupported B={b}, D={d}, M={m}")
-    if m % 4 or vals.data_ptr() % 16:
-        raise ValueError("comm_fusion kernel streams V in 16-byte float4s: needs "
-                         f"M % 4 == 0 and a 16-byte aligned V (M={m})")
+    route, entry, pack = ROUTES[vals.dtype]
+    if m % pack or vals.data_ptr() % 16:
+        raise ValueError(f"comm_fusion kernel streams {vals.dtype} V in 16-byte loads of "
+                         f"{pack}: needs M % {pack} == 0 and a 16-byte aligned V (M={m})")
     fused = torch.empty_like(vals)
     coef = torch.empty((b, n, n), dtype=torch.float32, device=vals.device)
     soft = torch.empty_like(coef)
     lib = _build.load("comm_fusion")
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        rc = lib.comm_fusion_f32(
+        rc = getattr(lib, entry)(
             query_proj.data_ptr(), keys.data_ptr(), vals.data_ptr(),
             fused.data_ptr(), coef.data_ptr(), soft.data_ptr(), b, n, d, m,
             MODES.index(mode), float(diag_bias), float(thres),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"comm_fusion kernel launch failed: CUDA error {rc}")
+    comm_fusion.route_launches[route] += 1
     comm_fusion.launches += 1
     return fused, coef, soft
 
 
 comm_fusion.launches = 0
+comm_fusion.route_launches = {route: 0 for route, _, _ in ROUTES.values()}

@@ -4,9 +4,14 @@ Port of the TPU kernel ``multiagentperception_tpu/ops/pallas/upsample_argmax.py`
 (``upsample_argmax_pallas``). ``upsample_argmax`` takes the decoder's
 pre-upsample logits NCHW ``(B*N, C, h, w)`` and returns the ``(B*N, H, W)``
 int32 class map of their bilinear resize (``align_corners=False``), ties to
-the lowest class. On a CUDA tensor it launches ``csrc/upsample_argmax.cu``,
-which never writes the full-resolution logits; on a CPU tensor it runs
-``upsample_argmax_plain``, the same function in plain PyTorch. The kernel
+the lowest class. The logits are float32 or bfloat16 (the mixed-precision
+models' output); the resize and the compares run in float32, as the TPU
+kernel upcasts each class's slice (upsample_argmax.py:38). On a CUDA
+tensor it launches ``csrc/upsample_argmax.cu`` (entry point
+``upsample_argmax_f32`` or ``upsample_argmax_bf16``, counted in
+``upsample_argmax.route_launches``), which never writes the
+full-resolution logits; on a CPU tensor it runs ``upsample_argmax_plain``,
+the same function in plain PyTorch. The kernel
 takes its span path (a lane per run of ``SPAN`` output columns, the class
 loop unrolled) where ``shared_spans`` holds for the output width and the
 logits have the model's 11 classes, and its per-pixel path elsewhere.
@@ -26,6 +31,9 @@ from multiagentperception_tpu_torch.ops.resize import _weight_matrix, bilinear_r
 _TILE_ROWS = 16  # kRows in csrc/upsample_argmax.cu
 SPAN = 4  # output columns a thread owns on the kernel's span path
 _MAX_SHARED = 48 * 1024  # the kernel's dynamic shared memory stays under the default limit
+# dtype of the logits: (route, C entry point); the kernel stages float32 either way
+ROUTES = {torch.float32: ("f32", "upsample_argmax_f32"),
+          torch.bfloat16: ("bf16", "upsample_argmax_bf16")}
 
 
 def upsample_argmax_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -71,39 +79,43 @@ def _device_taps(h: int, out_h: int, w: int, out_w: int, device: torch.device):
 
 
 def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """(B*N, C, h, w) float32 logits -> (B*N, out_h, out_w) int32 class map."""
+    """(B*N, C, h, w) float32 or bfloat16 logits -> (B*N, out_h, out_w)
+    int32 class map."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW logits, got shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return upsample_argmax_plain(x, out_h, out_w)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"upsample_argmax kernel takes float32, got {x.dtype}")
+    if x.dtype not in ROUTES:
+        raise TypeError(f"upsample_argmax kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("upsample_argmax kernel takes contiguous NCHW logits")
     n, c, h, w = x.shape
     if n == 0 or c == 0 or out_h <= 0 or out_w <= 0:
         raise ValueError(f"empty upsample_argmax: {tuple(x.shape)} -> {out_h}x{out_w}")
-    if c * _TILE_ROWS * w * 4 > _MAX_SHARED:
+    if c * _TILE_ROWS * w * 4 > _MAX_SHARED:  # float32 staging, whatever x's dtype
         raise ValueError(f"upsample_argmax kernel: C*{_TILE_ROWS}*w floats exceed "
                          f"{_MAX_SHARED} bytes of shared memory (C={c}, w={w})")
     if out_h > 65535 * _TILE_ROWS:
         raise ValueError(f"upsample_argmax kernel: out_h={out_h} too large")
     yi, yw, xi, xw = _device_taps(h, out_h, w, out_w, x.device)
     out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=x.device)
+    route, entry = ROUTES[x.dtype]
     lib = _build.load("upsample_argmax")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.upsample_argmax_f32(
+        rc = getattr(lib, entry)(
             x.data_ptr(), n, c, h, w, yi.data_ptr(), yw.data_ptr(),
             xi.data_ptr(), xw.data_ptr(), out_h, out_w, int(shared_spans(w, out_w)),
             out.data_ptr(),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA error {rc}")
+    upsample_argmax.route_launches[route] += 1
     upsample_argmax.launches += 1
     return out
 
 
 upsample_argmax.launches = 0
+upsample_argmax.route_launches = {route: 0 for route, _ in ROUTES.values()}

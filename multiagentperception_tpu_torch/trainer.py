@@ -12,6 +12,12 @@ batch statistics, updating its running ones), the loss on the prediction
 ``schedule(step)``. Validation runs the ``softmax`` forward in eval mode
 with the loss, at full resolution.
 
+Mixed precision (``training.mixed_precision`` or ``model.dtype:
+bfloat16``, ``models.compute_dtype``) is the JAX trainer's: the model
+computes in bf16, the loss in float32 (``loss.py``), and the optimizer
+steps the float32 parameters with their float32 gradients, without loss
+scaling (JAX has none). Checkpoints hold float32 tensors either way.
+
 Checkpoints are reference-layout ``.pkl`` files
 (``{"epoch", "model_state", "optimizer_state", "best_iou"}``, the layout of
 the reference trainer and of ``compat.save_reference_checkpoint``), named
@@ -48,14 +54,12 @@ def _off(v) -> bool:
 UNPORTED = (
     ("training", "steps_per_call", lambda v: v in (None, 1)),
     ("training", "rss_limit_gb", _off),
-    ("training", "mixed_precision", _off),
     ("training", "nan_guard", _off),
     ("training", "data_backend", lambda v: v != "grain"),
     ("training", "augmentations", _off),
     ("training", "profile_dir", _off),
     ("training", "shard_data_by_process", _off),
     ("training", "device_prefetch", lambda v: v is None),
-    ("model", "dtype", lambda v: v in (None, "None", "float32")),
     ("model", "remat", _off),
     ("data", "cache_decoded", _off),
 )

@@ -55,6 +55,26 @@ def test_upsample_argmax_kernel_refuses_non_contiguous(cuda):
         k1.upsample_argmax(x, 512, 512)
 
 
+@pytest.mark.parametrize("h,w,out_h,out_w", [(16, 16, 512, 512), (5, 7, 17, 29)],
+                         ids=["16x16_to_512", "5x7_to_17x29"])
+def test_upsample_argmax_bf16_route_matches_plain(cuda, h, w, out_h, out_w):
+    """bf16 logits (the mixed-precision decoder's) take the bf16 entry
+    point, on the span path at the flagship's shape and the per-pixel path
+    elsewhere; the check's plain version upcasts the same values."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(12, 11, h, w, generator=g).to(cuda, torch.bfloat16)
+    before = dict(k1.upsample_argmax.route_launches)
+    checks.check_upsample_argmax(x, out_h, out_w)
+    assert k1.upsample_argmax.route_launches["bf16"] == before["bf16"] + 2
+    assert k1.upsample_argmax.route_launches["f32"] == before["f32"]
+
+
+def test_upsample_argmax_kernel_refuses_float16(cuda):
+    x = torch.randn(2, 11, 16, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k1.upsample_argmax(x, 512, 512)
+
+
 @pytest.mark.parametrize("mode", k2.MODES)
 def test_comm_fusion_kernel_matches_plain(cuda, mode):
     g = torch.Generator().manual_seed(1)
@@ -103,10 +123,44 @@ def test_comm_fusion_kernel_refuses(cuda, what):
 
 
 def test_comm_fusion_kernel_refuses_bf16(cuda):
+    """bf16 V streams in 16-byte loads of 8 values: M % 8 != 0 is refused
+    (M = 1028 passes float32's M % 4); so are bf16 Q' and K beside a
+    float32 V (the kernel takes one type)."""
     q, k = (torch.randn(2, 6, 1024, device=cuda, dtype=torch.bfloat16) for _ in range(2))
-    v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
+    v = torch.randn(2, 6, 2, 514, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="M % 8"):
         k2.comm_fusion(q, k, v, mode="activated")
+    with pytest.raises(TypeError, match="all bfloat16"):
+        k2.comm_fusion(q, k, v.float(), mode="activated")
+
+
+def test_comm_fusion_kernel_refuses_float16(cuda):
+    q, k = (torch.randn(2, 6, 1024, device=cuda, dtype=torch.float16) for _ in range(2))
+    v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        k2.comm_fusion(q, k, v, mode="activated")
+
+
+@pytest.mark.parametrize("b,n,d,rest,mode", [
+    (2, 6, 1024, (512, 16, 16), "softmax"), (2, 6, 1024, (512, 16, 16), "activated"),
+    (2, 6, 1024, (512, 16, 16), "argmax"), (16, 6, 1024, (512, 16, 16), "activated"),
+    (20, 6, 37, (257, 8), "activated"), (2, 16, 5, (3, 104), "argmax"),
+    (2, 1, 1000, (64, 16, 16), "softmax")],
+    ids=["flagship_softmax", "flagship_activated", "flagship_argmax", "b16_activated",
+         "b20_n6_m2056_activated", "b2_n16_m312_argmax", "b2_n1_softmax"])
+def test_comm_fusion_bf16_route_matches_plain(cuda, b, n, d, rest, mode):
+    """bf16 Q', K and V take the bf16 entry point: the flagship's shapes at
+    the YAML's batch and the bench's (16), D shorter than the cluster's
+    slices and unaligned to 8, M no multiple of a CTA's columns, 1 to 16
+    agents. Fused within one bf16 ulp + 1e-5 of the plain version."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(b, n, d, generator=g).to(cuda, torch.bfloat16)
+    k = (torch.randn(b, n, d, generator=g) * 3 / d ** 0.5).to(cuda, torch.bfloat16)
+    v = torch.randn(b, n, *rest, generator=g).to(cuda, torch.bfloat16)
+    before = dict(k2.comm_fusion.route_launches)
+    checks.check_comm_fusion(q, k, v, mode, diag_bias=0.001)
+    assert k2.comm_fusion.route_launches["bf16"] == before["bf16"] + 1
+    assert k2.comm_fusion.route_launches["f32"] == before["f32"]
 
 
 @pytest.mark.parametrize("dtype,b,hw,c", [(torch.float32, 12, 128, 64),
@@ -328,3 +382,69 @@ def test_eval_step_of_every_arch_launches_k1(cuda, arch, monkeypatch):
     assert int(res["hist"].sum()) == (labels.size if mrms and arch != "All_agents"
                                       else labels[:, 0].size)
     assert int(res["hist_pos"].sum() + res["hist_neg"].sum()) == int(res["hist"].sum())
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_bf16_eval_step_of_every_arch_takes_the_bf16_routes(cuda, arch):
+    """One eval step of each architecture with ``model.dtype: bfloat16`` on
+    the card: K1 takes the bf16 logits on its bf16 route, MIMOcom's
+    ``activated`` step runs K2's bf16 route, and no float32 route runs."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch import evaluate
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.models import init_weights
+
+    mrms = arch in MRMS
+    cfg = normalize_config({
+        "model": {"arch": arch, "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": mrms, "dtype": "bfloat16", **ZOO[arch]},
+        "data": {"img_rows": 128, "img_cols": 128,
+                 "commun_label": "mimo" if mrms else "when2com"}})
+    ev = evaluate.Evaluator(cfg, device=cuda)
+    init_weights(ev.model, 0)
+    rng = np.random.default_rng(0)
+    images = (rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32)
+    labels = rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32)
+    k1_before = dict(k1.upsample_argmax.route_launches)
+    k2_before = dict(k2.comm_fusion.route_launches)
+    res = ev.eval_step(images, labels)
+    torch.cuda.synchronize()
+    assert k1.upsample_argmax.route_launches == {**k1_before, "bf16": k1_before["bf16"] + 1}
+    k2_runs = 1 if arch == "MIMOcom" else 0
+    assert k2.comm_fusion.route_launches == {**k2_before, "bf16": k2_before["bf16"] + k2_runs}
+    assert int(res["hist"].sum()) == (labels.size if mrms and arch != "All_agents"
+                                      else labels[:, 0].size)
+
+
+def test_mixed_precision_training_step_on_the_card(cuda):
+    """A small MIMOcom with ``training.mixed_precision`` takes one Adam step
+    on the card: finite float32 loss, float32 parameters and BatchNorm
+    statistics that moved."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import init_weights
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    cfg = normalize_config({
+        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": True},
+        "data": {"img_rows": 128, "img_cols": 128, "commun_label": "mimo"},
+        "training": {"batch_size": 2, "mixed_precision": True,
+                     "optimizer": {"name": "adam", "lr": 1e-4}}})
+    trainer = Trainer(cfg, None, get_loss_function(cfg), None, None, device=cuda)
+    init_weights(trainer.model, 0)
+    before = {n: v.detach().clone() for n, v in trainer.model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    x, y = trainer._batch((rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32),
+                          rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32))
+    loss = trainer.train_step(x, y)
+    assert loss.dtype == torch.float32 and np.isfinite(float(loss))
+    state = trainer.model.state_dict()
+    floats = {n: v for n, v in state.items() if v.is_floating_point()}
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for v in floats.values())
+    moved = [n for n, v in floats.items() if not torch.equal(v, before[n])]
+    assert len(moved) > 100 and any(n.endswith("running_var") for n in moved)

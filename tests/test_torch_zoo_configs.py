@@ -74,7 +74,7 @@ def test_topk_extension_is_refused_by_name():
 @pytest.mark.parametrize("arch,key,value", [
     ("LearnWhen2Com", "sparse", True), ("MIMOcomWho", "feat_squeezer", 128),
     ("Single_agent", "enc_backbone", "n_segnet_encoder"),
-    ("All_agents", "dec_backbone", "fcn_decoder"), ("MIMO_All_agents", "dtype", "bfloat16"),
+    ("All_agents", "dec_backbone", "fcn_decoder"), ("MIMO_All_agents", "dtype", "float16"),
     ("LearnWho2Com", "agent_parallel", True)])
 def test_unported_model_keys_are_refused(arch, key, value):
     cfg = normalize_config(raw_cfg(arch, **{key: value}))

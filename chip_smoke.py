@@ -49,7 +49,10 @@ and the script exits non-zero:
    and its bf16 route never. Prints eval frames/s (a frame is
    one agent's view) over the timed window, then traces the same batches
    again under ``torch.profiler``: the device's busy share is the traced
-   device time over the untraced window's wall time.
+   device time over the untraced window's wall time, and the ``Memcpy
+   HtoD`` time per batch (the evaluator copies from pinned memory). Then
+   the same batches' copies alone, traced from pageable memory and as the
+   evaluator makes them, side by side.
 3. Card against CPU, eval. The same slice at 256x256 with TF32 off, from
    one set of weights: actions and bandwidth equal, class maps agree on at
    least 99.9% of pixels.
@@ -96,8 +99,8 @@ and the script exits non-zero:
    flagship's shapes (``checks``: K1's near-tie rule; K2's graphs within
    1e-6 and fused within one bf16 ulp + 1e-5), timed as phase 1 times the
    float32 routes. The flagship's bf16 ``activated`` eval as phase 2 runs
-   it, at the YAML's batch 2 x 6 and at the JAX bench's 16 x 6
-   (bench.py:125): each kernel's bf16 route launches once per batch and
+   it, at the YAML's batch 2 x 6 and at the bench's 20 x 6 (the JAX
+   bench's main(), bench.py:382): each kernel's bf16 route launches once per batch and
    its float32 route never; frames/s, ms per batch, device time, busy
    share, peak memory. Card against CPU in bf16 at 256x256 (TF32 off):
    over 4 seeds the card's bf16 pre-upsample logits lie no further from
@@ -107,18 +110,33 @@ and the script exits non-zero:
    ms per step. Each of the nine other reference YAMLs with
    ``model.dtype: bfloat16``: one evaluation of 2 batches in its default
    mode, K1's bf16 route launched once per batch.
+9. The bench (``python -m multiagentperception_tpu_torch.bench``). K1 and
+   K2 against their plain versions at the bench's shapes (batch 20 x 6) in
+   both types, and K2's graph and its float32 plain version's each against
+   float64 over 8 draws (printed: the reason the check reads float64); then ``bench.main`` at its defaults in bfloat16 and in
+   float32, each JSON line printed and held: every key present and
+   finite, K1 and K2 once per eval step on the dtype's route (counts
+   zeroed just before, read just after), MFU in (0, 100], device time per
+   step at most 1.05 x the amortized step. Then one bf16 train step of the
+   flagship at batch 8 x 6 without and with ``model.remat`` from one set of
+   weights: loss and BatchNorm running statistics within rtol 1e-5 / atol
+   1e-6, the momentum applied once, remat's peak memory lower (both
+   printed).
 
 Prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, then the ``{"kernels": [...]}`` line (K1's record also holds its
 launch counts on phase 7's paths; ``upsample_argmax_bf16`` and
 ``comm_fusion_bf16`` are the bf16 routes, with their launches on phase 8's
-paths), and last ``{"ok": true, "device": {...}}``.
+paths; each K1/K2 record also holds its launches and device time per
+launch on the bench's eval path at batch 20, ``*_bench_b20``), and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import logging
 import os
@@ -131,6 +149,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multiagentperception_tpu_torch import bench
 from multiagentperception_tpu_torch import bench_fused_block as k3_bench
 from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import N_CLASSES, Evaluator
@@ -160,12 +179,6 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10  # train iterations: warm-up, then timed
 PROFILE_STEPS = 5  # train steps in the traced window
 DIAG_BIAS = 0.001
 THRES = 0.2
-
-
-def _card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def _time_ms(fn, iters: int = 50) -> float:
@@ -559,6 +572,8 @@ def run_slice(kernels, dtype: str | None = None, batch: int | None = None,
               "route_launches": routes}
     result.update(profile_window(ev, batches[2:], seconds, kernels,
                                  WORK / f"profile_{result['dtype']}_b{b}.txt"))
+    if dtype is None and batch is None:  # phase 2: the copy, pageable against pinned
+        result["htod_pageable_vs_pinned"] = htod_pageable_vs_pinned(ev, batches[2:])
     return result
 
 
@@ -590,13 +605,43 @@ def profile_window(ev, batches, wall_s: float, kernels, out: Path = PROFILE_OUT)
         if not calls:
             raise AssertionError(f"the trace holds no launch of {kern.__name__}")
         path_ms[kern.__name__] = sum(e.self_device_time_total for e in hits) / calls / 1e3
+    htod_ms = sum(e.self_device_time_total for e in events if "Memcpy HtoD" in e.key) / 1e3
     return {"device_ms_per_batch": device_ms / per_batch,
+            "htod_device_ms_per_batch": htod_ms / per_batch,
             "path_kernel_device_ms": path_ms,
             "device_busy_share": device_ms / (wall_s * 1e3),
             "traced_batch_wall_ms": traced_s * 1e3 / per_batch,
             "tracer_wall_inflation": traced_s / wall_s,
             "top_device_kernels_ms_per_batch": {
                 e.key[:60]: e.self_device_time_total / 1e3 / per_batch for e in top}}
+
+
+def htod_pageable_vs_pinned(ev, batches) -> dict:
+    """Phase 2's frames and labels copied to the card alone, traced under
+    ``torch.profiler``, two ways: from pageable memory (a plain
+    ``.to(device)``) and as ``Evaluator._put`` copies them (pinned, without
+    blocking). Per batch: the ``Memcpy HtoD`` device time and the host's
+    wall time to the last copy's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ways = {"pageable": lambda a: torch.as_tensor(np.asarray(a)).to("cuda"),
+            "pinned": ev._put}
+    out = {}
+    for name, put in ways.items():
+        put(ev._model_inputs(batches[0][0]))  # warm-up: the pinned allocator's blocks
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for bt in batches:
+                put(ev._model_inputs(bt[0]))
+                put(ev._labels(bt[1]))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        ms = sum(e.self_device_time_total for e in _device_events(prof)
+                 if "Memcpy HtoD" in e.key) / 1e3
+        out[name] = {"htod_device_ms_per_batch": ms / len(batches),
+                     "host_wall_ms_per_batch": wall_s * 1e3 / len(batches)}
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -914,7 +959,7 @@ def run_zoo_config(yml: Path) -> dict:
 
 # ------------------------------------------------------------------ phase 8
 
-BENCH_BATCH = 16  # the JAX bench's eval batch (bench.py:125)
+BENCH_BATCH = bench.BATCH  # the JAX bench's main() batch, 20 (bench.py:382)
 BENCH_EVAL_BATCHES = 5
 MP_SEEDS = (0, 1, 2, 3)
 MP_RATIO = 2.0  # the card's bf16 distance from float32 over the CPU's, at most
@@ -1010,6 +1055,157 @@ def run_zoo_bf16(yml: Path) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ phase 9
+
+BENCH_DTYPES = ("bfloat16", "float32")
+DEVICE_OVER_STEP = 1.05  # eval/train device ms over the amortized step ms, at most
+REMAT_BATCH = 8
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6  # loss and BatchNorm buffers, remat against plain
+
+
+def check_kernels_at_bench_batch(gen) -> dict:
+    """K1 and K2 against their plain versions (``checks``) at the shapes the
+    bench's eval step hands them: (120, 11, 16, 16) logits to 512x512, and
+    q', k (20, 6, 1024), V (20, 6, 512, 16, 16) in every mode; both types."""
+    b, n = BENCH_BATCH, 6
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(b * n, N_CLASSES, 16, 16, generator=gen).to("cuda", dtype)
+        q = torch.randn(b, n, 1024, generator=gen).to("cuda", dtype)
+        k = (torch.randn(b, n, 1024, generator=gen) * 2 / 1024 ** 0.5).to("cuda", dtype)
+        v = torch.randn(b, n, 512, 16, 16, generator=gen).to("cuda", dtype)
+        out[_short(dtype)] = {
+            "upsample_argmax": checks.check_upsample_argmax(x, 512, 512),
+            "comm_fusion_max_abs_err": max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS,
+                                                                    THRES)
+                                           for mode in k2.MODES)}
+    return out
+
+
+K2_F64_SEEDS = 8
+
+
+def k2_graph_against_float64(gen) -> dict:
+    """K2's graph (``soft``) and its plain version's in float32, each
+    against the plain version in float64, at the bench's shapes over
+    K2_F64_SEEDS draws: the largest distance and the elements beyond
+    ``checks.K2_GRAPH_ATOL``, and the plain float32 logits' largest
+    distance. Reported, not checked: ``checks.check_comm_fusion`` holds the
+    kernel to float64, since the float32 plain version is no reference to
+    that bound at this shape."""
+    b, n = BENCH_BATCH, 6
+    out = {"kernel": [0.0, 0], "plain": [0.0, 0], "plain_logits": 0.0}
+    for _ in range(K2_F64_SEEDS):
+        q = torch.randn(b, n, 1024, generator=gen).to("cuda")
+        k = (torch.randn(b, n, 1024, generator=gen) * 2 / 1024 ** 0.5).to("cuda")
+        v = torch.randn(b, n, 512, 16, 16, generator=gen).to("cuda")
+        x_soft = k2.comm_fusion_plain(q.double(), k.double(), v.flatten(2)[..., :1].double(),
+                                      diag_bias=DIAG_BIAS)[2]
+        for side, fn in (("kernel", k2.comm_fusion), ("plain", k2.comm_fusion_plain)):
+            err = (fn(q, k, v, diag_bias=DIAG_BIAS)[2].double() - x_soft).abs()
+            out[side] = [max(out[side][0], err.max().item()),
+                         out[side][1] + int((err > checks.K2_GRAPH_ATOL).sum())]
+        logits = torch.einsum("bkd,bqd->bkq", k, q).double()
+        out["plain_logits"] = max(out["plain_logits"], (logits - torch.einsum(
+            "bkd,bqd->bkq", k.double(), q.double())).abs().max().item())
+    return {"seeds": K2_F64_SEEDS, "graph_elements": K2_F64_SEEDS * b * n * n,
+            **{f"{side}_soft_max_err": out[side][0] for side in ("kernel", "plain")},
+            **{f"{side}_soft_beyond_atol": out[side][1] for side in ("kernel", "plain")},
+            "plain_logits_max_err": out["plain_logits"]}
+
+
+def run_bench(dtype: str) -> dict:
+    """``bench.main`` at its defaults (batch 20) in ``dtype``, the launch
+    counts zeroed just before and read just after: every contract key
+    present and finite, K1 and K2 once per eval step on the dtype's route
+    (the bench's own count of its steps), MFU in (0, 100], and the device
+    time per step at most DEVICE_OVER_STEP times the amortized step (a
+    difference of two runs; a larger excess means the two readings
+    measure different work). The bench's stderr (device time by kernel)
+    is printed after its JSON line."""
+    for kern in (k1.upsample_argmax, k2.comm_fusion):
+        kern.launches = 0
+        kern.route_launches.update(dict.fromkeys(kern.route_launches, 0))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        record = bench.main(["--dtype", dtype])
+    for line in err.getvalue().splitlines():
+        print(f"bench {dtype} stderr: {line}")
+    numbers = ("value", "eval_step_ms", "eval_tflops_per_step", "eval_tflops_per_step_padfree",
+               "eval_tflops_per_sec", "eval_mfu_pct", "eval_device_ms", "eval_busy_pct",
+               "eval_peak_gb", "eval_dispatch_ms", "train_frames_per_sec", "train_step_ms",
+               "train_tflops_per_step", "train_tflops_per_step_padfree",
+               "train_tflops_per_sec", "train_mfu_pct", "train_device_ms", "train_busy_pct",
+               "train_peak_gb", "peak_tflops", "power_limit_w")
+    bad = [k for k in numbers if not np.isfinite(record.get(k, float("nan")))]
+    if bad or record["eval_batch"] != BENCH_BATCH or record["train_batch"] != BENCH_BATCH:
+        raise AssertionError(f"bench {dtype}: keys missing or not finite {bad}: {record}")
+    route = bench.ROUTE[dtype]
+    steps = record["eval_steps"]
+    for kern in (k1.upsample_argmax, k2.comm_fusion):
+        counts = dict(kern.route_launches)
+        if counts != {**dict.fromkeys(counts, 0), route: steps} or \
+                record["eval_route_launches"][kern.__name__] != counts:
+            raise AssertionError(f"bench {dtype}: {kern.__name__} launched {counts}, the bench "
+                                 f"counted {record['eval_route_launches']} ({steps} steps)")
+    for phase in ("eval", "train"):
+        mfu, dev, step = (record[f"{phase}_{k}"] for k in ("mfu_pct", "device_ms", "step_ms"))
+        if not 0 < mfu <= 100:
+            raise AssertionError(f"bench {dtype}: {phase}_mfu_pct {mfu}")
+        if dev > DEVICE_OVER_STEP * step:
+            raise AssertionError(f"bench {dtype}: {phase} device {dev} ms over step {step} ms")
+    return record
+
+
+def remat_pair() -> dict:
+    """One bf16 ``Trainer`` step of the flagship at batch REMAT_BATCH x 6
+    (512x512) without and then with ``model.remat``, from one set of
+    weights and one batch: the loss and the BatchNorm running statistics
+    equal within REMAT_RTOL / REMAT_ATOL (both come from the first
+    forward), ``num_batches_tracked`` 1 (the momentum applied once, not again
+    by the recompute), and remat's peak device memory lower. Each step's
+    peak is read after ``reset_peak_memory_stats``; the gradients' largest
+    relative L2 distance is printed."""
+    cfg = load_config(str(FLAGSHIP))
+    cfg["training"].update(batch_size=REMAT_BATCH, mixed_precision=True)
+    b, n, size = REMAT_BATCH, cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    state = init_weights(get_model(cfg, N_CLASSES), SEED + 9).state_dict()
+    images, labels, _ = seeded_batches(1, b, n, size, SEED + 9)[0]
+    out = {}
+    for remat in (False, True):
+        cfg["model"]["remat"] = remat
+        trainer = Trainer(cfg, None, get_loss_function(cfg), None, None, device="cuda")
+        trainer.model.load_state_dict(state, strict=True)
+        x, y = trainer._batch(images, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer.train_step(x, y))
+        torch.cuda.synchronize()
+        out[remat] = {"loss": loss, "peak": torch.cuda.max_memory_allocated(),
+                      "buffers": {k: v.detach().cpu() for k, v in trainer.model.named_buffers()},
+                      "grads": {k: p.grad.detach().cpu()
+                                for k, p in trainer.model.named_parameters()}}
+        del trainer, x, y
+        torch.cuda.empty_cache()
+    plain, remat = out[False], out[True]
+    if not np.isclose(remat["loss"], plain["loss"], rtol=REMAT_RTOL, atol=0):
+        raise AssertionError(f"remat loss {remat['loss']} against {plain['loss']}")
+    for name, buf in plain["buffers"].items():
+        if name.endswith("num_batches_tracked"):
+            if int(buf) != 1 or int(remat["buffers"][name]) != 1:
+                raise AssertionError(f"{name}: {int(buf)} / {int(remat['buffers'][name])}")
+        else:
+            torch.testing.assert_close(remat["buffers"][name], buf, rtol=REMAT_RTOL,
+                                       atol=REMAT_ATOL, msg=name)
+    if not remat["peak"] < plain["peak"]:
+        raise AssertionError(f"remat peak {remat['peak']} not below {plain['peak']}")
+    return {"batch": b, "agents": n, "size": size, "dtype": "bfloat16",
+            "loss": plain["loss"], "loss_remat": remat["loss"],
+            "peak_gb": plain["peak"] / 1e9, "peak_gb_remat": remat["peak"] / 1e9,
+            "worst_grad_rel_l2": max(_rel(remat["grads"][k], g)
+                                     for k, g in plain["grads"].items() if g.norm() > 0)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -1054,10 +1250,10 @@ def main() -> int:
     print("card_vs_cpu " + json.dumps(card_vs_cpu()))
     lap("3_card_vs_cpu")
 
-    bench = run_bench_path()
+    k3_path = run_bench_path()
     for rec in records[2:]:
-        rec["launches"] = bench[rec["k3_route"]]["launches"]
-    print("k3_path " + json.dumps(bench))
+        rec["launches"] = k3_path[rec["k3_route"]]["launches"]
+    print("k3_path " + json.dumps(k3_path))
     lap("4_k3_path")
 
     print("train " + json.dumps(run_training(eval_kernels)))
@@ -1103,9 +1299,22 @@ def main() -> int:
     bf16_records[0]["zoo_launches"] = {name: z["k1_bf16_launches"] for name, z in zoo16.items()}
     records += bf16_records
     lap("8_zoo_bf16")
+
+    print("kernel checks passed at the bench's batch " +
+          json.dumps(check_kernels_at_bench_batch(torch.Generator().manual_seed(SEED + 10))))
+    print("k2_graph_float64 " + json.dumps(k2_graph_against_float64(
+        torch.Generator().manual_seed(SEED + 11))))
+    bench_runs = {dtype: run_bench(dtype) for dtype in BENCH_DTYPES}
+    for rec, kern in zip(records[:2] + bf16_records, eval_kernels * 2):
+        run = bench_runs["bfloat16" if rec["name"].endswith("_bf16") else "float32"]
+        rec["launches_bench_b20"] = run["eval_route_launches"][kern.__name__][
+            bench.ROUTE[run["dtype"]]]
+        rec["path_device_ms_bench_b20"] = run["eval_kernel_device_ms"][kern.__name__]
+    print("remat " + json.dumps(remat_pair()))
+    lap("9_bench")
     print("phase_seconds " + json.dumps(seconds))
 
-    print(_card_line())
+    print(bench._card_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

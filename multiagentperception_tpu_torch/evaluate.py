@@ -10,7 +10,9 @@ Per batch the card computes the class map from the decoder's pre-upsample
 logits with the upsample+argmax kernel — the full-resolution logits are
 never built — for every architecture, and the Normal/Noise/Overall
 confusion matrices; the host reads back three (C, C) histograms, the
-actions and the bandwidth where the forward returns them. With
+actions and the bandwidth where the forward returns them. The frames and
+labels reach the card from pinned memory without blocking the host
+(``_put``, which the trainer shares). With
 ``with_loss`` (the trainer's validation) the step instead takes the argmax
 of the full-resolution logits and also returns the loss.
 
@@ -151,10 +153,18 @@ class Evaluator:
         return out[0], out[2], out[3] if len(out) > 3 else None
 
     # ------------------------------------------------------------------
+    def _put(self, a) -> torch.Tensor:
+        """A host array on the device. On the card the copy leaves from
+        pinned memory without blocking the host; on the CPU it is a view."""
+        t = torch.as_tensor(np.asarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _images(self, images) -> torch.Tensor:
         """A host batch's model input on the device, normalized there if the
         loader left it raw."""
-        x = torch.as_tensor(self._model_inputs(images)).to(self.device)
+        x = self._put(self._model_inputs(images))
         return normalize_images(x) if self.normalize_on_device else x
 
     @torch.inference_mode()
@@ -182,7 +192,7 @@ class Evaluator:
         """One batch on the device; returns device tensors (not read back).
         ``with_loss`` runs ``inference`` (default ``softmax``) at full
         resolution and adds the loss, as the JAX validation step does."""
-        y = torch.as_tensor(self._labels(labels)).to(self.device)
+        y = self._put(self._labels(labels))
         if with_loss:
             logits, action, num_connect = self._outputs(self.model(
                 self._images(images), **self._forward_kwargs(inference, "eval")))

@@ -12,7 +12,9 @@ ROADMAP.md, never a silent substitute: ``feat_squeezer``, other backbones,
 MIMOcom keeps the flagship's shape (``query: true``, ``multiple_output:
 true``).
 ``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
-modes always run the fused comm step (models/agents.py).
+modes always run the fused comm step (models/agents.py). ``model.remat``
+checkpoints MIMOcom's two towers in its training forward (JAX
+models/__init__.py:111); the other architectures ignore it with a warning.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
                 _refuse(key, m.get(key))
         if m.get("topk_k") is not None:
             _refuse("topk_k", m["topk_k"])
-        return MIMOcom(**comm)
+        return MIMOcom(remat=bool(m.get("remat")), **comm)
     if name == "MIMOcomWho":
         return MIMOcomWho(has_query=bool(m["query"]),
                           mo_flag=bool(m.get("multiple_output")), **comm)

@@ -46,10 +46,12 @@ float32, and MIMOcom's pruned modes hand the comm step bf16 Q', K and V.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multiagentperception_tpu_torch.models.attention import (
     MIMOGeneralDotAttention,
@@ -317,10 +319,33 @@ class LearnWhen2Com(_SRMSComm):
         return pred, prob, action, num_connect
 
 
+@contextlib.contextmanager
+def _running_stats_kept(tower: nn.Module):
+    """The recompute of a checkpointed tower: it runs the first forward's
+    operations again (training-mode BatchNorm on the batch's statistics,
+    updating its running ones), and on leaving, every BatchNorm buffer is
+    put back as the first forward left it, so the momentum is applied once,
+    as JAX's ``nn.remat`` applies the mutable update once."""
+    saved = [(buf, buf.clone()) for m in tower.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             for buf in (m.running_mean, m.running_var, m.num_batches_tracked)
+             if buf is not None]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for buf, value in saved:
+                buf.copy_(value)
+
+
 class _MIMOComm(nn.Module):
     """What MIMOcom and MIMOcomWho share: the value tower ``u_encoder`` and
     the policy tower over all N agents, keys and queries per agent (a query
-    of ones without ``query_net``), the MIMO attention, the decoder."""
+    of ones without ``query_net``), the MIMO attention, the decoder.
+    ``remat`` (MIMOcom's ``model.remat``) recomputes the two towers in the
+    backward instead of keeping their activations."""
+
+    remat = False
 
     def __init__(self, n_classes, feat_channel, agent_num, key_size, query_size, img_size,
                  has_query, attention, dec_width, dtype):
@@ -337,12 +362,21 @@ class _MIMOComm(nn.Module):
         self.attention_net = attention(query_size, key_size, dtype)
         self.decoder = ImgDecoder(dec_width * feat_channel, n_classes, dtype)
 
+    def _tower(self, tower: nn.Module, flat: torch.Tensor) -> torch.Tensor:
+        """``tower(flat)``; under ``remat`` in a training forward that
+        records gradients, checkpointed (JAX ``nn.remat``, agents.py:406-411)."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return tower(flat)
+        return checkpoint(tower, flat, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _running_stats_kept(tower)))
+
     def _towers(self, x: torch.Tensor):
         """(values (B, N, C, h, w), keys (B, N, key_size), queries (B, N, query_size))."""
         b, n = x.shape[:2]
         flat = _nchw(x)
-        val_mat = _unfold(self.u_encoder(flat), n)  # the value tower
-        qk_map = self.query_key_net(flat)  # the policy tower, separate weights
+        val_mat = _unfold(self._tower(self.u_encoder, flat), n)  # the value tower
+        qk_map = self._tower(self.query_key_net, flat)  # the policy tower, separate weights
         keys = _unfold(self.key_net(qk_map), n)
         if self.has_query:
             query = _unfold(self.query_net(qk_map), n)
@@ -354,14 +388,17 @@ class _MIMOComm(nn.Module):
 class MIMOcom(_MIMOComm):
     """The when2com MRMS model (reference: agent.py:983-1204): the N x N
     graph (+0.001 I) over the shared towers, the decoder per agent.
-    Returns ``(pred, prob (B, K, Q), action (B, Q), num_connect)``."""
+    Returns ``(pred, prob (B, K, Q), action (B, Q), num_connect)``.
+    ``remat`` checkpoints the two towers in the training forward."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  agent_num: int = 6, key_size: int = 1024, query_size: int = 32,
-                 img_size: tuple[int, int] = (512, 512), dtype: torch.dtype | None = None):
+                 img_size: tuple[int, int] = (512, 512), dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
                          has_query=True, attention=MIMOGeneralDotAttention, dec_width=1,
                          dtype=dtype)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):

@@ -11,7 +11,9 @@ float32, ``coef`` and ``soft`` are float32, and ``fused`` is rounded once to
 V's dtype. On CUDA tensors ``comm_fusion`` launches ``csrc/comm_fusion.cu``
 (entry point ``comm_fusion_f32`` or ``comm_fusion_bf16``, counted in
 ``comm_fusion.route_launches``); on CPU tensors it runs
-``comm_fusion_plain``, the same function in plain PyTorch.
+``comm_fusion_plain``, the same function in plain PyTorch, and so it does
+on ``meta`` tensors, which compute nothing (the bench counts the model's
+FLOPs on them).
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor
     soft (B, N, N)); coef/soft are ``[b, key, query]``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if vals.device.type == "cpu":
+    if vals.device.type in ("cpu", "meta"):
         return comm_fusion_plain(query_proj, keys, vals, mode, diag_bias, thres)
     if vals.device.type != "cuda":
         raise ValueError(f"unsupported device {vals.device}")

@@ -11,7 +11,8 @@ tensor it launches ``csrc/upsample_argmax.cu`` (entry point
 ``upsample_argmax_f32`` or ``upsample_argmax_bf16``, counted in
 ``upsample_argmax.route_launches``), which never writes the
 full-resolution logits; on a CPU tensor it runs ``upsample_argmax_plain``,
-the same function in plain PyTorch. The kernel
+the same function in plain PyTorch, and so it does on a ``meta`` tensor,
+which computes nothing (the bench counts the model's FLOPs on them). The kernel
 takes its span path (a lane per run of ``SPAN`` output columns, the class
 loop unrolled) where ``shared_spans`` holds for the output width and the
 logits have the model's 11 classes, and its per-pixel path elsewhere.
@@ -83,7 +84,7 @@ def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     int32 class map."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW logits, got shape {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return upsample_argmax_plain(x, out_h, out_w)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")

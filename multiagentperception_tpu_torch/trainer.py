@@ -36,7 +36,6 @@ import logging
 import os
 import time
 
-import numpy as np
 import torch
 
 from multiagentperception_tpu_torch.evaluate import Evaluator
@@ -60,7 +59,6 @@ UNPORTED = (
     ("training", "profile_dir", _off),
     ("training", "shard_data_by_process", _off),
     ("training", "device_prefetch", lambda v: v is None),
-    ("model", "remat", _off),
     ("data", "cache_decoded", _off),
 )
 
@@ -116,15 +114,8 @@ class Trainer(Evaluator):
     def _batch(self, images, labels) -> tuple[torch.Tensor, torch.Tensor]:
         """Host batch -> the model's device input (as the loader gives it: raw
         uint8 frames are normalized in ``train_step``) and the uint8 target
-        (``_model_inputs``, ``_labels``). On the card the copies leave from
-        pinned memory without blocking the host."""
-        def put(a):
-            t = torch.as_tensor(np.asarray(a))
-            if self.device.type == "cuda":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
-
-        return put(self._model_inputs(images)), put(self._labels(labels))
+        (``_model_inputs``, ``_labels``), copied by ``_put``."""
+        return self._put(self._model_inputs(images)), self._put(self._labels(labels))
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """One update on a device batch; returns the loss (not read back).

@@ -448,3 +448,62 @@ def test_mixed_precision_training_step_on_the_card(cuda):
                for v in floats.values())
     moved = [n for n, v in floats.items() if not torch.equal(v, before[n])]
     assert len(moved) > 100 and any(n.endswith("running_var") for n in moved)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bench_eval_on_the_card(cuda, dtype):
+    """The bench's eval at a small batch (2 x 3 agents at 128x128): K1 and
+    K2 launch once per step on the dtype's route (``bench_eval`` raises
+    otherwise), and the trace holds device time for both."""
+    from multiagentperception_tpu_torch import bench
+
+    r = bench.bench_eval(batch=2, img=128, agents=3, k_lo=1, k_hi=3, dtype=dtype,
+                         device=cuda)
+    route = bench.ROUTE[dtype]
+    assert r["steps"] == 3 * 1 + 3 * 3 + 3  # warm-up and two timed runs per length, the trace
+    for name in ("upsample_argmax", "comm_fusion"):
+        assert r["route_launches"][name][route] == r["steps"], name
+    assert r["device_ms"] > 0 and 0 < r["busy"] <= 1.05
+    assert set(r["kernel_device_ms"]) == {"upsample_argmax", "comm_fusion"}
+
+
+def test_remat_train_step_on_the_card(cuda):
+    """One bf16 ``Trainer`` step of a small MIMOcom with ``model.remat``
+    against one without, from the same weights and batch: the loss and the
+    BatchNorm buffers equal within rtol 1e-5 (both come from the first
+    forward, the same kernels on the same values), the running statistics
+    updated once (``num_batches_tracked`` 1), every gradient finite."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    def cfg(remat):
+        return normalize_config({
+            "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                      "multiple_output": True, "remat": remat},
+            "data": {"img_rows": 128, "img_cols": 128, "commun_label": "mimo"},
+            "training": {"batch_size": 2, "mixed_precision": True,
+                         "optimizer": {"name": "adam", "lr": 1e-4}}})
+
+    state = init_weights(get_model(cfg(False), 11), 0).state_dict()
+    rng = np.random.default_rng(0)
+    images = (rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32)
+    labels = rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32)
+    out = {}
+    for remat in (False, True):
+        trainer = Trainer(cfg(remat), None, get_loss_function(cfg(remat)), None, None,
+                          device=cuda)
+        trainer.model.load_state_dict(state)
+        loss = trainer.train_step(*trainer._batch(images, labels))
+        assert all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+        out[remat] = (float(loss), {n: b.cpu() for n, b in trainer.model.named_buffers()})
+    (loss0, bufs0), (loss1, bufs1) = out[False], out[True]
+    assert loss1 == pytest.approx(loss0, rel=1e-5)
+    for name, buf in bufs0.items():
+        if name.endswith("num_batches_tracked"):
+            assert int(buf) == int(bufs1[name]) == 1, name
+        else:
+            torch.testing.assert_close(bufs1[name], buf, rtol=1e-5, atol=1e-6, msg=name)

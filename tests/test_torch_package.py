@@ -35,6 +35,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import multiagentperception_tpu_torch.optimizers\n"
         "import multiagentperception_tpu_torch.schedulers\n"
         "import multiagentperception_tpu_torch.bench_fused_block\n"
+        "import multiagentperception_tpu_torch.bench\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -42,6 +43,7 @@ def test_importing_the_port_loads_no_jax_module():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "multiagentperception_tpu_torch.evaluate" in loaded
     assert "multiagentperception_tpu_torch.trainer" in loaded
+    assert "multiagentperception_tpu_torch.bench" in loaded
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad}"
 

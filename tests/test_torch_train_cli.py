@@ -9,6 +9,9 @@ AirSim fixture (128x128, 6 agents):
   1e-5, actions exact);
 - a run resumed from a 'latest' ``.pkl`` continues at the saved iteration
   and ends where an uninterrupted run ends;
+- ``model.remat: true`` trains through the CLI, and its checkpoint equals
+  that of the same run without remat (the recompute is bit-identical on
+  the CPU, tests/test_torch_remat.py);
 - the keys the port does not carry yet are refused, naming the key.
 """
 
@@ -163,7 +166,6 @@ def test_resume_continues_at_the_saved_iteration(tmp_path):
                              ("training", "profile_dir", "prof"),
                              ("training", "shard_data_by_process", True),
                              ("training", "device_prefetch", 2),
-                             ("model", "remat", True),
                              ("data", "cache_decoded", "cache"))],
                          ids=lambda v: str(v))
 def test_unported_keys_are_refused(fixture_root, tmp_path, section, key, value):
@@ -172,3 +174,27 @@ def test_unported_keys_are_refused(fixture_root, tmp_path, section, key, value):
     cfg[section][key] = value
     with pytest.raises(NotImplementedError, match=f"{section}.{key}="):
         port_train.main(["--config", _write(tmp_path / "x.yml", cfg), "--device", "cpu"])
+
+
+def _cli_checkpoint(tmp_path, monkeypatch, name: str, cfg: dict) -> dict:
+    run_dir = tmp_path / name
+    run_dir.mkdir()
+    monkeypatch.chdir(run_dir)
+    port_train.main(["--config", _write(run_dir / "cfg.yml", cfg), "--device", "cpu"])
+    (pkl,) = [os.path.join(d, f) for d, _, fs in os.walk(run_dir / "runs") for f in fs
+              if f == "MIMOcom_airsim_best_model.pkl"]
+    return torch.load(pkl, weights_only=True)
+
+
+def test_remat_trains_through_the_cli(fixture_root, tmp_path, monkeypatch, capsys):
+    """``model.remat: true`` (formerly refused): 2 iterations through the
+    ``train`` CLI, whose best checkpoint equals the run's without remat."""
+    runs = {}
+    for remat in (False, True):
+        cfg = _cfg(fixture_root, train_iters=2, n_workers=0)
+        cfg["model"]["remat"] = remat
+        runs[remat] = _cli_checkpoint(tmp_path, monkeypatch, f"remat{int(remat)}", cfg)
+        assert "Iter [2/2]" in capsys.readouterr().out
+    assert runs[True]["epoch"] == runs[False]["epoch"] == 2
+    for name, value in runs[False]["model_state"].items():
+        assert torch.equal(runs[True]["model_state"][name], value), name

@@ -18,12 +18,20 @@ init ``models.init_weights(model, 0)``, on seeded inputs made with numpy
 - **train**, batch 20: one step of the forward in training mode, the loss,
   the backward and Adam at 1e-5 (bench.py:208-263), on float32 frames.
   ``remat`` (``model.remat``) checkpoints the two towers.
+- **int8 eval** (bench.py:126-175, :408-414): the same eval step with
+  every eligible convolution of the towers and the decoder in int8
+  (``quantize.Int8Convs``; K4 ``int8_conv`` on the card, once per swapped
+  conv call, or the bench fails), its activation scales calibrated on the
+  bench's own frames (bench.py:158-162); the network dtype stays
+  ``--dtype`` around them. ``eval_int8_speedup`` is its frames/s over the
+  eval step's.
 - **MFU**: the model's FLOPs per step over the step time and the card's
   published dense peak for the dtype (``_device_peak_flops``).
 
 Method (``_amortized_device_time``): (t(K_hi) - t(K_lo)) / (K_hi - K_lo),
 each t a host clock around K back-to-back steps that ends in
-``torch.cuda.synchronize()``, the minimum of two runs after a warm-up run.
+``torch.cuda.synchronize()``, the minimum of three runs taken in turns
+with the other length's, after a warm-up run of each.
 This is the step as eager PyTorch runs it, the host's launches included:
 where the host launches slower than the card computes, the step time is
 the host's. So beside it the bench traces K_hi steps once more under
@@ -49,13 +57,13 @@ Prints one JSON line last (bench.py:431-443's keys that apply, and the
 device time, busy share, peak memory, dtype, peak and power limit). On the
 CPU (``--device cpu``, the test hook with ``--tiny``) the keys that only
 the card can give are absent (``DEVICE_ONLY_KEYS``). Any failure raises:
-nothing falls back to another timing or device. int8 is not ported
-(``quantize.py``, ROADMAP A.8).
+nothing falls back to another timing or device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -73,8 +81,10 @@ from multiagentperception_tpu_torch.loss import cross_entropy2d
 from multiagentperception_tpu_torch.models import get_model, init_weights
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
+from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.optimizers import get_optimizer
+from multiagentperception_tpu_torch.quantize import Int8Convs, calibrate_activations
 
 N_CLASSES = 11
 SEED = 0
@@ -90,8 +100,9 @@ ROUTE = {"bfloat16": "bf16", "float32": "f32"}
 # keys only a card can give: absent from a CPU run's JSON line
 DEVICE_ONLY_KEYS = ("peak_tflops", "power_limit_w", "eval_mfu_pct", "eval_device_ms",
                     "eval_busy_pct", "eval_peak_gb", "eval_route_launches",
-                    "eval_kernel_device_ms", "train_mfu_pct", "train_device_ms",
-                    "train_busy_pct", "train_peak_gb")
+                    "eval_kernel_device_ms", "eval_int8_device_ms", "eval_int8_busy_pct",
+                    "eval_int8_route_launches", "eval_int8_kernel_device_ms", "train_mfu_pct",
+                    "train_device_ms", "train_busy_pct", "train_peak_gb")
 TOP_KERNELS = 10  # the device kernels a trace reports, by time
 
 
@@ -134,12 +145,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+TIMED_PAIRS = 3  # timed runs of each loop length, interleaved
+
+
 def _amortized_device_time(run, k_lo: int, k_hi: int, device: torch.device):
     """Seconds per step from two loop lengths, and the wall seconds of the
     K_hi run. ``run(k)`` runs k back-to-back steps; each length is run once
-    to warm up and then twice timed, host clock to ``synchronize``, and the
-    faster of the two kept. The step is eager PyTorch's, host launches
-    included; ``_trace`` gives the device's share of it."""
+    to warm up, then TIMED_PAIRS times each, the two lengths in turns, host
+    clock to ``synchronize``, and each length's fastest run kept. Taking
+    turns keeps a stretch of contention on a shared host (the CPU hook
+    under the test runner's workers) from slowing one length's every run.
+    The step is eager PyTorch's, host launches included; ``_trace`` gives
+    the device's share of it."""
     def timed(k: int) -> float:
         _sync(device)
         t0 = time.perf_counter()
@@ -147,11 +164,10 @@ def _amortized_device_time(run, k_lo: int, k_hi: int, device: torch.device):
         _sync(device)
         return time.perf_counter() - t0
 
-    def best(k: int) -> float:
-        run(k)
-        return min(timed(k), timed(k))
-
-    t_lo, t_hi = best(k_lo), best(k_hi)
+    run(k_lo)
+    run(k_hi)
+    pairs = [(timed(k_lo), timed(k_hi)) for _ in range(TIMED_PAIRS)]
+    t_lo, t_hi = (min(t) for t in zip(*pairs))
     step = (t_hi - t_lo) / (k_hi - k_lo)
     if not step > 0:
         raise RuntimeError(f"amortized step time {step} s from t({k_lo}) = {t_lo} s and "
@@ -291,58 +307,75 @@ def eval_step(model: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor,
     return hist + confusion_matrix(labels, pred, N_CLASSES)
 
 
-def _zero_launches() -> None:
-    for kern in EVAL_KERNELS:
+def _zero_launches(kernels=EVAL_KERNELS) -> None:
+    for kern in kernels:
         kern.launches = 0
         kern.route_launches.update(dict.fromkeys(kern.route_launches, 0))
 
 
-def _check_launches(steps: int, dtype: str) -> dict:
-    """Each eval kernel launched once per step on ``dtype``'s route, never on another."""
+def _check_launches(steps: int, dtype: str, int8_convs: Int8Convs | None = None) -> dict:
+    """Each eval kernel launched once per step on ``dtype``'s route, never on
+    another; with ``int8_convs``, K4 once per swapped conv call."""
     route = ROUTE[dtype]
     counts = {kern.__name__: dict(kern.route_launches) for kern in EVAL_KERNELS}
     for name, by_route in counts.items():
         if by_route != {**dict.fromkeys(by_route, 0), route: steps}:
             raise AssertionError(f"{name} did not launch its {route} route once per eval "
                                  f"step ({steps} steps): {by_route}")
+    if int8_convs is not None:
+        counts[k4.int8_conv.__name__] = dict(k4.int8_conv.route_launches)
+        if k4.int8_conv.launches != int8_convs.calls or int8_convs.calls % steps:
+            raise AssertionError(f"int8_conv launched {k4.int8_conv.launches} times for "
+                                 f"{int8_convs.calls} int8 conv calls in {steps} steps")
     return counts
 
 
 def bench_eval(batch=16, img=512, agents=6, k_lo=2, k_hi=12, dtype="bfloat16",
-               device=None, count=True) -> dict:
+               device=None, count=True, int8=False) -> dict:
     """The eval step's frames/s and seconds (``fps``, ``step_s``), the steps
     run (``steps``), its FLOPs (``flops``, ``flops_padfree``; None without
     ``count``), and on the card
     the device time per step, the busy share, the peak memory, each
-    kernel's launches by route and its device time per launch."""
+    kernel's launches by route and its device time per launch. ``int8``
+    runs the step with its convolutions in int8 (``quantize.Int8Convs``),
+    scales calibrated on the step's frames, and adds ``int8_convs`` (the
+    int8 conv calls per step)."""
     device = resolve_device(device)
     model = _build(img, agents, dtype, device)
     xs, ys = _inputs(batch, img, agents, getattr(torch, dtype), device)
     steps = [0]
+    swap = None
+    if int8:
+        swap = Int8Convs(model, calibrate_activations(
+            model, [xs], inference="activated", full_res=False))
 
     @torch.inference_mode()
     def run(k: int) -> torch.Tensor:
         # chained through the histogram; eager PyTorch hoists nothing out of
         # the loop, so bench.py's x + 1e-6 * (i + 1) is not needed
         hist = torch.zeros((N_CLASSES, N_CLASSES), dtype=torch.int64, device=device)
-        for _ in range(k):
-            hist = eval_step(model, xs, ys, hist)
+        with swap or contextlib.nullcontext():
+            for _ in range(k):
+                hist = eval_step(model, xs, ys, hist)
         steps[0] += k
         return hist
 
     cuda = device.type == "cuda"
+    kernels = EVAL_KERNELS + ((k4.int8_conv,) if int8 else ())
     if cuda:
-        _zero_launches()
+        _zero_launches(kernels)
         torch.cuda.reset_peak_memory_stats(device)
     step_s, wall_hi = _amortized_device_time(run, k_lo, k_hi, device)
     out = {"batch": batch, "fps": batch * agents / step_s, "step_s": step_s,
            "flops": None, "flops_padfree": None}
     if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-        traced = _trace(run, k_hi, device, EVAL_KERNELS)
+        traced = _trace(run, k_hi, device, kernels)
         out.update(traced, busy=traced["device_ms"] * k_hi / (wall_hi * 1e3),
-                   route_launches=_check_launches(steps[0], dtype))
+                   route_launches=_check_launches(steps[0], dtype, swap))
     out["steps"] = steps[0]  # every step run: warm-up, timed and traced
+    if swap is not None:
+        out["int8_convs"] = swap.calls // steps[0]
     if count:
         out["flops"], out["flops_padfree"] = count_flops(batch, img, agents, False)
     return out
@@ -435,12 +468,13 @@ def sweep_train(configs=((2, False), (4, False), (8, False), (16, False), (8, Tr
 
 
 def latency(device=None) -> None:
-    """Batch-1 eval latency in bf16 (bench.py:355-366); int8 is not ported."""
-    r = bench_eval(batch=1, k_lo=4, k_hi=24, dtype="bfloat16", device=device, count=False)
-    dt = r["step_s"]
-    print(f"latency batch=1 bf16: {dt * 1000:6.2f} ms/frame-set "
-          f"({dt * 1000 / 6:5.2f} ms/frame, {r['fps']:6.1f} f/s)", file=sys.stderr)
-    print("latency batch=1 int8: not ported (quantize.py, ROADMAP A.8)", file=sys.stderr)
+    """Batch-1 eval latency in bf16 and int8 (bench.py:355-366)."""
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        r = bench_eval(batch=1, k_lo=4, k_hi=24, dtype="bfloat16", device=device, count=False,
+                       int8=int8)
+        dt = r["step_s"]
+        print(f"latency batch=1 {tag}: {dt * 1000:6.2f} ms/frame-set "
+              f"({dt * 1000 / 6:5.2f} ms/frame, {r['fps']:6.1f} f/s)", file=sys.stderr)
 
 
 # ------------------------------------------------------------------ main
@@ -487,14 +521,18 @@ def main(argv=None) -> dict | None:
 
     shape, batch = {}, BATCH
     if args.tiny:
-        shape, batch = dict(img=64, agents=2, k_lo=1, k_hi=2), 1
+        # two steps apart, not one: on a loaded CPU one step's noise alone can
+        # make t(K_hi) - t(K_lo) negative
+        shape, batch = dict(img=64, agents=2, k_lo=1, k_hi=3), 1
     kind, peak = _device_peak_flops(args.dtype, device)
     dispatch_s = bench_eval_dispatch(batch=batch, dtype=args.dtype, device=device,
                                      **{k: shape[k] for k in ("img", "agents") if k in shape})
-    # last of the eval readings: the launch counts it leaves are its steps'
+    # after the dispatch reading, so each bench_eval counts only its own
+    # launches (each zeroes the counts; the int8 run's are left at the end)
     ev = bench_eval(batch=batch, dtype=args.dtype, device=device, **shape)
+    i8 = bench_eval(batch=batch, dtype=args.dtype, device=device, count=False, int8=True,
+                    **shape)
     train = bench_train(batch=batch, dtype=args.dtype, device=device, **shape)
-    print("int8: quantize.py not ported (ROADMAP A.8)", file=sys.stderr)
 
     record = {"metric": "eval_frames_per_sec_mrms_when2com_512_activated",
               "value": ev["fps"], "unit": "frames/sec", "dtype": args.dtype,
@@ -508,13 +546,24 @@ def main(argv=None) -> dict | None:
     record.update(_record("eval", ev, peak))
     record["eval_steps"] = ev["steps"]
     record["eval_dispatch_ms"] = dispatch_s * 1e3
+    record["eval_int8_frames_per_sec"] = i8["fps"]
+    record["eval_int8_step_ms"] = i8["step_s"] * 1e3
+    record["eval_int8_speedup"] = i8["fps"] / ev["fps"]
+    record["eval_int8_steps"] = i8["steps"]
+    record["eval_int8_convs_per_step"] = i8["int8_convs"]
+    if "device_ms" in i8:
+        record["eval_int8_device_ms"] = i8["device_ms"]
+        record["eval_int8_busy_pct"] = i8["busy"] * 100
+        record["eval_int8_route_launches"] = i8["route_launches"]
+        record["eval_int8_kernel_device_ms"] = i8["kernel_device_ms"]
     record["train_frames_per_sec"] = train["fps"]
     record.update(_record("train", train, peak))
-    for name, r in (("eval", ev), ("train", train)):
+    for name, r in (("eval", ev), ("eval_int8", i8), ("train", train)):
         if "top_device_ms" in r:
             print(f"{name} device ms per step by kernel: {json.dumps(r['top_device_ms'])}",
                   file=sys.stderr)
     print(f"{card}: eval {ev['step_s'] * 1e3:.2f} ms/step {ev['fps']:.1f} frames/s, "
+          f"int8 eval {i8['step_s'] * 1e3:.2f} ms/step {i8['fps']:.1f} frames/s, "
           f"train {train['step_s'] * 1e3:.2f} ms/step ({args.dtype})", file=sys.stderr)
     print(json.dumps(record))
     return record

@@ -13,6 +13,10 @@ permutes its inputs HWC -> CHW, over the policy map's own size
 (``models.modules.policy_map_shape``, so image sides need not be multiples
 of 128); BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var (+ ``num_batches_tracked``).
+
+``scales_from_flax`` carries the JAX package's int8 activation scales
+across the same way: one walk over the model's layers (``_walk``) meets
+each conv with its flax path and its port name.
 """
 
 from __future__ import annotations
@@ -27,60 +31,95 @@ from multiagentperception_tpu_torch.models.modules import policy_map_shape
 
 
 class _Out:
+    """Collects the state_dict as the walk over the flax tree meets each layer."""
+
     def __init__(self):
         self.sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def put(self, key: str, value) -> None:
         self.sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value)).copy())
 
+    def conv(self, tp: str, p) -> None:
+        self.put(f"{tp}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in p:
+            self.put(f"{tp}.bias", p["bias"])
 
-def _conv(out: _Out, tp: str, p) -> None:
-    out.put(f"{tp}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    if "bias" in p:
-        out.put(f"{tp}.bias", p["bias"])
+    def bn(self, tp: str, p, s) -> None:
+        self.put(f"{tp}.weight", p["scale"])
+        self.put(f"{tp}.bias", p["bias"])
+        self.put(f"{tp}.running_mean", s["mean"])
+        self.put(f"{tp}.running_var", s["var"])
+        self.put(f"{tp}.num_batches_tracked", np.zeros((), np.int64))
+
+    def dense(self, tp: str, p) -> None:
+        self.put(f"{tp}.weight", np.asarray(p["kernel"]).T)
+        self.put(f"{tp}.bias", p["bias"])
+
+    def dense_chw(self, tp: str, p, c: int, h: int, w: int) -> None:
+        k = np.asarray(p["kernel"])  # (h*w*c, out), inputs in HWC order
+        o = k.shape[1]
+        self.put(f"{tp}.weight",
+                 k.reshape(h, w, c, o).transpose(3, 2, 0, 1).reshape(o, c * h * w))
+        self.put(f"{tp}.bias", p["bias"])
 
 
-def _bn(out: _Out, tp: str, p, s) -> None:
-    out.put(f"{tp}.weight", p["scale"])
-    out.put(f"{tp}.bias", p["bias"])
-    out.put(f"{tp}.running_mean", s["mean"])
-    out.put(f"{tp}.running_var", s["var"])
-    out.put(f"{tp}.num_batches_tracked", np.zeros((), np.int64))
+class _ConvNames(_Out):
+    """The same walk, recording each conv's flax path -> port module name;
+    the tree is a ``_Paths`` (no arrays), so nothing else is read."""
+
+    def __init__(self):
+        super().__init__()
+        self.names: dict[tuple, str] = {}
+
+    def conv(self, tp: str, p) -> None:
+        self.names[p.path] = tp
+
+    def bn(self, tp: str, p, s) -> None:
+        pass
+
+    def dense(self, tp: str, p) -> None:
+        pass
+
+    def dense_chw(self, tp: str, p, c: int, h: int, w: int) -> None:
+        pass
 
 
-def _dense(out: _Out, tp: str, p) -> None:
-    out.put(f"{tp}.weight", np.asarray(p["kernel"]).T)
-    out.put(f"{tp}.bias", p["bias"])
+class _Paths:
+    """A stand-in for a flax tree that knows only the module paths in
+    ``keys``: indexing extends the path; ``name in node`` says whether any
+    key lies below ``path + (name,)``."""
 
+    def __init__(self, keys, path: tuple = ()):
+        self.keys, self.path = keys, path
 
-def _dense_chw(out: _Out, tp: str, p, c: int, h: int, w: int) -> None:
-    k = np.asarray(p["kernel"])  # (h*w*c, out), inputs in HWC order
-    o = k.shape[1]
-    out.put(f"{tp}.weight",
-            k.reshape(h, w, c, o).transpose(3, 2, 0, 1).reshape(o, c * h * w))
-    out.put(f"{tp}.bias", p["bias"])
+    def __getitem__(self, name: str) -> "_Paths":
+        return _Paths(self.keys, self.path + (name,))
+
+    def __contains__(self, name: str) -> bool:
+        sub = self.path + (name,)
+        return any(k[:len(sub)] == sub for k in self.keys)
 
 
 def _cbr(out: _Out, tp: str, p, s) -> None:
-    _conv(out, f"{tp}.cbr_unit.0", p["Conv_0"])
-    _bn(out, f"{tp}.cbr_unit.1", p["BatchNorm_0"], s["BatchNorm_0"])
+    out.conv(f"{tp}.cbr_unit.0", p["Conv_0"])
+    out.bn(f"{tp}.cbr_unit.1", p["BatchNorm_0"], s["BatchNorm_0"])
 
 
 def _basic_block(out: _Out, tp: str, p, s) -> None:
-    _conv(out, f"{tp}.conv1", p["Conv_0"])
-    _bn(out, f"{tp}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
-    _conv(out, f"{tp}.conv2", p["Conv_1"])
-    _bn(out, f"{tp}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
+    out.conv(f"{tp}.conv1", p["Conv_0"])
+    out.bn(f"{tp}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+    out.conv(f"{tp}.conv2", p["Conv_1"])
+    out.bn(f"{tp}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
     if "Conv_2" in p:
-        _conv(out, f"{tp}.downsample.0", p["Conv_2"])
-        _bn(out, f"{tp}.downsample.1", p["BatchNorm_2"], s["BatchNorm_2"])
+        out.conv(f"{tp}.downsample.0", p["Conv_2"])
+        out.bn(f"{tp}.downsample.1", p["BatchNorm_2"], s["BatchNorm_2"])
 
 
 def _img_encoder(out: _Out, tp: str, p, s) -> None:
     rp, rs = p["ResnetEncoder_0"], s["ResnetEncoder_0"]
     trunk = f"{tp}.feature_backbone.feature_backbone"
-    _conv(out, f"{trunk}.conv1", rp["Conv_0"])
-    _bn(out, f"{trunk}.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
+    out.conv(f"{trunk}.conv1", rp["Conv_0"])
+    out.bn(f"{trunk}.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
     for layer in range(1, 5):
         for blk in range(2):
             name = f"BasicBlock_{(layer - 1) * 2 + blk}"
@@ -90,9 +129,9 @@ def _img_encoder(out: _Out, tp: str, p, s) -> None:
 
 def _km(out: _Out, tp: str, p, chw: tuple[int, int, int]) -> None:
     mlp = p["MLP_0"]
-    _dense_chw(out, f"{tp}.fc.0", mlp["Dense_0"], *chw)
-    _dense(out, f"{tp}.fc.2", mlp["Dense_1"])
-    _dense(out, f"{tp}.fc.4", mlp["Dense_2"])
+    out.dense_chw(f"{tp}.fc.0", mlp["Dense_0"], *chw)
+    out.dense(f"{tp}.fc.2", mlp["Dense_1"])
+    out.dense(f"{tp}.fc.4", mlp["Dense_2"])
 
 
 def _policy_net(out: _Out, tp: str, p, s) -> None:
@@ -103,8 +142,8 @@ def _policy_net(out: _Out, tp: str, p, s) -> None:
 
 def _decoder(out: _Out, P) -> None:
     dec = P["ImgDecoder_0"]["SimpleDecoder_0"]
-    _conv(out, "decoder.output_decoder.pred.0", dec["Conv_0"])
-    _conv(out, "decoder.output_decoder.pred.2", dec["Conv_1"])
+    out.conv("decoder.output_decoder.pred.0", dec["Conv_0"])
+    out.conv("decoder.output_decoder.pred.2", dec["Conv_1"])
 
 
 def state_dict_from_flax(cfg: Mapping[str, Any],
@@ -119,6 +158,26 @@ def state_dict_from_flax(cfg: Mapping[str, Any],
     ``MIMOWhoGeneralDotAttention_0.Dense_0`` -> ``attention_net.linear``,
     ``AdditiveAttention_0.Dense_0..2`` -> ``attention_net.linear_feat`` /
     ``linear_context`` / ``linear_out``; the scaled attention has no weights."""
+    return _walk(cfg, variables["params"], variables["batch_stats"], _Out()).sd
+
+
+def scales_from_flax(cfg: Mapping[str, Any], scales: Mapping[tuple, float]) -> dict[str, float]:
+    """JAX's int8 activation scales ``{flax module path tuple: scale}``
+    (``quantize.calibrate_activations``) -> the port's ``{conv module
+    name: scale}`` (``quantize.Int8Convs``), by the weight bridge's own
+    names: the path of a conv's params is its module path. Raises
+    ``KeyError`` for a path that names no conv of the model."""
+    keys = [tuple(k) for k in scales]
+    names = _walk(cfg, _Paths(keys), _Paths(keys), _ConvNames()).names
+    missing = [k for k in keys if k not in names]
+    if missing:
+        raise KeyError(f"scales_from_flax: no conv of {cfg['model']['arch']} at {missing}")
+    return {names[tuple(k)]: float(v) for k, v in scales.items()}
+
+
+def _walk(cfg: Mapping[str, Any], P, S, out: _Out) -> _Out:
+    """Meet every layer of the model of ``cfg`` in the flax trees ``P``
+    (params) and ``S`` (batch_stats), handing each to ``out``."""
     m = cfg["model"]
     arch = m["arch"]
     if (m["enc_backbone"], m["dec_backbone"]) != ("resnet_encoder", "simple_decoder") \
@@ -126,8 +185,6 @@ def state_dict_from_flax(cfg: Mapping[str, Any],
         raise NotImplementedError("the weight bridge covers resnet_encoder, simple_decoder "
                                   "and no squeezer")
     chw = policy_map_shape((cfg["data"]["img_rows"], cfg["data"]["img_cols"]))
-    P, S = variables["params"], variables["batch_stats"]
-    out = _Out()
 
     def enc(flax_name: str, torch_name: str | None = None) -> None:
         _img_encoder(out, torch_name or flax_name, P[flax_name], S[flax_name])
@@ -159,15 +216,15 @@ def state_dict_from_flax(cfg: Mapping[str, Any],
         if m["query"]:
             _km(out, "query_net", P["query_net"], chw)
     if arch == "MIMOcom":
-        _dense(out, "attention_net.linear", P["MIMOGeneralDotAttention_0"]["proj"])
+        out.dense("attention_net.linear", P["MIMOGeneralDotAttention_0"]["proj"])
     elif arch == "MIMOcomWho":
-        _dense(out, "attention_net.linear", P["MIMOWhoGeneralDotAttention_0"]["Dense_0"])
+        out.dense("attention_net.linear", P["MIMOWhoGeneralDotAttention_0"]["Dense_0"])
     elif arch in ("LearnWho2Com", "LearnWhen2Com"):
         if m["attention"] == "general":
-            _dense(out, "attention_net.linear", P["GeneralDotAttention_0"]["Dense_0"])
+            out.dense("attention_net.linear", P["GeneralDotAttention_0"]["Dense_0"])
         elif m["attention"] == "additive":
             a = P["AdditiveAttention_0"]
             for i, name in enumerate(("linear_feat", "linear_context", "linear_out")):
-                _dense(out, f"attention_net.{name}", a[f"Dense_{i}"])
+                out.dense(f"attention_net.{name}", a[f"Dense_{i}"])
     _decoder(out, P)
-    return out.sd
+    return out

@@ -27,10 +27,19 @@ A mixed-precision model (``model.dtype: bfloat16`` or
 ``training.mixed_precision``) takes the same float32 frames (its first
 convolution casts them) and hands the kernel bf16 pre-upsample logits,
 which it upcasts, as the JAX evaluation hands its Pallas kernel.
+
+``evaluate(..., int8=True)`` runs the post-training-quantized path
+(``quantize.py``, JAX trainer.py:457-471, :546-610): activation scales
+are calibrated first (``_calibrate_int8``), then every eligible
+convolution of the towers and the decoder runs as an int8 convolution
+(K4 on the card) under ``int8_convs``, an ``quantize.Int8Convs`` kept on
+the evaluator; its weights are quantized once and dropped by
+``load_weight``. The step still ends in K2 and K1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from collections import deque
@@ -44,6 +53,7 @@ from multiagentperception_tpu_torch.models import get_model
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
 from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
+from multiagentperception_tpu_torch.quantize import Int8Convs, calibrate_activations
 
 N_CLASSES = 11  # hard-coded in every reference trainer (trainer.py:44, ...)
 PIPELINE_DEPTH = 2  # batches in flight before the oldest is read back
@@ -81,6 +91,9 @@ class Evaluator:
         self._draws = {name: torch.Generator().manual_seed(self.seed + off)
                        for name, off in DRAW_STREAMS.items()}
         self.last_eval_metrics: runningScore | None = None
+        self.trainloader = None  # the trainer's: int8 calibration frames come from it
+        self.int8_convs: Int8Convs | None = None  # the int8 swap of the last int8 evaluate
+        self.logger = logging.getLogger("multiagentperception_tpu_torch")
 
     def load_weight(self, model_path: str) -> None:
         """Load a reference-format ``.pkl`` (``{'model_state': state_dict}``,
@@ -101,6 +114,8 @@ class Evaluator:
                 model_path, len(unused))
             state = {k: v for k, v in state.items() if k not in set(unused)}
         self.model.load_state_dict(state, strict=True)
+        if self.int8_convs is not None:
+            self.int8_convs.clear()
 
     # ------------------------------------------------------------------
     # per-architecture plumbing
@@ -259,15 +274,62 @@ class Evaluator:
             print(title)
             metrics.print_score(self.n_classes, score, class_iou)
 
-    def evaluate(self, loader, inference_mode: str | None = None):
+    def _calibrate_int8(self, loader, inference: str | None, calib_loader=None) -> dict:
+        """Static activation scales for the int8 path
+        (``quantize.calibrate_activations``), JAX trainer.py:546-610.
+        Frames come from ``calib_loader`` if given, else the train loader,
+        else ``loader`` itself (with a warning: calibrating on the split
+        being evaluated leaks it into the quantization).
+        ``training.calib_batches`` (default 4) batches are max-reduced:
+        from a dataset, its first frames in batches of the loader's size
+        (a ragged tail dropped where whole batches exist); from any other
+        iterable, its first batches."""
+        src = calib_loader if calib_loader is not None else (
+            self.trainloader if self.trainloader is not None else loader)
+        if calib_loader is None and self.trainloader is None:
+            self.logger.warning(
+                "int8 calibration falling back to the evaluation loader itself; pass "
+                "calib_loader (test --calib_split) to calibrate on held-out frames")
+        n_batches = int(self.cfg["training"].get("calib_batches") or 4)
+        ds = getattr(src, "dataset", None)
+        bs = int(getattr(src, "batch_size", None) or 1)
+        if ds is not None:
+            n = min(len(ds), n_batches * bs)
+            frames = [np.asarray(ds[i][0]) for i in range(n)]
+            batches = [np.stack(frames[i:i + bs]) for i in range(0, n, bs)]
+            if len({b.shape[0] for b in batches}) > 1:
+                batches = [b for b in batches if b.shape[0] == bs] or batches[:1]
+        else:
+            batches = []
+            for data_list in src:
+                if len(batches) == n_batches:
+                    break
+                batches.append(np.asarray(data_list[0]))
+        if not batches:
+            raise ValueError("int8 calibration source yielded no frames; pass a non-empty "
+                             "calib_loader or train split")
+        kw = self._forward_kwargs(inference or self.eval_default, "eval")
+        return calibrate_activations(self.model, [self._images(b) for b in batches],
+                                     full_res=False, **kw)
+
+    def evaluate(self, loader, inference_mode: str | None = None, int8: bool = False,
+                 calib_loader=None):
         """Test-split evaluation with the Normal/Noise/Overall breakdown,
         selection accuracy (not for LearnWhen2Com, as the reference) and
-        bandwidth where the forward reports it (reference: trainer.py:774-840)."""
+        bandwidth where the forward reports it (reference: trainer.py:774-840).
+        ``int8=True`` calibrates activation scales (``calib_loader``, else
+        the train loader, else ``loader``) and evaluates with the towers'
+        and the decoder's convolutions in int8 (JAX trainer.py:1223-1241)."""
         self.model.eval()
         metrics = runningScore(self.n_classes)
-        for res, commun_label in self._pipelined(loader, inference=inference_mode):
-            self._record(metrics, res, commun_label,
-                         selection=self.arch != "LearnWhen2Com")
+        swap = contextlib.nullcontext()
+        if int8:
+            scales = self._calibrate_int8(loader, inference_mode, calib_loader)
+            swap = self.int8_convs = Int8Convs(self.model, scales)
+        with swap:
+            for res, commun_label in self._pipelined(loader, inference=inference_mode):
+                self._record(metrics, res, commun_label,
+                             selection=self.arch != "LearnWhen2Com")
         self._print_scores(metrics)
         self.last_eval_metrics = metrics
         return metrics.get_scores()

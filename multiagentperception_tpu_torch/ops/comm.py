@@ -60,6 +60,29 @@ def activated_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int,
     return fuse_values(coef, vals), coef, num_connect_offdiag(coef, agent_num)
 
 
+def per_frame_links(prob: torch.Tensor, inference: str, agent_num: int,
+                    thres: float = 0.2) -> torch.Tensor:
+    """Per-sample bandwidth (port of ops/comm.py:98-119): off-diagonal links
+    per agent of each batch element, ``(B,)`` float32. The mode's mask is
+    applied again to the returned ``(B, K, Q)`` graph, so the mean equals
+    ``num_connect_offdiag`` of the pruned graph; ``softmax`` (the full
+    graph) gives K-1. Each quotient is taken in float64 and rounded once,
+    as ``num_connect_offdiag``. ``topk`` is not ported and raises."""
+    b, k, q = prob.shape
+    if inference == "topk":
+        raise NotImplementedError("per_frame_links: inference 'topk' is not ported "
+                                  "(ROADMAP.md A.8)")
+    if inference == "argmax_test":
+        coef = one_hot_argmax(prob, dim=1)
+    elif inference == "activated":
+        coef = torch.where(prob > thres, prob, torch.zeros_like(prob))
+    else:  # softmax: the full graph
+        return torch.full((b,), float(k - 1), dtype=torch.float32, device=prob.device)
+    eye = torch.eye(k, q, dtype=torch.bool, device=prob.device)
+    links = (coef.masked_fill(eye, 0.0) != 0).sum(dim=(1, 2))
+    return (links.to(torch.float64) / agent_num).to(torch.float32)
+
+
 def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
                      n_classes: int,
                      sample_mask: torch.Tensor | None = None) -> torch.Tensor:

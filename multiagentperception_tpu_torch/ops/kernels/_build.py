@@ -34,6 +34,8 @@ F32 = ctypes.c_float
 
 _K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]
 _K2_ARGS = [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]
+_K4_QUANTIZE_ARGS = [P, P, I32, I32, I32, I32, P, P]
+_K4_ARGS = [P, P, P, P, P, P] + [I32] * 12 + [P]
 # C entry points and their signatures, per kernel source
 SIGNATURES = {
     "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS},
@@ -44,6 +46,9 @@ SIGNATURES = {
                                [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
     "fused_block_tf32_conv": {"fused_basic_block_tf32x3_conv":
                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
+    "int8_conv": {"int8_quantize_f32": _K4_QUANTIZE_ARGS, "int8_quantize_bf16": _K4_QUANTIZE_ARGS,
+                  "int8_conv_f32": _K4_ARGS, "int8_conv_bf16": _K4_ARGS,
+                  "int8_conv_s32": _K4_ARGS},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

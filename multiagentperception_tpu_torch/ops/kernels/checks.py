@@ -63,6 +63,12 @@ Tolerances:
   over the seeds run at a geometry (``assert_far_no_worse``), the kernel
   has no more elements beyond the far bound from float64 than the plain
   version has. No bound at C <= 128 changes.
+- K4 (``int8_conv``): exact. The int8 operands the quantize pass writes
+  (NHWC) equal the plain quantizer's, the int32 sums equal the plain
+  version's exact float64 sums, and the output equals the plain version's
+  to the bit in float32 and in bfloat16 (both sides form
+  ``float(acc) * (s_x * s_w) + bias`` in float32 with one rounding per
+  operation and round once to bf16), with a static or a dynamic ``s_x``.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ import torch
 
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
 from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
+from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.ops.resize import bilinear_resize
 
@@ -251,3 +258,36 @@ def check_fused_block(x, w1, s1, b1, w2, s2, b2) -> dict:
     torch.testing.assert_close(got, ref, rtol=K3_F32_TOL, atol=K3_F32_TOL)
     return {"max_abs_err": (got - ref).abs().max().item(),
             "mismatch_share": (got != ref).float().mean().item()}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+
+
+def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                    stride: int, padding: int, s_x: torch.Tensor | None,
+                    out_dtype: torch.dtype) -> dict:
+    """K4 against ``int8_conv_plain`` on the same tensors: int8 operands,
+    int32 sums and the ``out_dtype`` output all equal (the output to the
+    bit), with the calibrated ``s_x`` or, if None, the dynamic scale.
+    Launches the kernel twice (the sums, then the output)."""
+    w = k4.prepare_weight(weight)
+    s = k4.dynamic_scale(x) if s_x is None else s_x
+    cp = k4.padded_channels(x.shape[1])
+    want_q = torch.nn.functional.pad(k4.quantize_input(x, s).permute(0, 2, 3, 1),
+                                     (0, cp - x.shape[1]))
+    if not torch.equal(k4.quantize_nhwc(x, s, cp), want_q):
+        raise AssertionError("int8_conv: the quantize pass's operands differ from plain")
+    acc = k4.int8_conv(x, w, s_x, None, stride, padding, out_dtype=torch.int32)
+    want_acc = k4.int8_conv_plain(x, w, s, None, stride, padding, torch.int32)
+    if not torch.equal(acc, want_acc):
+        bad = int((acc != want_acc).sum())
+        raise AssertionError(f"int8_conv: {bad} of {acc.numel()} int32 sums differ from plain")
+    y = k4.int8_conv(x, w, s_x, bias, stride, padding, out_dtype=out_dtype)
+    want = k4.int8_conv_plain(x, w, s, bias, stride, padding, out_dtype)
+    if not torch.equal(_bits(y), _bits(want)):
+        bad = int((_bits(y) != _bits(want)).sum())
+        raise AssertionError(f"int8_conv: {bad} of {y.numel()} {out_dtype} outputs differ "
+                             "from plain")
+    return {"max_abs_err": float((y.float() - want.float()).abs().max()),
+            "acc_abs_max": int(acc.abs().max()), "s_x": float(s)}

@@ -1,7 +1,8 @@
 """Evaluation CLI of the port (counterpart of the repo's test.py).
 
     python -m multiagentperception_tpu_torch.test --config <yml> \\
-        --model_path <ckpt.pkl> [--inference_mode MODE] [--device cpu]
+        --model_path <ckpt.pkl> [--inference_mode MODE] [--device cpu] \\
+        [--int8 [--calib_split train] [--calib_batches N]]
 
 Takes any of the ten reference YAMLs under ``configs/multi-request-multi-support/``
 and ``configs/single-request-multiple-support/`` unchanged (all seven
@@ -9,7 +10,12 @@ architectures; the ``topk`` extension is refused by name), loads a
 reference-format ``.pkl`` and evaluates the config's test split on the
 card (``--device cpu`` to run on the CPU; without a card and without it,
 the run stops with an error). Every architecture's class map comes from
-the upsample+argmax kernel.
+the upsample+argmax kernel. ``--int8`` evaluates the post-training
+quantized path (``quantize.py``; the int8 convolution kernel on the card),
+its activation scales calibrated on ``--calib_split`` (default ``train``,
+held out from the evaluated split; the evaluated split if that one cannot
+be loaded, as the repo's test.py does) over ``--calib_batches`` batches
+(default ``training.calib_batches`` or 4).
 """
 
 from __future__ import annotations
@@ -30,6 +36,14 @@ def main(argv=None):
                         "LearnWho2Com)")
     parser.add_argument("--device", nargs="?", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--int8", action="store_true",
+                        help="post-training-quantized eval: the towers' and the decoder's "
+                        "convolutions in int8")
+    parser.add_argument("--calib_split", nargs="?", type=str, default="train",
+                        help="dataset split the activation scales calibrate on (with "
+                        "--int8; default train, held out from the evaluated split)")
+    parser.add_argument("--calib_batches", nargs="?", type=int, default=None,
+                        help="calibration batches (default training.calib_batches or 4)")
     args = parser.parse_args(argv)
 
     from multiagentperception_tpu_torch.config import load_config
@@ -39,18 +53,32 @@ def main(argv=None):
     cfg = load_config(args.config)
     evaluator = Evaluator(cfg, device=args.device)  # raises first if no card
     data_cfg = cfg["data"]
-    dataset = get_loader(data_cfg["dataset"])(
-        root=data_cfg["path"], split=data_cfg["test_split"],
+    loader_cls = get_loader(data_cfg["dataset"])
+    common = dict(
+        root=data_cfg["path"],
         img_size=(data_cfg["img_rows"], data_cfg["img_cols"]),
         commun_label=data_cfg["commun_label"],
         target_view=data_cfg["target_view"],
         raw_images=bool(data_cfg.get("on_device_normalize")),
         noisy_type=data_cfg.get("noisy_type"),
     )
+    dataset = loader_cls(split=data_cfg["test_split"], **common)
     loader = DataLoader(dataset, cfg["training"]["batch_size"],
                         num_workers=cfg["training"]["n_workers"])
+    # int8 calibration frames come from a split held out from the evaluated one
+    calib_loader = None
+    if args.int8:
+        if args.calib_batches:
+            cfg["training"]["calib_batches"] = args.calib_batches
+        try:
+            calib_loader = DataLoader(loader_cls(split=args.calib_split, **common),
+                                      cfg["training"]["batch_size"], num_workers=0)
+        except (OSError, RuntimeError, KeyError, ValueError) as e:  # no such split on disk
+            print(f"calibration split '{args.calib_split}' unavailable ({e!r}); "
+                  "calibrating on the evaluated split")
     evaluator.load_weight(args.model_path)
-    evaluator.evaluate(loader, inference_mode=args.inference_mode)
+    evaluator.evaluate(loader, inference_mode=args.inference_mode, int8=args.int8,
+                       calib_loader=calib_loader)
     return evaluator.last_eval_metrics
 
 

@@ -63,7 +63,9 @@ CONTRACT = {"metric": str, "value": float, "unit": str, "dtype": str, "device_ki
             "eval_tflops_per_sec": float, "eval_steps": int, "eval_dispatch_ms": float,
             "train_frames_per_sec": float, "train_step_ms": float, "train_batch": int,
             "train_tflops_per_step": float, "train_tflops_per_step_padfree": float,
-            "train_tflops_per_sec": float}
+            "train_tflops_per_sec": float, "eval_int8_frames_per_sec": float,
+            "eval_int8_step_ms": float, "eval_int8_speedup": float, "eval_int8_steps": int,
+            "eval_int8_convs_per_step": int}
 
 
 def _xla_flops(fn, *args) -> float:
@@ -105,11 +107,14 @@ def test_tiny_bench_on_the_cpu_prints_the_contract(dtype):
     assert record["device_kind"] == "cpu" and record["dtype"] == dtype
     assert record["flops_convention"] == "dense"
     assert record["eval_batch"] == record["train_batch"] == 1
-    assert record["eval_steps"] == 3 * 1 + 3 * 2  # warm-up and two timed runs of K = 1, 2
+    assert record["eval_steps"] == 4 * (1 + 3)  # warm-up and three timed runs of K = 1, 3
     assert not set(bench.DEVICE_ONLY_KEYS) & set(record), record
     assert all(record[k] > 0 for k in CONTRACT if CONTRACT[k] is float)
     assert record["eval_tflops_per_step"] > record["eval_tflops_per_step_padfree"]
-    assert "int8: quantize.py not ported" in out.stderr
+    # the int8 eval step: the towers' 2 x 20 convs, both squeezers, PolicyNet4's
+    # five and the decoder's 512->256; the 11-class head stays float
+    assert record["eval_int8_steps"] == record["eval_steps"]
+    assert record["eval_int8_convs_per_step"] == 48
 
 
 def test_bench_needs_the_card(monkeypatch):

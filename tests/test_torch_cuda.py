@@ -460,7 +460,7 @@ def test_bench_eval_on_the_card(cuda, dtype):
     r = bench.bench_eval(batch=2, img=128, agents=3, k_lo=1, k_hi=3, dtype=dtype,
                          device=cuda)
     route = bench.ROUTE[dtype]
-    assert r["steps"] == 3 * 1 + 3 * 3 + 3  # warm-up and two timed runs per length, the trace
+    assert r["steps"] == 4 * (1 + 3) + 3  # warm-up and three timed runs per length, the trace
     for name in ("upsample_argmax", "comm_fusion"):
         assert r["route_launches"][name][route] == r["steps"], name
     assert r["device_ms"] > 0 and 0 < r["busy"] <= 1.05
@@ -507,3 +507,101 @@ def test_remat_train_step_on_the_card(cuda):
             assert int(buf) == int(bufs1[name]) == 1, name
         else:
             torch.testing.assert_close(bufs1[name], buf, rtol=1e-5, atol=1e-6, msg=name)
+
+
+# ------------------------------------------------------------------ K4: int8_conv
+
+# (Cin, Cout, side, kernel, stride, padding, bias): the flagship's configurations,
+# a ragged tile (M and Cout not multiples of the kernel's 128 x 64 tile) and Cin 16
+K4_CONVS = {"stem_7x7s2_cin3": (3, 64, 67, 7, 2, 3, False), "3x3s1": (64, 64, 19, 3, 1, 1, False),
+            "3x3s2": (128, 256, 17, 3, 2, 1, False), "1x1s2": (64, 128, 17, 1, 2, 0, False),
+            "3x3s1_bias_ragged": (512, 72, 5, 3, 1, 1, True),
+            "cin16_bias": (16, 24, 9, 3, 1, 1, True)}
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(K4_CONVS))
+def test_int8_conv_kernel_matches_plain(cuda, name, dtype, static):
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    cin, cout, side, k, stride, pad, bias = K4_CONVS[name]
+    gen = torch.Generator().manual_seed(cin + cout + side)
+    out_dtype = getattr(torch, dtype)
+    x = torch.randn(3, cin, side, side, generator=gen).to(
+        cuda, torch.float32 if cin == 3 else out_dtype)
+    w = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(cuda)
+    b = torch.randn(cout, generator=gen).to(cuda) if bias else None
+    s_x = torch.tensor(0.8 * float(x.float().abs().amax()) / 127, device=cuda) if static else None
+    before = k4.int8_conv.launches
+    checks.check_int8_conv(x, w, b, stride, pad, s_x, out_dtype)
+    assert k4.int8_conv.launches == before + 2  # the sums, then the output
+
+
+@pytest.mark.parametrize("what", ["groups", "dilation", "float16", "mismatch", "bias16",
+                                  "scale", "not_contiguous"])
+def test_int8_conv_kernel_refuses(cuda, what):
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    x = torch.randn(2, 16, 8, 8, device=cuda)
+    w = k4.prepare_weight(torch.randn(32, 16, 3, 3, device=cuda))
+    kw, err = {"padding": 1}, ValueError
+    if what == "groups":
+        kw["groups"] = 2
+    elif what == "dilation":
+        kw["dilation"] = 2
+    elif what == "float16":
+        x, err = x.half(), TypeError
+    elif what == "mismatch":
+        w = k4.prepare_weight(torch.randn(32, 16, 3, 3))
+    elif what == "bias16":
+        kw["bias"], err = torch.randn(32, device=cuda).bfloat16(), TypeError
+    elif what == "scale":
+        kw["s_x"], err = torch.ones(2, device=cuda), TypeError
+    else:
+        x = x.permute(0, 1, 3, 2)
+    before = k4.int8_conv.launches
+    with pytest.raises(err):
+        k4.int8_conv(x, w, **kw)
+    assert k4.int8_conv.launches == before
+
+
+def test_int8_eval_on_the_card_launches_k4_per_conv(cuda):
+    """A small MIMOcom's int8 eval through ``Evaluator.evaluate(int8=True)``
+    on the card: K4 once per swapped conv call (48 a batch), K1 and K2 on
+    their route, and the class maps within 1% of the pixels of the CPU's
+    int8 eval from the same weights and scales (chip_smoke.py
+    ``int8_card_vs_cpu`` says why not closer)."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+    from multiagentperception_tpu_torch.quantize import Int8Convs
+
+    cfg = normalize_config({
+        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": True},
+        "data": {"img_rows": 128, "img_cols": 128, "commun_label": "mimo"},
+        "training": {"batch_size": 2}})
+    state = init_weights(get_model(cfg, 11), 0).state_dict()
+    rng = np.random.default_rng(0)
+    batches = [((rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32),
+                rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32),
+                rng.integers(0, 2, (2, 2, 3)).astype(np.int64)) for _ in range(3)]
+    metrics = {}
+    for dev in ("cuda", "cpu"):
+        ev = Evaluator(cfg, device=dev)
+        ev.model.load_state_dict(state)
+        if dev == "cuda":
+            before = k4.int8_conv.launches
+            ev.evaluate(batches[1:], int8=True, calib_loader=batches[:1])
+            assert k4.int8_conv.launches - before == ev.int8_convs.calls == 48 * 2
+            scales = ev.int8_convs.act_scales
+        else:
+            with Int8Convs(ev.model, scales):
+                ev.evaluate(batches[1:])
+        metrics[dev] = ev.last_eval_metrics.confusion_matrix.astype(np.int64)
+    moved = np.abs(metrics["cuda"] - metrics["cpu"]).sum() // 2
+    assert moved <= 0.01 * metrics["cpu"].sum()

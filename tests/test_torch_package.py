@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import multiagentperception_tpu_torch.schedulers\n"
         "import multiagentperception_tpu_torch.bench_fused_block\n"
         "import multiagentperception_tpu_torch.bench\n"
+        "import multiagentperception_tpu_torch.quantize, multiagentperception_tpu_torch.export\n"
+        "import multiagentperception_tpu_torch.ops.kernels.int8_conv\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -44,6 +46,7 @@ def test_importing_the_port_loads_no_jax_module():
     assert "multiagentperception_tpu_torch.evaluate" in loaded
     assert "multiagentperception_tpu_torch.trainer" in loaded
     assert "multiagentperception_tpu_torch.bench" in loaded
+    assert "multiagentperception_tpu_torch.quantize" in loaded
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert not bad, f"the port pulled in {bad}"
 

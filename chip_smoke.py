@@ -16,7 +16,8 @@ and the script exits non-zero:
    nvcc for sm_90a, all at once; print the ``-Xptxas -v`` register and
    spill lines (and any ptxas warning) of every kernel, and fail unless
    each tensor-core library's SASS (``cuobjdump -sass``) holds HGMMA
-   instructions (the counts are printed). Hold each kernel against its
+   instructions, and K4's (``int8_conv``) IGMMA (wgmma on s8) and
+   UTMALDG (TMA loads) ones (the counts are printed). Hold each kernel against its
    plain PyTorch version on the card, and time the kernel, the plain
    version and one PyTorch library call (a yardstick only: the port never
    calls it); K1 and K2 also by CUPTI alone, back to back (``cupti_warm_ms``,
@@ -124,11 +125,14 @@ and the script exits non-zero:
    printed).
 
 10. int8 (``quantize.py``, K4 ``int8_conv``). K4 against its plain version
-   (``checks.check_int8_conv``: int8 operands, int32 sums and outputs
-   equal, the outputs to the bit) at every conv shape of the flagship's
-   eval step at the bench's batch 20 x 6, in float32 and bf16 and with a
-   static and a dynamic activation scale, each shape timed beside its
-   plain version, cuDNN's bf16 convolution (a yardstick) and its bound.
+   (``checks.check_int8_conv``: the int8 scratch its GEMM route reads,
+   int32 sums and outputs equal, the outputs to the bit) at every conv
+   shape of the flagship's eval step at the bench's batch 20 x 6, in
+   float32 and bf16 and with a static and a dynamic activation scale, each
+   shape timed whole and by launch (the quantize pass, the GEMM on its
+   scratch) beside its plain version, its bounds, and two yardsticks:
+   cuDNN's bf16 convolution and ``torch._int_mm`` on the GEMM's int8
+   matrices (im2col built untimed; its sums must equal K4's).
    The flagship's ``activated`` int8 eval through ``Evaluator.evaluate(...,
    int8=True)`` at the YAML's batch, in float32 and bf16: K4 launches once
    per eligible conv call (48 a batch), K1 once a batch, K2 once a batch
@@ -147,7 +151,8 @@ launch counts on phase 7's paths; ``upsample_argmax_bf16`` and
 paths; each K1/K2 record also holds its launches and device time per
 launch on the bench's eval path at batch 20, ``*_bench_b20``; K4's two
 records, ``int8_conv`` and ``int8_conv_bf16``, sum one eval step's 48
-convolutions), and last
+convolutions, with the quantize/GEMM split and ``library_int_mm_ms``), and
+last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -193,6 +198,7 @@ PROFILE_OUT = WORK / "profile.txt"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 L2_FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2: each timed launch starts cold
+HOST_LEAD_CYCLES = 400_000  # ~0.2 ms of the card's clock, ahead of each timed run
 
 SEED = 0
 EVAL_BATCHES = 10  # timed; two more warm up cuDNN and the caching allocator
@@ -203,13 +209,18 @@ THRES = 0.2
 
 
 def _time_ms(fn, iters: int = 50) -> float:
-    """Median device time of ``fn`` by CUDA events, L2 flushed before each run."""
+    """Median device time of ``fn`` by CUDA events, L2 flushed before each
+    run. A spin kernel of HOST_LEAD_CYCLES runs before the start event, so
+    that ``fn``'s host side (a wrapper's checks and launches, tens of
+    microseconds) is enqueued before the card reaches it: without the lead
+    a kernel shorter than its wrapper is timed as the wrapper."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -358,6 +369,8 @@ K3_ROUTES = {"wgmma": ("fused_basic_block", "csrc/fused_block_wgmma.cu", "bench_
 # those at which the CUDA-core kernel that these routes replaced lay beyond
 # the far bound from the plain version (PERF.md section 6)
 K3_WIDE_SEEDS = (0, 6)
+# K4 runs wgmma on s8 (IGMMA) fed by TMA (UTMALDG)
+K4_SASS = [("int8_conv", "IGMMA"), ("int8_conv", "UTMALDG")]
 TENSOR_CORE_LIBS = ("fused_block_wgmma", "fused_block_tf32", "fused_block_wgmma_conv",
                     "fused_block_tf32_conv")
 ALL_LAYERS = ["--layers", "layer1,layer2,layer3,layer4"]
@@ -484,11 +497,12 @@ def _cuobjdump() -> str:
     return os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
 
 
-def hgmma_count(name: str) -> int:
-    """HGMMA (wgmma) instructions in the SASS of the built kernel ``name``."""
+def sass_count(name: str, opcode: str) -> int:
+    """``opcode`` instructions (HGMMA, IGMMA: wgmma; UTMALDG: a TMA load) in
+    the SASS of the built kernel ``name``."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(_build._target(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def resource_lines(log: str) -> list[str]:
@@ -1266,6 +1280,38 @@ INT8_EVAL_BATCHES = 6
 INT8_CALIB_BATCHES = 2
 
 
+def _im2col_i8(x_i8: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
+    """The (N * OH * OW, Cin * k * k) int8 matrix of a convolution's
+    patches, K padded to a multiple of 8 (``torch._int_mm``'s rule). The
+    int8 values pass through float16 exactly."""
+    cols = torch.nn.functional.unfold(x_i8.half(), k, padding=pad, stride=stride)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    return torch.nn.functional.pad(a, (0, -a.shape[1] % 8)).to(torch.int8).contiguous()
+
+
+def int_mm_yardstick(x: torch.Tensor, prep, s_x, k: int, stride: int, pad: int,
+                     acc: torch.Tensor) -> dict:
+    """``torch._int_mm`` on the same M x K x Cout int8 matrices as K4's GEMM
+    (the im2col'd activations built first, not timed): its time; its
+    int32 sums must equal K4's ``acc``. A yardstick only: the port never
+    calls it."""
+    a = _im2col_i8(k4.quantize_input(x, s_x), k, stride, pad)
+    cout = prep.w_i8.shape[0]
+    b = torch.nn.functional.pad(prep.w_i8.reshape(cout, -1), (0, a.shape[1] - prep.w_i8[0].numel()))
+    b = b.t()  # (K, Cout), column-major: cuBLASLt's int8 layout
+    try:
+        got = torch._int_mm(a, b)
+    except RuntimeError as err:  # a yardstick PyTorch refuses is reported, not required
+        return {"library_int_mm_ms": None, "library_int_mm_error": str(err)[:200]}
+    n, _, oh, ow = acc.shape
+    if not torch.equal(got.view(n, oh * ow, cout).permute(0, 2, 1).reshape(acc.shape), acc):
+        raise AssertionError("torch._int_mm's int32 sums differ from K4's: the yardstick "
+                             "does not compute the GEMM's function")
+    ms = _time_ms(lambda: torch._int_mm(a, b), iters=20)
+    del a, got
+    return {"library_int_mm_ms": ms}
+
+
 def check_int8_conv(gen) -> list[dict]:
     """K4 against its plain version (``checks.check_int8_conv``: operands,
     int32 sums and output equal, the output to the bit) at every conv shape
@@ -1273,11 +1319,13 @@ def check_int8_conv(gen) -> list[dict]:
     network dtypes (the bf16 route reads float32 frames at the stem and
     bf16 maps elsewhere), with a static scale (0.8 of the input's max / 127,
     so some values clip) and with the dynamic one. Then each shape is timed
-    with its static scale: K4, its plain version, and cuDNN's bf16
-    convolution of the same shape (the speed yardstick; no PyTorch call
-    computes an int8 convolution, and the port never calls this one). One
-    record per route; its ms, plain, library and bound are sums over one
-    eval step's conv calls."""
+    with its static scale: K4, its two launches alone (the quantize pass on
+    the input, the GEMM on its scratch), its plain version, cuDNN's bf16
+    convolution of the same shape (the speed yardstick of the whole
+    function; no PyTorch call computes an int8 convolution, and the port
+    never calls this one) and ``torch._int_mm`` on the same int8 matrices
+    (the GEMM's yardstick). One record per network dtype; its ms, plain,
+    library and bound are sums over one eval step's conv calls."""
     n = BENCH_BATCH * 6
     records = []
     for route, dtype in K4_DTYPES.items():
@@ -1292,32 +1340,46 @@ def check_int8_conv(gen) -> list[dict]:
                 err = max(err, checks.check_int8_conv(x, w, bias, stride, pad, scale,
                                                       dtype)["max_abs_err"])
             prep = k4.prepare_weight(w)
+            geometry = k4.plan(n, cin, side, side, cout, k, k, stride, pad)
+            xq = k4.quantize_scratch(x, s_x, geometry)
+            acc = k4.conv_nhwc(xq, prep, s_x, None, geometry, torch.int32)
             x16, w16 = x.bfloat16(), w.bfloat16()
             b16 = None if bias is None else bias.bfloat16()
-            out_side = (side + 2 * pad - k) // stride + 1
+            out_side = geometry.out[0]
             macs = n * out_side ** 2 * cout * cin * k * k
+            out_bytes = n * cout * out_side ** 2 * torch.finfo(dtype).bits // 8
             bytes_moved = (x.numel() * x.element_size() + prep.w_i8.numel() + 4 * cout
-                           + (4 * cout if has_bias else 0)
-                           + n * cout * out_side ** 2 * torch.finfo(dtype).bits // 8)
+                           + (4 * cout if has_bias else 0) + out_bytes)
             bound_ms, bound_by = max((bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"),
                                      (2 * macs / INT8_OPS_PER_S * 1e3, "operations"))
+            # the quantize pass: one read of x, one write of its scratch; the
+            # GEMM: the scratch read once, the weights, the output written once
+            quantize_bound_ms = (x.numel() * x.element_size() + xq.numel()) / HBM_BYTES_PER_S * 1e3
+            gemm_bound_ms = max((xq.numel() + prep.w_i8.numel() + out_bytes) / HBM_BYTES_PER_S,
+                                2 * macs / INT8_OPS_PER_S) * 1e3
             shapes.append({
                 "shape": f"({n}, {cin}, {side}, {side}) {k}x{k}/{stride} pad {pad} -> {cout}"
                          + (" +bias" if has_bias else ""),
-                "calls_per_step": calls,
+                "calls_per_step": calls, "gemm_route": geometry.route, "nb": geometry.nb,
                 "ms": _time_ms(lambda: k4.int8_conv(x, prep, s_x, bias, stride, pad,
                                                     out_dtype=dtype), iters=20),
+                "quantize_ms": _time_ms(lambda: k4.quantize_scratch(x, s_x, geometry), iters=20),
+                "gemm_ms": _time_ms(lambda: k4.conv_nhwc(xq, prep, s_x, bias, geometry, dtype),
+                                    iters=20),
                 "plain_ms": _time_ms(lambda: k4.int8_conv_plain(x, prep, s_x, bias, stride,
                                                                 pad, dtype), iters=3),
                 "library_ms": _time_ms(lambda: torch.nn.functional.conv2d(
                     x16, w16, b16, stride, pad), iters=20),
+                **int_mm_yardstick(x, prep, s_x, k, stride, pad, acc),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "quantize_bound_ms": quantize_bound_ms, "gemm_bound_ms": gemm_bound_ms,
                 "tops": 2 * macs / 1e9})
-            del x, x16
+            del x, x16, xq, acc
         step = lambda key: sum(r[key] * r["calls_per_step"] for r in shapes)  # noqa: E731
         # the basis that holds the larger share of the step's bound
         by_basis = {basis: sum(r["bound_ms"] * r["calls_per_step"] for r in shapes
                                if r["bound_by"] == basis) for basis in ("bytes", "operations")}
+        int_mm = [r["library_int_mm_ms"] for r in shapes]
         records.append({
             "name": "int8_conv" + ("_bf16" if route == "bf16" else ""), "route": "cuda",
             "source": "multiagentperception_tpu_torch/csrc/int8_conv.cu",
@@ -1326,8 +1388,12 @@ def check_int8_conv(gen) -> list[dict]:
             "max_abs_err": err, "ms": step("ms"), "plain_ms": step("plain_ms"),
             "library_ms": step("library_ms"), "bound_ms": step("bound_ms"),
             "bound_by": max(by_basis, key=by_basis.get), "bound_ms_by_basis": by_basis,
+            "quantize_ms": step("quantize_ms"), "gemm_ms": step("gemm_ms"),
+            "quantize_bound_ms": step("quantize_bound_ms"), "gemm_bound_ms": step("gemm_bound_ms"),
+            "library_int_mm_ms": None if None in int_mm else step("library_int_mm_ms"),
             "per": "one eval step's 48 int8 convolutions at batch 20 x 6 (sums over "
-                   "'shapes'); library: cuDNN bf16",
+                   "'shapes'); library: cuDNN bf16; library_int_mm: torch._int_mm on the "
+                   "GEMM's int8 matrices",
             "shapes": shapes})
         torch.cuda.empty_cache()
     return records
@@ -1358,7 +1424,9 @@ def run_int8_slice(dtype: str | None = None) -> dict:
     calib, timed = batches[:INT8_CALIB_BATCHES], batches[INT8_CALIB_BATCHES:]
     kernels = (k1.upsample_argmax, k2.comm_fusion, k4.int8_conv)
     bench._zero_launches(kernels)
+    k4.int8_conv.geometry_launches.update(dict.fromkeys(k4.int8_conv.geometry_launches, 0))
     ev.evaluate(timed, int8=True, calib_loader=calib)
+    gemm_routes = dict(k4.int8_conv.geometry_launches)
     swap = ev.int8_convs
     eligible = len(swap.convs)
     counts = {kern.__name__: dict(kern.route_launches) for kern in kernels}
@@ -1399,12 +1467,14 @@ def run_int8_slice(dtype: str | None = None) -> dict:
         raise AssertionError("int8 eval trace: no launch of K4's GEMM")
     device_ms = sum(e.self_device_time_total for e in device) / 1e3
     k4_ms = sum(e.self_device_time_total for e in device
-                if "int8_conv_kernel" in e.key or "quantize_nhwc" in e.key) / 1e3
+                if "int8_conv_kernel" in e.key or "quantize_nhwc" in e.key
+                or "quantize_s2d" in e.key) / 1e3
     (WORK / f"profile_int8_{route}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
     return {"dtype": dtype or "float32", "batch": b, "agents": n, "size": size,
             "batches": len(timed), "calibration_batches": len(calib),
             "int8_convs_per_batch": eligible, "launches": counts,
+            "k4_gemm_route_launches": gemm_routes,
             "eval_frames_per_s": len(timed) * b * n / seconds,
             "batch_ms": seconds / len(timed) * 1e3,
             "device_ms_per_batch": device_ms / len(timed),
@@ -1487,11 +1557,11 @@ def main() -> int:
     for name in logs:
         for line in resource_lines(logs[name]):
             print(f"ptxas {name}: {line}")
-    for name in TENSOR_CORE_LIBS:
-        hgmma = hgmma_count(name)
-        print(f"HGMMA instructions in {name}'s SASS: {hgmma}")
-        if hgmma < 1:
-            raise AssertionError(f"{name}'s SASS holds no HGMMA instruction")
+    for name, opcode in [(lib, "HGMMA") for lib in TENSOR_CORE_LIBS] + K4_SASS:
+        count = sass_count(name, opcode)
+        print(f"{opcode} instructions in {name}'s SASS: {count}")
+        if count < 1:
+            raise AssertionError(f"{name}'s SASS holds no {opcode} instruction")
 
     gen = torch.Generator().manual_seed(SEED)
     records = [check_upsample_argmax(gen), check_comm_fusion(gen), *check_fused_block()]

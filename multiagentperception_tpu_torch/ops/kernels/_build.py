@@ -35,7 +35,7 @@ F32 = ctypes.c_float
 _K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]
 _K2_ARGS = [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]
 _K4_QUANTIZE_ARGS = [P, P, I32, I32, I32, I32, P, P]
-_K4_ARGS = [P, P, P, P, P, P] + [I32] * 12 + [P]
+_K4_ARGS = [P, P, P, P, P, P] + [I32] * 14 + [P]
 # C entry points and their signatures, per kernel source
 SIGNATURES = {
     "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS},
@@ -47,6 +47,8 @@ SIGNATURES = {
     "fused_block_tf32_conv": {"fused_basic_block_tf32x3_conv":
                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
     "int8_conv": {"int8_quantize_f32": _K4_QUANTIZE_ARGS, "int8_quantize_bf16": _K4_QUANTIZE_ARGS,
+                  "int8_quantize_s2d_f32": _K4_QUANTIZE_ARGS,
+                  "int8_quantize_s2d_bf16": _K4_QUANTIZE_ARGS,
                   "int8_conv_f32": _K4_ARGS, "int8_conv_bf16": _K4_ARGS,
                   "int8_conv_s32": _K4_ARGS},
 }

@@ -273,11 +273,10 @@ def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | 
     Launches the kernel twice (the sums, then the output)."""
     w = k4.prepare_weight(weight)
     s = k4.dynamic_scale(x) if s_x is None else s_x
-    cp = k4.padded_channels(x.shape[1])
-    want_q = torch.nn.functional.pad(k4.quantize_input(x, s).permute(0, 2, 3, 1),
-                                     (0, cp - x.shape[1]))
-    if not torch.equal(k4.quantize_nhwc(x, s, cp), want_q):
-        raise AssertionError("int8_conv: the quantize pass's operands differ from plain")
+    geometry = k4.plan(*x.shape, *weight.shape[:1], *weight.shape[2:], stride, padding)
+    if not torch.equal(k4.quantize_scratch(x, s, geometry), k4.scratch_plain(x, s, geometry)):
+        raise AssertionError(f"int8_conv: the quantize pass's operands ({geometry.route}) "
+                             "differ from plain")
     acc = k4.int8_conv(x, w, s_x, None, stride, padding, out_dtype=torch.int32)
     want_acc = k4.int8_conv_plain(x, w, s, None, stride, padding, torch.int32)
     if not torch.equal(acc, want_acc):

@@ -6,8 +6,14 @@ The JAX package runs this through XLA (``multiagentperception_tpu/quantize.py``
 ``preferred_element_type=jnp.int32``); it has no Pallas kernel. PyTorch on
 CUDA has no int8 convolution, so on the card ``int8_conv`` launches the
 hand-written ``csrc/int8_conv.cu``: a quantize pass (NCHW float32/bf16 to
-NHWC int8 scratch) and an implicit-GEMM ``mma.sync`` s8 kernel whose
-epilogue rescales and writes NCHW. For one ``models.blocks.Conv2d``:
+NHWC int8 scratch, at its byte bound's pace: 16-byte loads along the image
+row, 16-byte stores along the channels) and an implicit GEMM on Hopper's
+``wgmma`` s8 (persistent, warp-specialized: a producer warpgroup feeds two
+consumer warpgroups through an mbarrier ring; 128-pixel x NB-channel tiles
+with NB = 64/128/256, so a tile's activations are fetched once for all of
+Cout up to 256), whose epilogue rescales in registers, stages the tile in
+shared memory as [channel][pixel] and writes NCHW rows as 16-byte stores.
+For one ``models.blocks.Conv2d``:
 
     x_i8 = round(clip(x / s_x, -127, 127))        (half to even, jnp.round)
     acc  = conv_int32(x_i8, w_i8)                   (int8 zero padding)
@@ -15,33 +21,60 @@ epilogue rescales and writes NCHW. For one ``models.blocks.Conv2d``:
 
 cast once to ``out_dtype``; ``out_dtype=torch.int32`` returns ``acc``
 itself (the checks hold the kernel's sums to the plain version's). Its
-bound on the H100 is the int8 tensor cores' 1,979 TOPS, or the bytes
-(``csrc/int8_conv.cu`` says which at the flagship).
+bound on the H100 at the flagship's shapes is bytes (the activations,
+the int8 scratch and the outputs at 3.35 TB/s), except at 512 channels,
+where the int8 tensor cores' 1,979 TOPS bound it.
+
+``plan`` picks the GEMM's route from the geometry, in plain Python (the
+CPU tests reach it): ``halo`` (3x3, stride 1, Cp % 16 == 0: one TMA load
+of a tile's halo a 64-channel chunk, its 9 taps read through shifted
+descriptors), ``s2d`` (stride 2 with Cin <= 4, the stem: the quantize pass
+writes 2 x 2 blocks of pixels as 16-channel pixels, over which the
+convolution is a stride-1 one that the halo feeds), ``gather16`` (any other
+geometry with Cp % 16 == 0: cp.async gather in 16-byte pieces) and
+``gather4`` (Cp % 16 != 0 at stride 1: 4-byte pieces), and NB. Each
+launches its kernel or raises; nothing falls back. Its bound at the
+flagship's eval step is 7.5 ms (float32 network) / 4.5 ms (bf16) of bytes
+a step at batch 20 x 6; PERF.md gives the times.
 
 On a CPU (or ``meta``) tensor it runs ``int8_conv_plain``: the int32 sum
 is an exact float64 ``F.conv2d`` of the int8 values (|acc| <= 127^2 * 4608
 < 2^31, far inside float64's 2^53), rounded and cast to int32. On a CUDA
 tensor it launches the kernel or raises: there is no fallback.
 ``int8_conv.launches`` counts launches of the pair (one per call),
-``int8_conv.route_launches`` per output type.
+``int8_conv.route_launches`` per output type and
+``int8_conv.geometry_launches`` per GEMM route.
 
 Weights are quantized once (``prepare_weight``): ``quantize.quantize_weight``
-of the float32 parameter, and, for the kernel, arranged as a (Cout, Kp)
-int8 matrix in (kh, kw, c) order with Cin padded to ``Cp`` and K to a
-multiple of 64 (``pack_weight``).
+of the float32 parameter, and, for the kernel, arranged by ``pack_weight``
+as (Cout/NB slices, K stages, 4 planes, NB, 16 bytes): each stage is 64
+bytes of K, which a bulk copy brings and the wgmma reads as its B operand.
+K runs in (64-channel chunk, tap, channel) order at Cp % 16 == 0 and in
+dense (tap, channel) order otherwise (``s2d_weight``'s 16 channels for the
+s2d route); channels past Cin, K's tail and the output channels past Cout
+are zeros. An operand of another NB or the s2d route's is packed at its
+first use and kept (``Int8Weight.operand``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
 
 from multiagentperception_tpu_torch.ops.kernels import _build
 
-K_STEP = 64  # kBK in csrc/int8_conv.cu: Kp is a multiple of it
+K_STEP = 64  # kKS in csrc/int8_conv.cu: bytes of K a stage, the packed weight's unit
+SMEM_LIMIT = 232448  # shared memory a block may hold on the H100 (227 KB)
+TILE_M = 128  # output pixels a tile
+SMS = 132  # the H100's SMs: a plan gives half of them a tile at least, where it can
+RING_STAGES = 8  # Tiling::NS but for gathering at 256 channels
+HALO_CHUNKS = 4  # kHaloChunks
+ROUTE_IDS = {"halo": 0, "gather16": 1, "gather4": 2, "s2d": 3}
 EPS = 1e-8
 # output dtype: (route, C entry point of the GEMM)
 ROUTES = {torch.float32: ("f32", "int8_conv_f32"),
@@ -49,6 +82,7 @@ ROUTES = {torch.float32: ("f32", "int8_conv_f32"),
           torch.int32: ("s32", "int8_conv_s32")}
 # input dtype: C entry point of the quantize pass
 QUANTIZE = {torch.float32: "int8_quantize_f32", torch.bfloat16: "int8_quantize_bf16"}
+QUANTIZE_S2D = {torch.float32: "int8_quantize_s2d_f32", torch.bfloat16: "int8_quantize_s2d_bf16"}
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -83,23 +117,186 @@ def padded_channels(c_in: int) -> int:
     return c_in if c_in % 16 == 0 else -(-c_in // 4) * 4
 
 
-def pack_weight(w_i8: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 -> the kernel's (Cout, Kp) int8 B matrix, k = (kh * KW + kw) * Cp + c."""
-    cout, c_in, kh, kw = w_i8.shape
+def tile_n(cout: int) -> int:
+    """NB: the output channels of a GEMM tile, the least of 64, 128, 256
+    that holds Cout, else 256 (Cout / 256 slices)."""
+    return next(nb for nb in (64, 128, 256) if cout <= nb or nb == 256)
+
+
+def k_stages(c_in: int, kh: int, kw: int) -> int:
+    """K stages of 64 bytes a slice: (64-channel chunk, tap) pairs at Cp %
+    16 == 0, else the dense (tap, channel) K rounded up to a stage."""
     cp = padded_channels(c_in)
-    hwio = F.pad(w_i8.permute(0, 2, 3, 1), (0, cp - c_in))  # (Cout, kh, kw, Cp)
-    k_real = kh * kw * cp
-    k_pad = -(-k_real // K_STEP) * K_STEP
-    return F.pad(hwio.reshape(cout, k_real), (0, k_pad - k_real)).contiguous()
+    if cp % 16 == 0:
+        return -(-cp // 64) * kh * kw
+    return -(-(kh * kw * cp) // K_STEP)
+
+
+def _stages(mat: torch.Tensor, cout: int, nb: int) -> torch.Tensor:
+    """A (Cout, stages * 64) K-ordered int8 matrix -> the B operand's
+    (Cout/NB, stages, 4, NB, 16), output channels past Cout zero."""
+    slices, stages = -(-cout // nb), mat.shape[1] // K_STEP
+    mat = F.pad(mat, (0, 0, 0, slices * nb - cout))
+    return mat.reshape(slices, nb, stages, 4, 16).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def pack_weight(w_i8: torch.Tensor, nb: int | None = None) -> torch.Tensor:
+    """OIHW int8 -> the kernel's B operand, (Cout/NB, stages, 4, NB, 16) int8:
+    stage s of slice n holds K bytes 64s .. 64s+63 of output channels
+    n*NB .. n*NB+NB-1 as 4 planes of [channel][16 bytes of K]. NB defaults
+    to ``tile_n(Cout)``."""
+    cout, c_in, kh, kw = w_i8.shape
+    cp, taps = padded_channels(c_in), kh * kw
+    stages = k_stages(c_in, kh, kw)
+    hwio = w_i8.permute(0, 2, 3, 1)  # (Cout, kh, kw, Cin)
+    if cp % 16 == 0:
+        chunks = stages // taps
+        mat = (F.pad(hwio, (0, chunks * 64 - c_in)).reshape(cout, taps, chunks, 64)
+               .permute(0, 2, 1, 3).reshape(cout, stages * K_STEP))
+    else:
+        mat = F.pad(F.pad(hwio, (0, cp - c_in)).reshape(cout, taps * cp),
+                    (0, stages * K_STEP - taps * cp))
+    return _stages(mat, cout, nb or tile_n(cout))
+
+
+def s2d_taps(k: int, pad: int) -> tuple[int, int]:
+    """A stride-2 convolution's taps along one axis over the space-to-depth
+    scratch (2 x 2 blocks): (taps, padding) of the stride-1 convolution that
+    output o reads, blocks o - padding .. o - padding + taps - 1. Tap k of
+    the original kernel lies in block floor((k - pad) / 2), row (k - pad) % 2."""
+    lo, hi = (-pad) // 2, (k - 1 - pad) // 2
+    return hi - lo + 1, -lo
+
+
+def s2d_weight(w_i8: torch.Tensor, pad: int) -> torch.Tensor:
+    """A stride-2 OIHW int8 weight with Cin <= 4 -> its stride-1 twin over
+    the space-to-depth scratch, (Cout, KH', KW', 16) with channel (row * 2 +
+    column) * 4 + c of a block; KW' rounded up to 4 taps (a stage), the
+    taps and channels that no original tap fills zero."""
+    cout, c_in, kh, kw = w_i8.shape
+    (kh2, pad_y), (kw2, pad_x) = s2d_taps(kh, pad), s2d_taps(kw, pad)
+    out = w_i8.new_zeros((cout, kh2, -(-kw2 // 4) * 4, 2, 2, 4))
+    for ky in range(kh):
+        dy, sy = divmod(ky - pad, 2)
+        for kx in range(kw):
+            dx, sx = divmod(kx - pad, 2)
+            out[:, dy + pad_y, dx + pad_x, sy, sx, :c_in] = w_i8[:, :, ky, kx]
+    return out.reshape(cout, kh2, out.shape[2], 16)
+
+
+def pack_s2d(w_i8: torch.Tensor, pad: int, nb: int) -> torch.Tensor:
+    """The B operand of the s2d route: ``s2d_weight`` in dense (tap, channel)
+    K order, 4 taps a stage."""
+    w2 = s2d_weight(w_i8, pad)
+    return _stages(w2.reshape(w2.shape[0], -1), w2.shape[0], nb)
+
+
+def space_to_depth(xq: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 4) int8 -> the s2d scratch (N, ceil(H/2), ceil(W/2), 16),
+    zero past the image (the plain version of the s2d quantize pass)."""
+    n, h, w, c = xq.shape
+    xq = F.pad(xq, (0, 0, 0, w % 2, 0, h % 2))
+    h2, w2 = xq.shape[1] // 2, xq.shape[2] // 2
+    return xq.reshape(n, h2, 2, w2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h2, w2, 4 * c)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the GEMM runs one geometry: its route (``ROUTE_IDS``), NB and the
+    output-channel slices, K stages a slice, the halo tile TH x TW and its
+    TMA box (channels, width, height, images; None off the halo routes),
+    tiles and the shared memory a block holds (bytes, as
+    ``csrc/int8_conv.cu``'s ``launch_nb`` lays it out); ``gemm``, the
+    geometry the GEMM launches with, (H, W, Cp, KH, KW, stride, padding) of
+    its scratch (the s2d route's: blocks, 16 channels, stride 1), ``out``,
+    (OH, OW), and ``pad``, the convolution's own padding."""
+    route: str
+    nb: int
+    slices: int
+    stages: int
+    tw: int
+    th: int
+    box: tuple[int, int, int, int] | None
+    tiles: int
+    smem: int
+    gemm: tuple[int, int, int, int, int, int, int]
+    out: tuple[int, int]
+    pad: int
+
+
+@functools.lru_cache(maxsize=1024)  # a model has tens of geometries
+def plan(n: int, c_in: int, h: int, w: int, cout: int, kh: int, kw: int, stride: int,
+         pad: int) -> Plan:
+    """The GEMM's route and sizes for an (n, c_in, h, w) input and a (cout,
+    c_in, kh, kw) weight at ``stride`` and ``pad``, as ``csrc/int8_conv.cu``'s
+    ``Tiling`` and ``launch_nb`` lay them out. NB is ``tile_n(cout)``,
+    halved (down to 64) while the tiles do not fill half the card's SMs."""
+    oh, ow = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    cp, nb = padded_channels(c_in), tile_n(cout)
+    gemm = (h, w, cp, kh, kw, stride, pad)
+    stages = k_stages(c_in, kh, kw)
+    if cp == 4 and stride == 2:
+        route = "s2d"
+        (kh2, pad2), kw2 = s2d_taps(kh, pad), -(-s2d_taps(kw, pad)[0] // 4) * 4
+        gemm = (-(-h // 2), -(-w // 2), 16, kh2, kw2, 1, pad2)
+        stages = kh2 * kw2 // 4
+    elif cp % 16:
+        route = "gather4"
+    elif (kh, kw, stride) == (3, 3, 1):
+        route = "halo"
+    else:
+        route = "gather16"
+    halo = route in ("halo", "s2d")
+    if halo:
+        tw = 8 if ow <= 8 else 16
+        th = TILE_M // tw
+        pixel_tiles = -(-ow // tw) * -(-oh // th) * n
+    else:
+        pixel_tiles = -(-(n * oh * ow) // TILE_M)
+    while nb > 64 and pixel_tiles * -(-cout // nb) < SMS // 2:
+        nb //= 2
+    slices = -(-cout // nb)
+    # Tiling's TPS (64-byte stages a slot) and NS (slots)
+    tps = 3 if route == "halo" and nb <= 128 else 1
+    ring = 4 if tps == 3 and nb == 128 else 6 if not halo and nb == 256 else RING_STAGES
+    stage = K_STEP * nb * tps
+    if halo:
+        box = (16, tw + gemm[4] - 1, th + gemm[3] - 1, 1)
+        plane = -(-(box[1] * box[2] * 16) // 128) * 128
+        ring_off = HALO_CHUNKS * 4 * plane
+    else:
+        tw, th, box, ring_off = 0, 0, None, 0
+        stage += TILE_M * K_STEP
+    # each epilogue (one per warpgroup below 256 channels): staging, scales, shifts
+    epi = (2 if nb < 256 else 1) * (64 * (TILE_M + 4) * 4 + 2 * nb * 4)
+    bars = (2 * ring + 2 * HALO_CHUNKS + 2) * 8
+    table = stages * (K_STEP // 4) * 16 if route == "gather4" else 0
+    smem = ring_off + ring * stage + epi + bars + table + 128
+    return Plan(route, nb, slices, stages, tw, th, box, pixel_tiles * slices, smem, gemm, (oh, ow),
+                pad)
 
 
 @dataclass
 class Int8Weight:
     """A convolution's weight quantized once: ``w_i8`` (OIHW int8),
-    ``s_w`` (Cout,) float32 and ``packed``, the kernel's (Cout, Kp) matrix."""
+    ``s_w`` (Cout,) float32, ``packed``, the kernel's B operand at the
+    default NB (``pack_weight``), and the other B operands a plan asks for
+    (another NB, the s2d route's), packed at first use (``operand``)."""
     w_i8: torch.Tensor
     s_w: torch.Tensor
     packed: torch.Tensor
+    others: dict = field(default_factory=dict)
+
+    def operand(self, geometry: Plan) -> torch.Tensor:
+        """The B operand that ``geometry``'s route and NB read."""
+        s2d = geometry.route == "s2d"
+        if not s2d and geometry.nb == self.packed.shape[3]:
+            return self.packed
+        key = (s2d, geometry.nb, geometry.pad if s2d else 0)
+        if key not in self.others:
+            self.others[key] = (pack_s2d(self.w_i8, geometry.pad, geometry.nb) if s2d
+                                else pack_weight(self.w_i8, geometry.nb))
+        return self.others[key]
 
 
 @torch.no_grad()
@@ -155,18 +352,57 @@ def int8_conv_plain(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor,
     return y.to(out_dtype)
 
 
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _on(device: torch.device):
+    """The CUDA runtime launches on its current device: make it ``device``'s
+    (a context entered only where it is another, to keep the launch cheap)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def quantize_nhwc(x: torch.Tensor, s_x: torch.Tensor, cp: int) -> torch.Tensor:
-    """The kernel's first launch alone: NCHW x -> (N, H, W, Cp) int8 on the card."""
+    """The quantize pass alone: NCHW x -> (N, H, W, Cp) int8 on the card."""
     n, c, h, w = x.shape
     xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
     lib = _build.load("int8_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _on(x.device):
         rc = getattr(lib, QUANTIZE[x.dtype])(x.data_ptr(), s_x.data_ptr(), n, c, h * w, cp,
-                                             xq.data_ptr(), ctypes.c_void_p(stream))
+                                             xq.data_ptr(), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"int8_conv quantize launch failed: CUDA error {rc}")
     return xq
+
+
+def quantize_s2d(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """The s2d route's quantize pass alone: NCHW x (Cin <= 4) -> the
+    space-to-depth scratch (N, ceil(H/2), ceil(W/2), 16) int8 on the card."""
+    n, c, h, w = x.shape
+    xq = torch.empty((n, -(-h // 2), -(-w // 2), 16), dtype=torch.int8, device=x.device)
+    lib = _build.load("int8_conv")
+    with _on(x.device):
+        rc = getattr(lib, QUANTIZE_S2D[x.dtype])(x.data_ptr(), s_x.data_ptr(), n, c, h, w,
+                                                 xq.data_ptr(), _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"int8_conv quantize launch failed: CUDA error {rc}")
+    return xq
+
+
+def quantize_scratch(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torch.Tensor:
+    """The quantize pass of ``geometry``'s route: the scratch its GEMM reads."""
+    if geometry.route == "s2d":
+        return quantize_s2d(x, s_x)
+    return quantize_nhwc(x, s_x, geometry.gemm[2])
+
+
+def scratch_plain(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torch.Tensor:
+    """``quantize_scratch`` in plain PyTorch."""
+    cp = padded_channels(x.shape[1])
+    xq = F.pad(quantize_input(x, s_x).permute(0, 2, 3, 1), (0, cp - x.shape[1])).contiguous()
+    return space_to_depth(xq) if geometry.route == "s2d" else xq
 
 
 def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
@@ -195,29 +431,57 @@ def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
     if not x.is_contiguous():
         raise ValueError("int8_conv kernel takes a contiguous NCHW input")
     n, c_in, h, wd = x.shape
-    cout, _, kh, kw = w.w_i8.shape
-    cp = padded_channels(c_in)
-    if w.packed.shape[1] % K_STEP or w.packed.shape != (cout, w.packed.shape[1]):
-        raise ValueError("int8_conv: the packed weight is not the kernel's layout")
-    if n * oh * ow >= 2**31 or n * h * wd * cp >= 2**31:
+    if n * oh * ow >= 2**31 or n * (h + 1) * (wd + 1) * padded_channels(c_in) >= 2**31:
         raise ValueError(f"int8_conv: input {tuple(x.shape)} too large for 32-bit indices")
-    xq = quantize_nhwc(x, s_x, cp)
-    out = torch.empty((n, cout, oh, ow), dtype=out_dtype, device=x.device)
-    route, entry = ROUTES[out_dtype]
-    lib = _build.load("int8_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(
-            xq.data_ptr(), w.packed.data_ptr(), w.s_w.data_ptr(), s_x.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, wd, cp, cout, kh, kw, stride_, pad, oh, ow, w.packed.shape[1],
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {rc}")
-    int8_conv.route_launches[route] += 1
+    geometry = plan(n, c_in, h, wd, w.w_i8.shape[0], *w.w_i8.shape[2:], stride_, pad)
+    operand = w.operand(geometry)
+    _check_operand(operand, geometry)
+    out = conv_nhwc(quantize_scratch(x, s_x, geometry), w, s_x, bias, geometry, out_dtype,
+                    operand)
+    int8_conv.route_launches[ROUTES[out_dtype][0]] += 1
+    int8_conv.geometry_launches[geometry.route] += 1
     int8_conv.launches += 1
+    return out
+
+
+def _check_operand(operand: torch.Tensor, geometry: Plan) -> None:
+    want = (geometry.slices, geometry.stages, 4, geometry.nb, 16)
+    if tuple(operand.shape) != want or operand.dtype != torch.int8 or \
+            not operand.is_contiguous():
+        raise ValueError(f"int8_conv: the packed weight {tuple(operand.shape)} is not the "
+                         f"kernel's layout {want} (pack_weight)")
+    if geometry.smem > SMEM_LIMIT:
+        raise ValueError(f"int8_conv: {geometry} needs {geometry.smem} bytes of shared memory")
+
+
+def conv_nhwc(xq: torch.Tensor, w: Int8Weight, s_x: torch.Tensor, bias: torch.Tensor | None,
+              geometry: Plan, out_dtype: torch.dtype,
+              operand: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's second launch alone, the GEMM: ``geometry``'s scratch
+    ``xq`` (``quantize_scratch``) -> NCHW ``out_dtype`` on the card.
+    ``int8_conv`` checks its arguments; this checks the layouts."""
+    if operand is None:
+        operand = w.operand(geometry)
+        _check_operand(operand, geometry)
+    h, wd, cp, kh, kw, stride, pad = geometry.gemm
+    n, cout = xq.shape[0], w.w_i8.shape[0]
+    if xq.dtype != torch.int8 or not xq.is_contiguous() or tuple(xq.shape[1:]) != (h, wd, cp):
+        raise ValueError(f"int8_conv: the scratch {tuple(xq.shape)} {xq.dtype} is not "
+                         f"{geometry.route}'s ({h}, {wd}, {cp})")
+    oh, ow = geometry.out
+    out = torch.empty((n, cout, oh, ow), dtype=out_dtype, device=xq.device)
+    lib = _build.load("int8_conv")
+    with _on(xq.device):
+        rc = getattr(lib, ROUTES[out_dtype][1])(
+            xq.data_ptr(), operand.data_ptr(), w.s_w.data_ptr(), s_x.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            n, h, wd, cp, cout, kh, kw, stride, pad, oh, ow, ROUTE_IDS[geometry.route],
+            geometry.nb, geometry.tw, _stream(xq.device))
+    if rc != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed ({geometry.route}): CUDA error {rc}")
     return out
 
 
 int8_conv.launches = 0
 int8_conv.route_launches = {route: 0 for route, _ in ROUTES.values()}
+int8_conv.geometry_launches = dict.fromkeys(ROUTE_IDS, 0)

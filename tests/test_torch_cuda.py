@@ -511,31 +511,59 @@ def test_remat_train_step_on_the_card(cuda):
 
 # ------------------------------------------------------------------ K4: int8_conv
 
-# (Cin, Cout, side, kernel, stride, padding, bias): the flagship's configurations,
-# a ragged tile (M and Cout not multiples of the kernel's 128 x 64 tile) and Cin 16
-K4_CONVS = {"stem_7x7s2_cin3": (3, 64, 67, 7, 2, 3, False), "3x3s1": (64, 64, 19, 3, 1, 1, False),
-            "3x3s2": (128, 256, 17, 3, 2, 1, False), "1x1s2": (64, 128, 17, 1, 2, 0, False),
-            "3x3s1_bias_ragged": (512, 72, 5, 3, 1, 1, True),
-            "cin16_bias": (16, 24, 9, 3, 1, 1, True)}
+# (Cin, Cout, side, kernel, stride, padding, bias, images, GEMM route): every
+# route of the kernel at ragged geometry. M not a multiple of the 128-pixel
+# tile (every one but multi_*), Cout 72 (a partial NB) and 512 (two N
+# slices), sides 5 and 8 (tiles wider than the image; the 16 x 8 halo
+# tile), Cin 16 and 48 (one and three 16-channel planes of a 64-channel
+# chunk), the stem (space to depth, odd side), Cin 3 and 8 at stride 1
+# (4-byte gather), stride 2, 3 and 1x1 (16-byte gather), and tiles enough
+# that every CTA takes several (the warpgroups' turns at NB 64 and 128; both
+# on one tile at NB 256)
+K4_CONVS = {
+    "stem_7x7s2_cin3": (3, 64, 67, 7, 2, 3, False, 3, "s2d"),
+    "s2d_3x3s2_cin4": (4, 32, 20, 3, 2, 1, True, 3, "s2d"),
+    "gather4_cin3_s1": (3, 16, 9, 3, 1, 1, False, 3, "gather4"),
+    "gather4_cin8": (8, 24, 11, 3, 1, 1, True, 3, "gather4"),
+    "3x3s1": (64, 64, 19, 3, 1, 1, False, 3, "halo"),
+    "3x3s1_bias_ragged": (512, 72, 5, 3, 1, 1, True, 3, "halo"),
+    "halo_side8_cout512": (256, 512, 8, 3, 1, 1, False, 3, "halo"),
+    "cin16_bias": (16, 24, 9, 3, 1, 1, True, 3, "halo"),
+    "cin48": (48, 40, 10, 3, 1, 1, False, 3, "halo"),
+    "3x3s2": (128, 256, 17, 3, 2, 1, False, 3, "gather16"),
+    "1x1s2": (64, 128, 17, 1, 2, 0, False, 3, "gather16"),
+    "5x5s1": (32, 64, 12, 5, 1, 2, True, 3, "gather16"),
+    "3x3s3": (16, 32, 13, 3, 3, 1, False, 3, "gather16"),
+    "multi_halo64": (64, 64, 128, 3, 1, 1, False, 3, "halo"),
+    "multi_halo512": (256, 512, 32, 3, 1, 1, False, 12, "halo"),
+    "multi_gather512": (256, 512, 32, 3, 2, 1, False, 48, "gather16"),
+    "multi_gather128": (64, 128, 64, 1, 2, 0, True, 40, "gather16"),
+    "multi_stem": (3, 64, 256, 7, 2, 3, False, 4, "s2d"),
+    "multi_halo128_cout96": (128, 96, 64, 3, 1, 1, True, 5, "halo"),
+    "multi_halo256_cout200": (64, 200, 64, 3, 1, 1, False, 5, "halo"),
+    "multi_halo256_side8": (256, 256, 8, 3, 1, 1, True, 140, "halo")}
 
 
 @pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(K4_CONVS))
 def test_int8_conv_kernel_matches_plain(cuda, name, dtype, static):
+    """Operands, int32 sums and outputs to the bit (``checks.check_int8_conv``)."""
     from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
 
-    cin, cout, side, k, stride, pad, bias = K4_CONVS[name]
+    cin, cout, side, k, stride, pad, bias, n, route = K4_CONVS[name]
+    assert k4.plan(n, cin, side, side, cout, k, k, stride, pad).route == route
     gen = torch.Generator().manual_seed(cin + cout + side)
     out_dtype = getattr(torch, dtype)
-    x = torch.randn(3, cin, side, side, generator=gen).to(
+    x = torch.randn(n, cin, side, side, generator=gen).to(
         cuda, torch.float32 if cin == 3 else out_dtype)
     w = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(cuda)
     b = torch.randn(cout, generator=gen).to(cuda) if bias else None
     s_x = torch.tensor(0.8 * float(x.float().abs().amax()) / 127, device=cuda) if static else None
-    before = k4.int8_conv.launches
+    before, routed = k4.int8_conv.launches, k4.int8_conv.geometry_launches[route]
     checks.check_int8_conv(x, w, b, stride, pad, s_x, out_dtype)
     assert k4.int8_conv.launches == before + 2  # the sums, then the output
+    assert k4.int8_conv.geometry_launches[route] == routed + 2
 
 
 @pytest.mark.parametrize("what", ["groups", "dilation", "float16", "mismatch", "bias16",

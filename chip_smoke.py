@@ -175,6 +175,8 @@ import torch
 
 from multiagentperception_tpu_torch import bench
 from multiagentperception_tpu_torch import bench_fused_block as k3_bench
+from multiagentperception_tpu_torch.bench_kernels import K4_SHAPES
+from multiagentperception_tpu_torch.bench_kernels import time_ms as _time_ms
 from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import N_CLASSES, Evaluator
 from multiagentperception_tpu_torch.loss import get_loss_function
@@ -197,8 +199,6 @@ PROFILE_OUT = WORK / "profile.txt"
 # the tensor cores (both kernels use plain FMAs)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-L2_FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2: each timed launch starts cold
-HOST_LEAD_CYCLES = 400_000  # ~0.2 ms of the card's clock, ahead of each timed run
 
 SEED = 0
 EVAL_BATCHES = 10  # timed; two more warm up cuDNN and the caching allocator
@@ -206,29 +206,6 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10  # train iterations: warm-up, then timed
 PROFILE_STEPS = 5  # train steps in the traced window
 DIAG_BIAS = 0.001
 THRES = 0.2
-
-
-def _time_ms(fn, iters: int = 50) -> float:
-    """Median device time of ``fn`` by CUDA events, L2 flushed before each
-    run. A spin kernel of HOST_LEAD_CYCLES runs before the start event, so
-    that ``fn``'s host side (a wrapper's checks and launches, tens of
-    microseconds) is enqueued before the card reaches it: without the lead
-    a kernel shorter than its wrapper is timed as the wrapper."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(HOST_LEAD_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def _traced_ms(fn, kernel: str, iters: int = 50) -> float:
@@ -1260,21 +1237,6 @@ def remat_pair() -> dict:
 # ------------------------------------------------------------------ phase 10
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense (NVIDIA data sheet)
-# the flagship's int8 convolutions per eval step (both towers and the decoder),
-# as (Cin, Cout, input side, kernel, stride, padding, bias, calls per step)
-K4_SHAPES = (
-    (3, 64, 512, 7, 2, 3, False, 2),      # the stems
-    (64, 64, 128, 3, 1, 1, False, 8),     # layer1
-    (64, 128, 128, 3, 2, 1, False, 2), (64, 128, 128, 1, 2, 0, False, 2),
-    (128, 128, 64, 3, 1, 1, False, 6),
-    (128, 256, 64, 3, 2, 1, False, 2), (128, 256, 64, 1, 2, 0, False, 2),
-    (256, 256, 32, 3, 1, 1, False, 6),
-    (256, 512, 32, 3, 2, 1, False, 2), (256, 512, 32, 1, 2, 0, False, 2),
-    (512, 512, 16, 3, 1, 1, False, 6),
-    (512, 512, 16, 3, 1, 1, True, 3),     # the squeezers, PolicyNet4 conv1
-    (512, 256, 16, 3, 1, 1, True, 2),     # PolicyNet4 conv2, SimpleDecoder's 512->256
-    (256, 256, 16, 3, 2, 1, True, 1), (256, 256, 8, 3, 1, 1, True, 1),
-    (256, 256, 8, 3, 2, 1, True, 1))      # PolicyNet4 conv3-5
 K4_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # the network dtype: the route
 INT8_EVAL_BATCHES = 6
 INT8_CALIB_BATCHES = 2

@@ -22,17 +22,16 @@
 // the two launches and times each.
 //
 // Launch 1, the quantize pass, at its byte bound (one read of x, one write
-// of the scratch). quantize_nhwc_kernel (Cp % 16 == 0): NCHW float32/bf16
-// to NHWC int8 with Cp = Cin channels, so that K, the channels of one tap,
-// is contiguous. A block takes 64 channels x 16 16-byte runs along the
-// image row (64 pixels float32, 128 bf16): a thread loads 4 channels x one
-// run, packs each pixel's 4 int8 channels into a word in shared memory, and
-// the block writes 16-byte pieces along the channels. quantize_nhwc4_kernel
-// (Cp % 16 != 0: Cin rounded up to 4, the padding zero): a thread takes one
-// 16-byte run of pixels and writes their 4-byte channel groups.
-// quantize_s2d_kernel (the stride-2 stem, Cin <= 4): space to depth, a
-// 16-byte scratch pixel per 2 x 2 block of pixels x 4 channels, so that the
-// stem runs as a stride-1 convolution over 16 channels on the halo route.
+// of the scratch). quantize_nhwc_kernel: NCHW float32/bf16 to NHWC int8
+// with Cp channels (Cin rounded up to 16, the padding zero), so that K, the
+// channels of one tap, is contiguous in 16-byte pieces. A block takes 64
+// channels x 16 16-byte runs along the image row (64 pixels float32, 128
+// bf16): a thread loads 4 channels x one run, packs each pixel's 4 int8
+// channels into a word in shared memory, and the block writes 16-byte
+// pieces along the channels. quantize_s2d_kernel (the stride-2 stem, Cin <=
+// 4): space to depth, a 16-byte scratch pixel per 2 x 2 block of pixels x 4
+// channels, so that the stem runs as a stride-1 convolution over 16
+// channels on the halo route.
 //
 // Launch 2, int8_conv_kernel: an implicit GEMM on wgmma s8, M = output
 // pixels, N = Cout, K = the taps x Cp. A persistent grid (one CTA per SM)
@@ -52,38 +51,45 @@
 // stage of a tile with D = 2 (1) wgmma groups in flight, a slot given back
 // D slots later. The weights come as (slice, stage, 4 planes, NB, 16 bytes)
 // from ops/kernels/int8_conv.py's pack_weight, a slot's by one
-// cp.async.bulk. The A operand comes by one of four routes, which the
-// wrapper's plan() picks from the geometry:
-// - halo (3x3, stride 1, Cp % 16 == 0: 85% of the step's operations): a
-//   tile is TH x TW = 8 x 16 pixels of one image (16 x 8 where the output
-//   is at most 8 wide). One thread loads its (TH+2) x (TW+2) halo a chunk
-//   of 64 channels at a time by TMA (4 boxes of 16 channels, planes of
-//   16-byte pixels; TMA's zero fill is the padding and the image's edge,
-//   so tiles never read across images) into a ring of 4 chunks. The taps
-//   read a chunk through shifted descriptors: core matrix i of a 64-pixel
-//   block is halo row i, 8 neighbouring pixels (SBO = the halo's pitch), a
-//   tap moves the start by (dy*(TW+2) + dx)*16 bytes. K is (chunk, tap, 64
-//   channels); channels past Cp are not loaded and their weights are 0.
-//   Below 256 channels a slot holds a kernel row, 3 taps.
+// cp.async.bulk. K is (64-channel chunk, tap, 64 channels); channels past
+// Cp are not loaded (or zero-filled) and their weights are 0. The A operand
+// comes by one of three routes, which the wrapper's plan() picks from the
+// geometry:
+// - halo (3x3, stride 1: 85% of the step's operations): a tile is TH x TW
+//   = 8 x 16 pixels of one image (16 x 8 where the output is at most 8
+//   wide). One thread loads its (TH+2) x (TW+2) halo a chunk of 64
+//   channels at a time by TMA (4 boxes of 16 channels, planes of 16-byte
+//   pixels; TMA's zero fill is the padding and the image's edge, so tiles
+//   never read across images) into a ring of 4 chunks. The taps read a
+//   chunk through shifted descriptors: core matrix i of a 64-pixel block is
+//   halo row i, 8 neighbouring pixels (SBO = the halo's pitch), a tap moves
+//   the start by (dy*(TW+2) + dx)*16 bytes. Below 256 channels a slot holds
+//   a kernel row, 3 taps.
 // - s2d (stride 2, Cin <= 4: the stem): the halo over the space-to-depth
 //   scratch (16 channels), K dense in (tap, 16 channels), 4 taps to the
 //   right of each other a stage; a k32 step reads 2 of them, its two core
 //   matrices one pixel apart (LBO = 16 bytes).
-// - gather16 (any other geometry at Cp % 16 == 0: stride 2, 1x1): the
+// - gather16 (any other geometry: stride 2, 1x1, other kernels): the
 //   producer warpgroup's 128 threads gather the tile's 128 pixels x 64
 //   bytes of K by cp.async (16-byte pieces, four threads a pixel), zero
 //   fill for the padding, in the same (chunk, tap, 64 channels) order, into
 //   planes of [pixel][16 bytes]. Each thread waits for its own copies a few
 //   stages later, fences them for the async proxy and arrives.
-// - gather4 (Cp % 16 != 0 at stride 1): the same with 4-byte pieces and K
-//   in dense (tap, channel) order, the pieces' offsets from a table.
 // Epilogue: rescale in registers ((s_x * s_w) first, then __fmul_rn, then
 // __fadd_rn for the bias: nvcc would otherwise contract an FMA, one
 // rounding fewer than the plain version and XLA), stage 64 channels x 128
 // pixels at a time in shared memory as [channel][pixel], and write each
 // channel's pixels as 16-byte vector stores along NCHW's rows (a scalar
 // store where a run is ragged or unaligned): 64-byte runs per halo row of
-// 16, whole 128-pixel runs at 16x16 and in the gather routes.
+// 16, whole 128-pixel runs at 16x16 and in the gather route.
+//
+// Shared memory: the halo chunks, the ring, each epilogue's staging, the
+// mbarriers. The wrapper's plan() is the one source of that layout: it
+// picks the instantiation (route, NB, TPS, NS) from INT8_CONV_KERNELS
+// below and passes every offset and the size in; the launch refuses a
+// layout that cannot hold the instantiation's ring, epilogues and barriers,
+// or that passes 227 KB, so a plan out of step with the kernel fails its
+// launch instead of overlapping shared memory.
 
 #include <cuda_bf16.h>
 
@@ -97,11 +103,11 @@ constexpr int kThreads = kConsumers + 128;    // + the producer warpgroup
 constexpr int kEpiChannels = 64;              // channels the epilogue stages at a time
 constexpr int kHaloChunks = 4;                // halo chunks in flight (two tiles' at Cp 128)
 constexpr int kQThreads = 256;
+constexpr int kSmemLimit = 232448;            // dynamic shared memory a CTA may hold (227 KB)
 
-enum Route { kHalo = 0, kGather16 = 1, kGather4 = 2, kS2d = 3 };
+enum Route { kHalo = 0, kGather16 = 1, kS2d = 2 };
 enum OutKind { kF32 = 0, kBF16 = 1, kS32 = 2 };
 
-__host__ __device__ constexpr int round128(int v) { return (v + 127) / 128 * 128; }
 // routes whose A comes from a TMA halo
 __host__ __device__ constexpr bool halo_a(int r) { return r == kHalo || r == kS2d; }
 
@@ -109,18 +115,18 @@ __host__ __device__ constexpr bool halo_a(int r) { return r == kHalo || r == kS2
 // warpgroups take turns (PP, ping-pong), each a whole tile: MB = 2 blocks of
 // 64 pixels; at NB = 256 both take one tile, a block each (MB = 1). Either
 // way a thread holds MB * NB / 2 <= 128 accumulators. A ring slot holds
-// TPS stages' weights (and, gathering, a stage's A); NS slots. Each
-// epilogue (one per warpgroup in PP) stages 64 channels x TM pixels of
-// words, then the tile's scales and shifts.
-template <int NB, int R>
+// TPS stages' weights (and, gathering, a stage's A); NS slots (both the
+// plan's, from INT8_CONV_KERNELS). Each epilogue (one per warpgroup in PP)
+// stages 64 channels x TM pixels of words, then the tile's scales and shifts.
+template <int NB_, int R_, int TPS_, int NS_>
 struct Tiling {
+  static constexpr int NB = NB_;
+  static constexpr int R = R_;
   static constexpr bool PP = NB < 256;
   static constexpr int MB = PP ? 2 : 1;
   static constexpr int TM = 128;
-  // 64-byte K stages a slot: the halo route below 256 channels takes a
-  // kernel row (3 taps) a slot, to spend its barriers on 3x the products
-  static constexpr int TPS = R == kHalo && NB <= 128 ? 3 : 1;
-  static constexpr int NS = TPS == 3 && NB == 128 ? 4 : !halo_a(R) && NB == 256 ? 6 : 8;
+  static constexpr int TPS = TPS_;              // 64-byte K stages a slot
+  static constexpr int NS = NS_;                // ring slots
   static constexpr int D = PP && NS > 4 ? 2 : 1;  // wgmma groups in flight (slots kept)
   static constexpr int SUB = kKS * NB;          // a 64-byte stage's weights
   static constexpr int WSTAGE = SUB * TPS;
@@ -129,6 +135,7 @@ struct Tiling {
   static constexpr int EPI_PITCH = TM + 4;      // words between staged channels
   static constexpr int EPI = kEpiChannels * EPI_PITCH * 4 + 2 * NB * 4;
   static constexpr int N_EPI = PP ? 2 : 1;
+  static constexpr int BARS = (2 * NS + 2 * kHaloChunks + 2) * 8;  // full, empty, halo, turn
 };
 
 struct Geometry {
@@ -136,7 +143,7 @@ struct Geometry {
   int stages, out_kind;                          // K stages a slice
   int tw, th, xw, pl;                            // halo tile, its pitch and plane bytes
   int tiles_w, tiles_per_img, tiles_px, n_tiles;
-  int off_ring, off_epi, off_bar, off_tab, smem;
+  int off_ring, off_epi, off_bar, smem;          // the plan's layout
   long long m_total;
 };
 
@@ -167,7 +174,7 @@ __device__ __forceinline__ void load_run(const T* __restrict__ row, int p, int h
   }
 }
 
-// Cp % 16 == 0: a block quantizes 16 V pixels x 64 channels of one image
+// A block quantizes 16 V pixels x 64 channels of one image
 // (V: 16 bytes of pixels, or 8 where the image is smaller than 16 runs).
 template <typename T, int V>
 __global__ void __launch_bounds__(kQThreads) quantize_nhwc_kernel(
@@ -203,43 +210,6 @@ __global__ void __launch_bounds__(kQThreads) quantize_nhwc_kernel(
       const uint4 val = make_uint4(tile[p][4 * piece], tile[p][4 * piece + 1],
                                    tile[p][4 * piece + 2], tile[p][4 * piece + 3]);
       *reinterpret_cast<uint4*>(xq + ((long long)img * hw + p0 + p) * cp + c) = val;
-    }
-  }
-}
-
-// Cp % 16 != 0 (Cp % 4 == 0): a thread takes V pixels and writes their
-// 4-channel groups, at Cp = 4 as 16-byte stores.
-template <typename T>
-__global__ void __launch_bounds__(kQThreads) quantize_nhwc4_kernel(
-    const T* __restrict__ x, const float* __restrict__ sx, int c_in, int hw, int cp, int vec,
-    int8_t* __restrict__ xq) {
-  constexpr int V = 16 / sizeof(T);
-  const int p = (blockIdx.x * kQThreads + threadIdx.x) * V, img = blockIdx.y;
-  if (p >= hw) return;
-  const float s = *sx;
-  for (int c4 = 0; c4 < cp; c4 += 4) {
-    uint32_t word[V];
-#pragma unroll
-    for (int e = 0; e < V; ++e) word[e] = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = c4 + i;
-      if (c >= c_in) break;
-      float v[V];
-      load_run<T, V>(x + ((long long)img * c_in + c) * hw, p, hw, vec, v);
-#pragma unroll
-      for (int e = 0; e < V; ++e) word[e] |= quantize(v[e], s) << (8 * i);
-    }
-    int8_t* const dst = xq + ((long long)img * hw + p) * cp + c4;
-    if (cp == 4 && vec && p + V <= hw) {
-#pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<uint4*>(dst + 4 * e) =
-            make_uint4(word[e], word[e + 1], word[e + 2], word[e + 3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        if (p + e < hw) *reinterpret_cast<uint32_t*>(dst + (long long)e * cp) = word[e];
     }
   }
 }
@@ -300,15 +270,10 @@ __global__ void __launch_bounds__(kQThreads) quantize_s2d_kernel(
 __device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
 }
-template <int kPiece>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
-  if constexpr (kPiece == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 16 : 0) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(ok ? 4 : 0) : "memory");
-  }
+// 16 bytes from src, or 16 zero bytes where !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -344,15 +309,14 @@ __device__ __forceinline__ Tile tile_of(int t, const Geometry& g) {
 
 // The halo routes' producer: one thread issues every tile's halo chunks
 // (TMA) and weight stages (bulk copies), in the order the consumers take them.
-template <int NB, int R>
+template <class Tl>
 __device__ __forceinline__ void produce_halo(const CUtensorMap* map, const int8_t* wq,
                                              uint32_t base, const Bars& bars, const Geometry& g) {
-  using Tl = Tiling<NB, R>;
   const int chunks = (g.cp + 63) / 64, spc = g.stages / chunks;  // stages a chunk serves
   const int chunk = 4 * g.pl;
   uint32_t st = 0, hc = 0;
   for (int t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
-    const Tile tl = tile_of<Tl::TM, R>(t, g);
+    const Tile tl = tile_of<Tl::TM, Tl::R>(t, g);
     for (int kc = 0; kc < chunks; ++kc, ++hc) {
       const uint32_t hs = hc % kHaloChunks;
       if (hc >= (uint32_t)kHaloChunks)
@@ -374,48 +338,36 @@ __device__ __forceinline__ void produce_halo(const CUtensorMap* map, const int8_
   }
 }
 
-// The gather routes' producer: the warpgroup's 128 threads copy each
+// The gather route's producer: the warpgroup's 128 threads copy each
 // stage's A (TM pixels x 64 bytes of K) by cp.async; thread 0 also issues
 // the stage's weights. A thread arrives on a stage's barrier once its own
 // copies of it have landed (kLag stages later) and are fenced for wgmma
 // (kLag + D < NS: the consumers give a slot back D stages after its own).
 // Addresses: a row's offset is decoded once a tile, a piece's (tap,
-// channel) offset once a stage (gather16) or read from a table that the
-// warpgroup fills once (gather4: (dy, dx, offset) of each 4-byte piece).
-template <int NB, int R>
+// channel) offset once a stage.
+template <class Tl>
 __device__ __forceinline__ void produce_gather(const int8_t* __restrict__ xq, const int8_t* wq,
-                                               uint32_t base, uint8_t* sbase, const Bars& bars,
+                                               uint32_t base, const Bars& bars,
                                                const Geometry& g) {
-  using Tl = Tiling<NB, R>;
   constexpr int TM = Tl::TM, NS = Tl::NS, WOFF = TM * kKS;  // the weights follow A in a slot
   constexpr int kLag = NS - 1 - Tl::D;  // so that a slot comes back before the lag stalls
-  constexpr int kRows = R == kGather16 ? TM / 32 : 1;
+  constexpr int kRows = TM / 32;
   const int tid = threadIdx.x - kConsumers;
   const int ohw = g.oh * g.ow, taps = g.kh * g.kw;
-  int4* const table = reinterpret_cast<int4*>(sbase + g.off_tab);
-  if (R == kGather4) {
-    for (int j = tid; j < g.stages * (kKS / 4); j += 128) {
-      const int k = 4 * j, tap = k / g.cp, c = k - tap * g.cp, ky = tap / g.kw,
-                kx = tap - ky * g.kw;
-      table[j] = tap < taps ? make_int4(ky, kx, (ky * g.w + kx) * g.cp + c, 0)
-                            : make_int4(1 << 29, 0, 0, 0);  // K's tail: zero-filled
-    }
-    named_sync(3, 128);
-  }
   uint32_t st = 0;
   for (int t = blockIdx.x; t < g.n_tiles; t += gridDim.x) {
-    const Tile tl = tile_of<TM, R>(t, g);
-    // this thread's rows: gather16 rows tid/4 + 32i (piece tid%4), gather4 row tid (< TM)
+    const Tile tl = tile_of<TM, Tl::R>(t, g);
+    // this thread's rows: tid/4 + 32i, its piece tid%4
     long long row_off[kRows];
     int iy0[kRows], ix0[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int row = R == kGather16 ? (tid >> 2) + 32 * i : tid;
+      const int row = (tid >> 2) + 32 * i;
       const long long m = tl.m0 + row;
       row_off[i] = 0;
       iy0[i] = -(1 << 28);  // past the output: every tap falls outside, zero-filled
       ix0[i] = 0;
-      if (m < g.m_total && row < TM) {
+      if (m < g.m_total) {
         const int img = static_cast<int>(m / ohw), pix = static_cast<int>(m - (long long)img * ohw);
         const int oy = pix / g.ow, ox = pix - oy * g.ow;
         iy0[i] = oy * g.stride - g.pad;
@@ -424,7 +376,7 @@ __device__ __forceinline__ void produce_gather(const int8_t* __restrict__ xq, co
       }
     }
     const int8_t* const w = wq + (size_t)tl.slice * g.stages * Tl::WSTAGE;
-    int kc = 0, tap = 0, ky = 0, kx = 0;  // gather16: the stage's (chunk, tap)
+    int kc = 0, tap = 0, ky = 0, kx = 0;  // the stage's (chunk, tap)
     for (int s = 0; s < g.stages; ++s, ++st) {
       const uint32_t slot = st % NS;
       if (st >= (uint32_t)NS) mbar_wait(bars.empty + slot * 8, ((st / NS) - 1) & 1);
@@ -433,33 +385,22 @@ __device__ __forceinline__ void produce_gather(const int8_t* __restrict__ xq, co
         mbar_expect_tx_only(bars.full + slot * 8, Tl::WSTAGE);
         bulk_load(a_s + WOFF, w + (size_t)s * Tl::WSTAGE, Tl::WSTAGE, bars.full + slot * 8);
       }
-      if (R == kGather16) {
-        const int piece = tid & 3, ch = kc * 64 + 16 * piece;
-        const int off = (ky * g.w + kx) * g.cp + ch;
+      const int piece = tid & 3, ch = kc * 64 + 16 * piece;
+      const int off = (ky * g.w + kx) * g.cp + ch;
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-          const bool ok = ch < g.cp && (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w;
-          cp_async<16>(a_s + piece * (TM * 16) + ((tid >> 2) + 32 * i) * 16,
-                       ok ? xq + row_off[i] + off : xq, ok);
-        }
-        if (++tap == taps) {
-          tap = 0;
-          ++kc;
-        }
-        if (++kx == g.kw) {
-          kx = 0;
-          if (++ky == g.kh) ky = 0;
-        }
-      } else if (tid < TM) {
-#pragma unroll
-        for (int j = 0; j < kKS / 4; ++j) {
-          const int4 e = table[s * (kKS / 4) + j];
-          const int iy = iy0[0] + e.x, ix = ix0[0] + e.y;
-          const bool ok = (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w;
-          cp_async<4>(a_s + (j >> 2) * (TM * 16) + tid * 16 + (j & 3) * 4,
-                      ok ? xq + row_off[0] + e.z : xq, ok);
-        }
+      for (int i = 0; i < kRows; ++i) {
+        const int iy = iy0[i] + ky, ix = ix0[i] + kx;
+        const bool ok = ch < g.cp && (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w;
+        cp_async16(a_s + piece * (TM * 16) + ((tid >> 2) + 32 * i) * 16,
+                   ok ? xq + row_off[i] + off : xq, ok);
+      }
+      if (++tap == taps) {
+        tap = 0;
+        ++kc;
+      }
+      if (++kx == g.kw) {
+        kx = 0;
+        if (++ky == g.kh) ky = 0;
       }
       cp_async_commit();
       if (st >= (uint32_t)kLag) {
@@ -544,12 +485,11 @@ __device__ __forceinline__ void store_pass(const float* epi, const Tile& tl, con
 // [pixel], and stored as NCHW runs. sc / sh: the tile's NB scales and
 // shifts, written here from the (scale, shift) of channel ct that this
 // thread loaded while the tile's products ran.
-template <int NB, int R>
-__device__ __forceinline__ void epilogue(int (&acc)[Tiling<NB, R>::MB][NB / 2], float* epi,
+template <class Tl>
+__device__ __forceinline__ void epilogue(int (&acc)[Tl::MB][Tl::NB / 2], float* epi,
                                          float2 my_scale, const Tile& tl, const Geometry& g,
                                          void* out, int wg) {
-  using Tl = Tiling<NB, R>;
-  constexpr int MB = Tl::MB, PITCH = Tl::EPI_PITCH;
+  constexpr int NB = Tl::NB, R = Tl::R, MB = Tl::MB, PITCH = Tl::EPI_PITCH;
   float* const sc = epi + kEpiChannels * PITCH;
   float* const sh = sc + NB;
   const int ct = threadIdx.x % Tl::EPI_T, lane = ct & 31, warp = (ct >> 5) & 3;
@@ -608,14 +548,18 @@ __device__ __forceinline__ void epilogue(int (&acc)[Tiling<NB, R>::MB][NB / 2], 
 // ring (turn[wg]): a warpgroup waits for a tile's first stage only once the
 // other has waited for its tile's last, so the ring's stages are waited for
 // in order and no mbarrier is waited on a phase ahead of the one filling.
-template <int NB, int R>
+// Each of the 4 warps arrives on the other's turn barrier once it has
+// issued its tile's last products, so every warp has passed its own turn
+// wait before the other warpgroup can complete that barrier's next phase:
+// a warp still storing its previous tile (its leader already a tile ahead)
+// never finds turn[wg] two phases on, which a parity wait reads as not yet.
+template <class Tl>
 __device__ __forceinline__ void consume(uint32_t base, uint8_t* sbase, const Bars& bars,
                                         const Geometry& g, const float* __restrict__ sx,
                                         const float* __restrict__ sw,
                                         const float* __restrict__ bias, void* out, int wg) {
-  using Tl = Tiling<NB, R>;
-  constexpr int MB = Tl::MB, TM = Tl::TM, NS = Tl::NS;
-  const bool leader = threadIdx.x % 128 == 0;
+  constexpr int NB = Tl::NB, R = Tl::R, MB = Tl::MB, TM = Tl::TM, NS = Tl::NS;
+  const bool leader = threadIdx.x % 128 == 0, warp_lead = threadIdx.x % 32 == 0;
   const int ct = threadIdx.x % Tl::EPI_T;
   // halo routes: stages a chunk serves, and the columns a stage's taps move the halo by
   const int chunks = (g.cp + 63) / 64, spc = g.stages / chunks, dx_step = R == kS2d ? 4 : 1;
@@ -674,7 +618,6 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* sbase, const Bar
       }
       const uint64_t db = desc_b + slot * (Tl::STAGE >> 4);
       mbar_wait(bars.full + slot * 8, (st / NS) & 1);
-      if (Tl::PP && leader && s + Tl::TPS >= g.stages) mbar_arrive(bars.turn + (1 - wg) * 8);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < Tl::TPS; ++j) {
@@ -694,6 +637,8 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* sbase, const Bar
         }
       }
       wgmma_commit();
+      // this warp (converged by the .sync.aligned issue) is past its turn wait
+      if (Tl::PP && warp_lead && s + Tl::TPS >= g.stages) mbar_arrive(bars.turn + (1 - wg) * 8);
       wgmma_wait<Tl::D>();  // the slot D back is done with
       if (leader && held_slot[0] >= 0) mbar_arrive(bars.empty + held_slot[0] * 8);
       if (leader && held_halo[0] >= 0) mbar_arrive(bars.hempty + held_halo[0] * 8);
@@ -717,17 +662,16 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* sbase, const Bar
       if (leader && held_slot[d] >= 0) mbar_arrive(bars.empty + held_slot[d] * 8);
       if (leader && held_halo[d] >= 0) mbar_arrive(bars.hempty + held_halo[d] * 8);
     }
-    epilogue<NB, R>(acc, epi, my_scale, tl, g, out, wg);
+    epilogue<Tl>(acc, epi, my_scale, tl, g, out, wg);
   }
 }
 
-template <int NB, int R>
+template <class Tl>
 __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(
     const __grid_constant__ CUtensorMap map, const int8_t* __restrict__ xq,
     const int8_t* __restrict__ wq, const float* __restrict__ sw, const float* __restrict__ sx,
     const float* __restrict__ bias, void* __restrict__ out, const Geometry g) {
-  using Tl = Tiling<NB, R>;
-  constexpr int NS = Tl::NS;
+  constexpr int R = Tl::R, NS = Tl::NS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 127) & ~127u;
@@ -745,8 +689,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(
       mbar_init(bars.hfull + i * 8, 1);
       mbar_init(bars.hempty + i * 8, consumers);
     }
-    mbar_init(bars.turn, 1);
-    mbar_init(bars.turn + 8, 1);
+    mbar_init(bars.turn, 4);  // a consumer warpgroup's warps
+    mbar_init(bars.turn + 8, 4);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -757,10 +701,10 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(
   if (wg == 2) {
     if constexpr (halo_a(R)) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-      if (threadIdx.x == kConsumers) produce_halo<NB, R>(&map, wq, base, bars, g);
+      if (threadIdx.x == kConsumers) produce_halo<Tl>(&map, wq, base, bars, g);
     } else {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
-      produce_gather<NB, R>(xq, wq, base, sbase, bars, g);
+      produce_gather<Tl>(xq, wq, base, bars, g);
     }
   } else {
     if constexpr (halo_a(R)) {
@@ -768,7 +712,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
     }
-    consume<NB, R>(base, sbase, bars, g, sx, sw, bias, out, wg);
+    consume<Tl>(base, sbase, bars, g, sx, sw, bias, out, wg);
   }
 }
 
@@ -798,36 +742,35 @@ int encode_halo(CUtensorMap* map, const int8_t* xq, const Geometry& g) {
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <int NB, int R>
-int launch_nb(Geometry g, const int8_t* xq, const int8_t* wq, const float* sw, const float* sx,
-              const float* bias, void* out, cudaStream_t stream) {
-  using Tl = Tiling<NB, R>;
-  const int nsl = (g.cout + NB - 1) / NB;
-  if (halo_a(R)) {
-    if (g.tw != 8 && g.tw != 16) return (int)cudaErrorInvalidValue;
-    g.th = Tl::TM / g.tw;
+// Launch instantiation Tl with the plan's layout in g (off_ring, off_epi,
+// off_bar, smem; the halo's tile th x tw and plane bytes pl), refused where
+// it cannot hold Tl's halo chunks, ring, epilogues and barriers or passes
+// the card's limit.
+template <class Tl>
+int launch(Geometry g, const int8_t* xq, const int8_t* wq, const float* sw, const float* sx,
+           const float* bias, void* out, cudaStream_t stream) {
+  const int nsl = (g.cout + Tl::NB - 1) / Tl::NB;
+  bool fits = g.off_ring >= 0 && g.off_epi >= g.off_ring + Tl::NS * Tl::STAGE &&
+              g.off_bar >= g.off_epi + Tl::N_EPI * Tl::EPI &&
+              g.smem >= g.off_bar + Tl::BARS + 128 && g.smem <= kSmemLimit;  // 128: alignment
+  if (halo_a(Tl::R)) {
     g.xw = g.tw + g.kw - 1;
-    g.pl = round128((g.th + g.kh - 1) * g.xw * 16);
+    fits = fits && (g.tw == 8 || g.tw == 16) && g.tw * g.th == Tl::TM && g.pl % 128 == 0 &&
+           g.pl >= (g.th + g.kh - 1) * g.xw * 16 && g.off_ring >= kHaloChunks * 4 * g.pl;
     g.tiles_w = (g.ow + g.tw - 1) / g.tw;
     g.tiles_per_img = g.tiles_w * ((g.oh + g.th - 1) / g.th);
     g.tiles_px = g.tiles_per_img * g.n_img;
-    g.off_ring = kHaloChunks * 4 * g.pl;
   } else {
     g.tiles_px = (int)((g.m_total + Tl::TM - 1) / Tl::TM);
-    g.off_ring = 0;
   }
+  if (!fits) return (int)cudaErrorInvalidValue;
   g.n_tiles = g.tiles_px * nsl;
-  g.off_epi = g.off_ring + Tl::NS * Tl::STAGE;
-  g.off_bar = g.off_epi + Tl::N_EPI * Tl::EPI;  // each epilogue's staging, scales, shifts
-  g.off_tab = g.off_bar + (2 * Tl::NS + 2 * kHaloChunks + 2) * 8;
-  // gather4's table of pieces, then 128 bytes to align the base
-  g.smem = g.off_tab + (R == kGather4 ? g.stages * (kKS / 4) * 16 : 0) + 128;
   CUtensorMap map{};
-  if (halo_a(R)) {
+  if (halo_a(Tl::R)) {
     const int rc = encode_halo(&map, xq, g);
     if (rc != 0) return rc;
   }
-  auto kernel = int8_conv_kernel<NB, R>;
+  auto kernel = int8_conv_kernel<Tl>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (err != cudaSuccess) return (int)err;
@@ -838,31 +781,19 @@ int launch_nb(Geometry g, const int8_t* xq, const int8_t* wq, const float* sw, c
   return (int)cudaGetLastError();
 }
 
-template <int R>
-int launch_route(const Geometry& g, int nb, const int8_t* xq, const int8_t* wq, const float* sw,
-                 const float* sx, const float* bias, void* out, cudaStream_t stream) {
-  if (nb == 64) return launch_nb<64, R>(g, xq, wq, sw, sx, bias, out, stream);
-  if (nb == 128) return launch_nb<128, R>(g, xq, wq, sw, sx, bias, out, stream);
-  if (nb == 256) return launch_nb<256, R>(g, xq, wq, sw, sx, bias, out, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 template <typename T>
 int launch_quantize(const T* x, const float* sx, int n_img, int c_in, int hw, int cp,
                     int8_t* xq, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int vec = hw % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (cp % 16 == 0 && (V == 4 || hw > 64)) {
+  if (cp % 16 != 0 || cp < c_in) return (int)cudaErrorInvalidValue;
+  if (V == 4 || hw > 64) {
     const dim3 grid((hw + 16 * V - 1) / (16 * V), (cp + 63) / 64, n_img);
     quantize_nhwc_kernel<T, V><<<grid, kQThreads, 0, stream>>>(x, sx, c_in, hw, cp, vec, xq);
-  } else if (cp % 16 == 0) {  // bf16 at most 64 pixels: 8-byte runs, a block's 64 pixels
+  } else {  // bf16 at most 64 pixels: 8-byte runs, a block's 64 pixels
     const int vec8 = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
     const dim3 grid((hw + 63) / 64, (cp + 63) / 64, n_img);
     quantize_nhwc_kernel<T, 4><<<grid, kQThreads, 0, stream>>>(x, sx, c_in, hw, cp, vec8, xq);
-  } else {
-    const int runs = (hw + V - 1) / V;
-    const dim3 grid((runs + kQThreads - 1) / kQThreads, n_img);
-    quantize_nhwc4_kernel<T><<<grid, kQThreads, 0, stream>>>(x, sx, c_in, hw, cp, vec, xq);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -879,33 +810,44 @@ int launch_quantize_s2d(const T* x, const float* sx, int n_img, int c_in, int h,
 }
 
 // K stages of one output-channel slice, as ops/kernels/int8_conv.py's
-// pack_weight lays them out: (chunk, tap) at Cp % 16 == 0, else the dense
-// (tap, channel) K in 64-byte stages (kS2d: 16 channels, 4 taps a stage).
+// pack_weight lays them out: (64-channel chunk, tap) (kS2d: 16 channels, 4
+// taps a stage).
 int k_stages(int route, int cp, int kh, int kw) {
-  if (route == kS2d) return kh * kw / 4;
-  return cp % 16 == 0 ? (cp + 63) / 64 * kh * kw : (kh * kw * cp + kKS - 1) / kKS;
+  return route == kS2d ? kh * kw / 4 : (cp + 63) / 64 * kh * kw;
 }
+
+// The instantiations (route, NB, TPS, NS) that the wrapper's plan() picks
+// from (int8_conv.py's RINGS, which a CPU test holds equal to this list):
+// the halo route below 256 channels takes a kernel row (3 taps) a slot, to
+// spend its barriers on 3x the products.
+#define INT8_CONV_KERNELS(X)                                                      \
+  X(kHalo, 64, 3, 8) X(kHalo, 128, 3, 4) X(kHalo, 256, 1, 8)                      \
+  X(kS2d, 64, 1, 8) X(kS2d, 128, 1, 8) X(kS2d, 256, 1, 8)                         \
+  X(kGather16, 64, 1, 8) X(kGather16, 128, 1, 8) X(kGather16, 256, 1, 6)
 
 int launch_conv(int out_kind, const int8_t* xq, const int8_t* wq, const float* sw,
                 const float* sx, const float* bias, void* out, int n_img, int h, int w, int cp,
                 int cout, int kh, int kw, int stride, int pad, int oh, int ow, int route, int nb,
-                int tw, cudaStream_t stream) {
+                int tps, int ns, int tw, int th, int plane, int off_ring, int off_epi,
+                int off_bar, int smem, cudaStream_t stream) {
   Geometry g{};
   g.n_img = n_img, g.h = h, g.w = w, g.cp = cp, g.cout = cout, g.kh = kh, g.kw = kw;
   g.stride = stride, g.pad = pad, g.oh = oh, g.ow = ow, g.out_kind = out_kind;
   g.stages = k_stages(route, cp, kh, kw);
-  g.tw = tw;
+  g.tw = tw, g.th = th, g.pl = plane;
+  g.off_ring = off_ring, g.off_epi = off_epi, g.off_bar = off_bar, g.smem = smem;
   g.m_total = (long long)n_img * oh * ow;
-  const bool wide = cp % 16 == 0;
-  if (route == kHalo && wide && kh == 3 && kw == 3 && stride == 1 && (tw == 8 || tw == 16))
-    return launch_route<kHalo>(g, nb, xq, wq, sw, sx, bias, out, stream);
-  if (route == kGather16 && wide)
-    return launch_route<kGather16>(g, nb, xq, wq, sw, sx, bias, out, stream);
-  if (route == kGather4 && !wide && cp % 4 == 0)
-    return launch_route<kGather4>(g, nb, xq, wq, sw, sx, bias, out, stream);
-  if (route == kS2d && cp == 16 && kw % 4 == 0 && stride == 1 && (tw == 8 || tw == 16))
-    return launch_route<kS2d>(g, nb, xq, wq, sw, sx, bias, out, stream);
-  return (int)cudaErrorInvalidValue;  // a route the geometry does not take
+  // the geometry each route's A operand takes
+  const bool takes = cp % 16 == 0 && (route == kHalo ? kh == 3 && kw == 3 && stride == 1
+                                      : route == kS2d ? cp == 16 && kw % 4 == 0 && stride == 1
+                                                      : route == kGather16);
+  if (!takes) return (int)cudaErrorInvalidValue;
+#define INT8_CONV_LAUNCH(r, NB, TPS, NS)                                                 \
+  if (route == r && nb == NB && tps == TPS && ns == NS)                                  \
+    return launch<Tiling<NB, r, TPS, NS>>(g, xq, wq, sw, sx, bias, out, stream);
+  INT8_CONV_KERNELS(INT8_CONV_LAUNCH)
+#undef INT8_CONV_LAUNCH
+  return (int)cudaErrorInvalidValue;  // an instantiation that is not compiled
 }
 
 }  // namespace
@@ -933,18 +875,22 @@ extern "C" int int8_quantize_s2d_bf16(const __nv_bfloat16* x, const float* sx, i
 
 // xq: (N, H, W, Cp) int8; wq: pack_weight's (Cout/NB, stages, 4, NB, 16)
 // int8; sw (Cout,), sx (1,), bias (Cout,) or null: float32; out: (N, Cout,
-// OH, OW) of the entry's type. route: 0 halo, 1 gather16, 2 gather4, 3 s2d
-// (xq the space-to-depth scratch, H, W, Cp = 16, the kernel, stride 1 and
-// the padding those of the stride-1 convolution over it); nb: 64, 128 or
-// 256; tw: the halo tile's width (8 or 16). Returns a
+// OH, OW) of the entry's type. route: 0 halo, 1 gather16, 2 s2d (xq the
+// space-to-depth scratch, H, W, Cp = 16, the kernel, stride 1 and the
+// padding those of the stride-1 convolution over it); then the plan's
+// instantiation (nb, tps, ns) and layout: the halo tile tw x th (0 x 0
+// gathering) and its plane bytes, the ring's, the epilogues' and the
+// barriers' offsets and the dynamic shared memory, in bytes. Returns a
 // cudaError_t, or 10000 + the CUresult of a failed tensor-map encode.
 #define INT8_CONV_ENTRY(name, kind)                                                           \
   extern "C" int name(const int8_t* xq, const int8_t* wq, const float* sw, const float* sx,   \
                       const float* bias, void* out, int n_img, int h, int w, int cp,          \
                       int cout, int kh, int kw, int stride, int pad, int oh, int ow,          \
-                      int route, int nb, int tw, void* stream) {                              \
+                      int route, int nb, int tps, int ns, int tw, int th, int plane,          \
+                      int off_ring, int off_epi, int off_bar, int smem, void* stream) {       \
     return launch_conv(kind, xq, wq, sw, sx, bias, out, n_img, h, w, cp, cout, kh, kw,        \
-                       stride, pad, oh, ow, route, nb, tw, (cudaStream_t)stream);             \
+                       stride, pad, oh, ow, route, nb, tps, ns, tw, th, plane, off_ring,      \
+                       off_epi, off_bar, smem, (cudaStream_t)stream);                         \
   }
 
 INT8_CONV_ENTRY(int8_conv_f32, kF32)

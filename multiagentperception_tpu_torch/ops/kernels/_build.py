@@ -35,7 +35,7 @@ F32 = ctypes.c_float
 _K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]
 _K2_ARGS = [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]
 _K4_QUANTIZE_ARGS = [P, P, I32, I32, I32, I32, P, P]
-_K4_ARGS = [P, P, P, P, P, P] + [I32] * 14 + [P]
+_K4_ARGS = [P, P, P, P, P, P] + [I32] * 22 + [P]
 # C entry points and their signatures, per kernel source
 SIGNATURES = {
     "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS},

@@ -26,13 +26,15 @@ the int8 scratch and the outputs at 3.35 TB/s), except at 512 channels,
 where the int8 tensor cores' 1,979 TOPS bound it.
 
 ``plan`` picks the GEMM's route from the geometry, in plain Python (the
-CPU tests reach it): ``halo`` (3x3, stride 1, Cp % 16 == 0: one TMA load
-of a tile's halo a 64-channel chunk, its 9 taps read through shifted
-descriptors), ``s2d`` (stride 2 with Cin <= 4, the stem: the quantize pass
-writes 2 x 2 blocks of pixels as 16-channel pixels, over which the
-convolution is a stride-1 one that the halo feeds), ``gather16`` (any other
-geometry with Cp % 16 == 0: cp.async gather in 16-byte pieces) and
-``gather4`` (Cp % 16 != 0 at stride 1: 4-byte pieces), and NB. Each
+CPU tests reach it): ``halo`` (3x3, stride 1: one TMA load of a tile's
+halo a 64-channel chunk, its 9 taps read through shifted descriptors),
+``s2d`` (stride 2 with Cin <= 4, the stem: the quantize pass writes 2 x 2
+blocks of pixels as 16-channel pixels, over which the convolution is a
+stride-1 one that the halo feeds) and ``gather16`` (any other geometry:
+cp.async gather in 16-byte pieces), and NB. The plan is also the one
+source of the kernel's shared-memory layout: it picks the compiled
+instantiation (``RINGS``) and passes every offset and the size to the
+launch, which only refuses a layout that cannot hold it. Each route
 launches its kernel or raises; nothing falls back. Its bound at the
 flagship's eval step is 7.5 ms (float32 network) / 4.5 ms (bf16) of bytes
 a step at batch 20 x 6; PERF.md gives the times.
@@ -49,11 +51,11 @@ Weights are quantized once (``prepare_weight``): ``quantize.quantize_weight``
 of the float32 parameter, and, for the kernel, arranged by ``pack_weight``
 as (Cout/NB slices, K stages, 4 planes, NB, 16 bytes): each stage is 64
 bytes of K, which a bulk copy brings and the wgmma reads as its B operand.
-K runs in (64-channel chunk, tap, channel) order at Cp % 16 == 0 and in
-dense (tap, channel) order otherwise (``s2d_weight``'s 16 channels for the
-s2d route); channels past Cin, K's tail and the output channels past Cout
-are zeros. An operand of another NB or the s2d route's is packed at its
-first use and kept (``Int8Weight.operand``).
+K runs in (64-channel chunk, tap, channel) order (dense (tap, channel)
+over ``s2d_weight``'s 16 channels for the s2d route); channels past Cin
+and the output channels past Cout are zeros. An operand of another NB or
+the s2d route's is packed at its first use and kept
+(``Int8Weight.operand``).
 """
 
 from __future__ import annotations
@@ -72,9 +74,15 @@ K_STEP = 64  # kKS in csrc/int8_conv.cu: bytes of K a stage, the packed weight's
 SMEM_LIMIT = 232448  # shared memory a block may hold on the H100 (227 KB)
 TILE_M = 128  # output pixels a tile
 SMS = 132  # the H100's SMs: a plan gives half of them a tile at least, where it can
-RING_STAGES = 8  # Tiling::NS but for gathering at 256 channels
-HALO_CHUNKS = 4  # kHaloChunks
-ROUTE_IDS = {"halo": 0, "gather16": 1, "gather4": 2, "s2d": 3}
+HALO_CHUNKS = 4  # kHaloChunks: halo chunks in flight
+EPI_CHANNELS = 64  # kEpiChannels: channels an epilogue stages at a time
+ROUTE_IDS = {"halo": 0, "gather16": 1, "s2d": 2}
+# (route, NB) -> (TPS, NS): 64-byte K stages a ring slot and slots, the
+# instantiations csrc/int8_conv.cu compiles (its INT8_CONV_KERNELS). The
+# halo route below 256 channels takes a kernel row (3 taps) a slot.
+RINGS = {("halo", 64): (3, 8), ("halo", 128): (3, 4), ("halo", 256): (1, 8),
+         ("s2d", 64): (1, 8), ("s2d", 128): (1, 8), ("s2d", 256): (1, 8),
+         ("gather16", 64): (1, 8), ("gather16", 128): (1, 8), ("gather16", 256): (1, 6)}
 EPS = 1e-8
 # output dtype: (route, C entry point of the GEMM)
 ROUTES = {torch.float32: ("f32", "int8_conv_f32"),
@@ -112,9 +120,9 @@ def quantize_input(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 
 def padded_channels(c_in: int) -> int:
-    """Cp: the input channels of one tap in the kernel's K, Cin where it is a
-    multiple of 16 (16-byte pieces), else Cin rounded up to 4."""
-    return c_in if c_in % 16 == 0 else -(-c_in // 4) * 4
+    """Cp: the input channels of one tap in the kernel's K, Cin rounded up to
+    16 (16-byte pieces; the zero channels add exactly 0 to the sums)."""
+    return -(-c_in // 16) * 16
 
 
 def tile_n(cout: int) -> int:
@@ -124,12 +132,8 @@ def tile_n(cout: int) -> int:
 
 
 def k_stages(c_in: int, kh: int, kw: int) -> int:
-    """K stages of 64 bytes a slice: (64-channel chunk, tap) pairs at Cp %
-    16 == 0, else the dense (tap, channel) K rounded up to a stage."""
-    cp = padded_channels(c_in)
-    if cp % 16 == 0:
-        return -(-cp // 64) * kh * kw
-    return -(-(kh * kw * cp) // K_STEP)
+    """K stages of 64 bytes a slice: (64-channel chunk, tap) pairs."""
+    return -(-c_in // 64) * kh * kw
 
 
 def _stages(mat: torch.Tensor, cout: int, nb: int) -> torch.Tensor:
@@ -146,16 +150,10 @@ def pack_weight(w_i8: torch.Tensor, nb: int | None = None) -> torch.Tensor:
     n*NB .. n*NB+NB-1 as 4 planes of [channel][16 bytes of K]. NB defaults
     to ``tile_n(Cout)``."""
     cout, c_in, kh, kw = w_i8.shape
-    cp, taps = padded_channels(c_in), kh * kw
-    stages = k_stages(c_in, kh, kw)
+    taps, stages = kh * kw, k_stages(c_in, kh, kw)
     hwio = w_i8.permute(0, 2, 3, 1)  # (Cout, kh, kw, Cin)
-    if cp % 16 == 0:
-        chunks = stages // taps
-        mat = (F.pad(hwio, (0, chunks * 64 - c_in)).reshape(cout, taps, chunks, 64)
-               .permute(0, 2, 1, 3).reshape(cout, stages * K_STEP))
-    else:
-        mat = F.pad(F.pad(hwio, (0, cp - c_in)).reshape(cout, taps * cp),
-                    (0, stages * K_STEP - taps * cp))
+    mat = (F.pad(hwio, (0, stages // taps * 64 - c_in)).reshape(cout, taps, stages // taps, 64)
+           .permute(0, 2, 1, 3).reshape(cout, stages * K_STEP))
     return _stages(mat, cout, nb or tile_n(cout))
 
 
@@ -204,12 +202,15 @@ def space_to_depth(xq: torch.Tensor) -> torch.Tensor:
 class Plan:
     """How the GEMM runs one geometry: its route (``ROUTE_IDS``), NB and the
     output-channel slices, K stages a slice, the halo tile TH x TW and its
-    TMA box (channels, width, height, images; None off the halo routes),
-    tiles and the shared memory a block holds (bytes, as
-    ``csrc/int8_conv.cu``'s ``launch_nb`` lays it out); ``gemm``, the
-    geometry the GEMM launches with, (H, W, Cp, KH, KW, stride, padding) of
-    its scratch (the s2d route's: blocks, 16 channels, stride 1), ``out``,
-    (OH, OW), and ``pad``, the convolution's own padding."""
+    TMA box (channels, width, height, images; 0 x 0 and None off the halo
+    routes), tiles; ``gemm``, the geometry the GEMM launches with, (H, W,
+    Cp, KH, KW, stride, padding) of its scratch (the s2d route's: blocks,
+    16 channels, stride 1), ``out``, (OH, OW), and ``pad``, the
+    convolution's own padding. Then the kernel's shared memory, as the
+    launch lays it out: the instantiation's (TPS, NS) (``RINGS``), the
+    bytes of a halo plane (16 channels of the box), the offsets of the ring,
+    the epilogues and the mbarriers from the 128-byte aligned base, and
+    ``smem``, the dynamic shared memory a block holds."""
     route: str
     nb: int
     slices: int
@@ -218,62 +219,68 @@ class Plan:
     th: int
     box: tuple[int, int, int, int] | None
     tiles: int
-    smem: int
     gemm: tuple[int, int, int, int, int, int, int]
     out: tuple[int, int]
     pad: int
+    tps: int
+    ns: int
+    plane: int
+    off_ring: int
+    off_epi: int
+    off_bar: int
+    smem: int
 
 
 @functools.lru_cache(maxsize=1024)  # a model has tens of geometries
 def plan(n: int, c_in: int, h: int, w: int, cout: int, kh: int, kw: int, stride: int,
          pad: int) -> Plan:
-    """The GEMM's route and sizes for an (n, c_in, h, w) input and a (cout,
-    c_in, kh, kw) weight at ``stride`` and ``pad``, as ``csrc/int8_conv.cu``'s
-    ``Tiling`` and ``launch_nb`` lay them out. NB is ``tile_n(cout)``,
-    halved (down to 64) while the tiles do not fill half the card's SMs."""
+    """The GEMM's route, sizes and shared memory for an (n, c_in, h, w)
+    input and a (cout, c_in, kh, kw) weight at ``stride`` and ``pad``: s2d
+    at stride 2 with Cin <= 4 where its halo fits the card's shared memory,
+    halo at 3x3 stride 1, else gather16."""
     oh, ow = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
-    cp, nb = padded_channels(c_in), tile_n(cout)
-    gemm = (h, w, cp, kh, kw, stride, pad)
-    stages = k_stages(c_in, kh, kw)
-    if cp == 4 and stride == 2:
-        route = "s2d"
+    if c_in <= 4 and stride == 2:
         (kh2, pad2), kw2 = s2d_taps(kh, pad), -(-s2d_taps(kw, pad)[0] // 4) * 4
-        gemm = (-(-h // 2), -(-w // 2), 16, kh2, kw2, 1, pad2)
-        stages = kh2 * kw2 // 4
-    elif cp % 16:
-        route = "gather4"
-    elif (kh, kw, stride) == (3, 3, 1):
-        route = "halo"
-    else:
-        route = "gather16"
-    halo = route in ("halo", "s2d")
+        g = _plan("s2d", n, cout, (-(-h // 2), -(-w // 2), 16, kh2, kw2, 1, pad2), kh2 * kw2 // 4,
+                  (oh, ow), pad)
+        if g.smem <= SMEM_LIMIT:
+            return g
+    route = "halo" if (kh, kw, stride) == (3, 3, 1) else "gather16"
+    return _plan(route, n, cout, (h, w, padded_channels(c_in), kh, kw, stride, pad),
+                 k_stages(c_in, kh, kw), (oh, ow), pad)
+
+
+def _plan(route: str, n: int, cout: int, gemm: tuple, stages: int, out: tuple[int, int],
+          pad: int) -> Plan:
+    """``plan`` once the route is chosen. NB is ``tile_n(cout)``, halved
+    (down to 64) while the tiles do not fill half the card's SMs."""
+    oh, ow = out
+    nb, halo = tile_n(cout), route != "gather16"
     if halo:
         tw = 8 if ow <= 8 else 16
         th = TILE_M // tw
         pixel_tiles = -(-ow // tw) * -(-oh // th) * n
     else:
-        pixel_tiles = -(-(n * oh * ow) // TILE_M)
+        tw, th, pixel_tiles = 0, 0, -(-(n * oh * ow) // TILE_M)
     while nb > 64 and pixel_tiles * -(-cout // nb) < SMS // 2:
         nb //= 2
-    slices = -(-cout // nb)
-    # Tiling's TPS (64-byte stages a slot) and NS (slots)
-    tps = 3 if route == "halo" and nb <= 128 else 1
-    ring = 4 if tps == 3 and nb == 128 else 6 if not halo and nb == 256 else RING_STAGES
-    stage = K_STEP * nb * tps
-    if halo:
+    tps, ns = RINGS[route, nb]
+    # a slot: TPS stages' weights, and the stage's A when gathering
+    stage = K_STEP * nb * tps + (0 if halo else TILE_M * K_STEP)
+    box, plane = None, 0
+    if halo:  # the halo of a tile, 16 channels a plane, 4 planes a chunk
         box = (16, tw + gemm[4] - 1, th + gemm[3] - 1, 1)
         plane = -(-(box[1] * box[2] * 16) // 128) * 128
-        ring_off = HALO_CHUNKS * 4 * plane
-    else:
-        tw, th, box, ring_off = 0, 0, None, 0
-        stage += TILE_M * K_STEP
-    # each epilogue (one per warpgroup below 256 channels): staging, scales, shifts
-    epi = (2 if nb < 256 else 1) * (64 * (TILE_M + 4) * 4 + 2 * nb * 4)
-    bars = (2 * ring + 2 * HALO_CHUNKS + 2) * 8
-    table = stages * (K_STEP // 4) * 16 if route == "gather4" else 0
-    smem = ring_off + ring * stage + epi + bars + table + 128
-    return Plan(route, nb, slices, stages, tw, th, box, pixel_tiles * slices, smem, gemm, (oh, ow),
-                pad)
+    off_ring = HALO_CHUNKS * 4 * plane
+    off_epi = off_ring + ns * stage
+    # each epilogue (one per warpgroup below 256 channels): its staging of
+    # 64 channels x TILE_M pixels (pitch TILE_M + 4 words), scales, shifts
+    off_bar = off_epi + (2 if nb < 256 else 1) * (EPI_CHANNELS * (TILE_M + 4) * 4 + 2 * nb * 4)
+    # the mbarriers (full, empty, halo full, halo empty, turn), then 128
+    # bytes to align the base
+    smem = off_bar + (2 * ns + 2 * HALO_CHUNKS + 2) * 8 + 128
+    return Plan(route, nb, -(-cout // nb), stages, tw, th, box, pixel_tiles * -(-cout // nb),
+                gemm, out, pad, tps, ns, plane, off_ring, off_epi, off_bar, smem)
 
 
 @dataclass
@@ -400,9 +407,10 @@ def quantize_scratch(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torc
 
 def scratch_plain(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torch.Tensor:
     """``quantize_scratch`` in plain PyTorch."""
-    cp = padded_channels(x.shape[1])
-    xq = F.pad(quantize_input(x, s_x).permute(0, 2, 3, 1), (0, cp - x.shape[1])).contiguous()
-    return space_to_depth(xq) if geometry.route == "s2d" else xq
+    q = quantize_input(x, s_x).permute(0, 2, 3, 1)
+    if geometry.route == "s2d":  # 4 channels a pixel, 2 x 2 pixels a block
+        return space_to_depth(F.pad(q, (0, 4 - x.shape[1])).contiguous())
+    return F.pad(q, (0, geometry.gemm[2] - x.shape[1])).contiguous()
 
 
 def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
@@ -476,7 +484,9 @@ def conv_nhwc(xq: torch.Tensor, w: Int8Weight, s_x: torch.Tensor, bias: torch.Te
             xq.data_ptr(), operand.data_ptr(), w.s_w.data_ptr(), s_x.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             n, h, wd, cp, cout, kh, kw, stride, pad, oh, ow, ROUTE_IDS[geometry.route],
-            geometry.nb, geometry.tw, _stream(xq.device))
+            geometry.nb, geometry.tps, geometry.ns, geometry.tw, geometry.th, geometry.plane,
+            geometry.off_ring, geometry.off_epi, geometry.off_bar, geometry.smem,
+            _stream(xq.device))
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed ({geometry.route}): CUDA error {rc}")
     return out

@@ -516,15 +516,19 @@ def test_remat_train_step_on_the_card(cuda):
 # tile (every one but multi_*), Cout 72 (a partial NB) and 512 (two N
 # slices), sides 5 and 8 (tiles wider than the image; the 16 x 8 halo
 # tile), Cin 16 and 48 (one and three 16-channel planes of a 64-channel
-# chunk), the stem (space to depth, odd side), Cin 3 and 8 at stride 1
-# (4-byte gather), stride 2, 3 and 1x1 (16-byte gather), and tiles enough
-# that every CTA takes several (the warpgroups' turns at NB 64 and 128; both
-# on one tile at NB 256)
+# chunk), the stem (space to depth, odd side), Cin 3 and 8 (16 channels,
+# the rest zero) on the halo and the gather, a 41x41 stride-2 kernel whose
+# s2d halo would not fit (the gather), stride 2, 3 and 1x1, and tiles
+# enough that every CTA takes several (the warpgroups' turns at NB 64 and
+# 128; both on one tile at NB 256)
 K4_CONVS = {
     "stem_7x7s2_cin3": (3, 64, 67, 7, 2, 3, False, 3, "s2d"),
     "s2d_3x3s2_cin4": (4, 32, 20, 3, 2, 1, True, 3, "s2d"),
-    "gather4_cin3_s1": (3, 16, 9, 3, 1, 1, False, 3, "gather4"),
-    "gather4_cin8": (8, 24, 11, 3, 1, 1, True, 3, "gather4"),
+    "halo_cin3_s1": (3, 16, 9, 3, 1, 1, False, 3, "halo"),
+    "halo_cin8": (8, 24, 11, 3, 1, 1, True, 3, "halo"),
+    "gather16_cin8_1x1": (8, 24, 11, 1, 1, 0, True, 3, "gather16"),
+    "gather16_cin3_7x7s1": (3, 64, 21, 7, 1, 3, False, 3, "gather16"),
+    "gather16_cin3_41x41s2": (3, 16, 45, 41, 2, 20, False, 2, "gather16"),
     "3x3s1": (64, 64, 19, 3, 1, 1, False, 3, "halo"),
     "3x3s1_bias_ragged": (512, 72, 5, 3, 1, 1, True, 3, "halo"),
     "halo_side8_cout512": (256, 512, 8, 3, 1, 1, False, 3, "halo"),

@@ -8,8 +8,10 @@ the JAX package's int8 convolution:
   of the flagship's eval step (``chip_smoke.K4_SHAPES``) and at every
   eligible conv of the ten reference YAMLs over a range of sides: boxes of
   at most 256 per dimension with a 16-byte inner box, at most 227 KB of
-  shared memory, and a packed weight of the plan's layout.
-- ``pack_weight`` (two K orders, any NB) unpacks to ``w_i8`` with zeros
+  shared memory laid out without overlap, and a packed weight of the plan's
+  layout. Its instantiations (``RINGS``) are the ones the kernel source
+  compiles.
+- ``pack_weight`` (any Cin, any NB) unpacks to ``w_i8`` with zeros
   everywhere else.
 - The s2d route: the stride-1 convolution of ``s2d_weight`` over the
   space-to-depth scratch gives the int32 sums of JAX's stride-2
@@ -20,7 +22,9 @@ the JAX package's int8 convolution:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -46,21 +50,29 @@ WANT_ROUTE = {(7, 2): "s2d", (3, 1): "halo", (3, 2): "gather16", (1, 2): "gather
 
 def unpack_weight(packed: torch.Tensor, c_in: int, kh: int, kw: int, cout: int) -> torch.Tensor:
     """``k4.pack_weight``'s inverse: the OIHW int8 weight back from the packed one."""
-    cp, taps = k4.padded_channels(c_in), kh * kw
     slices, stages, _, nb, _ = packed.shape
+    chunks = stages // (kh * kw)
     mat = packed.permute(0, 3, 1, 2, 4).reshape(slices * nb, stages * k4.K_STEP)[:cout]
-    if cp % 16 == 0:
-        chunks = stages // taps
-        hwio = mat.reshape(cout, chunks, taps, 64).permute(0, 2, 1, 3).reshape(
-            cout, kh, kw, chunks * 64)[..., :c_in]
-    else:
-        hwio = mat[:, :taps * cp].reshape(cout, kh, kw, cp)[..., :c_in]
+    hwio = mat.reshape(cout, chunks, kh * kw, 64).permute(0, 2, 1, 3).reshape(
+        cout, kh, kw, chunks * 64)[..., :c_in]
     return hwio.permute(0, 3, 1, 2).contiguous()
 
 
 def _assert_fits(g: k4.Plan) -> None:
     assert g.smem <= k4.SMEM_LIMIT, g
     assert g.nb in (64, 128, 256) and g.tiles > 0 and g.stages > 0, g
+    assert (g.tps, g.ns) == k4.RINGS[g.route, g.nb], g
+    # the regions in order, none overlapping the next: the halo's chunks (4
+    # planes each), the ring, the epilogues, the mbarriers (8 bytes each),
+    # the base's alignment; TMA and bulk copies land on 128-byte boundaries
+    stage = k4.K_STEP * g.nb * g.tps + (0 if g.box else k4.TILE_M * k4.K_STEP)
+    epi = 64 * (k4.TILE_M + 4) * 4 + 2 * g.nb * 4
+    assert g.off_ring >= k4.HALO_CHUNKS * 4 * g.plane and g.off_ring % 128 == 0, g
+    assert g.off_epi >= g.off_ring + g.ns * stage and g.off_epi % 16 == 0, g
+    assert g.off_bar >= g.off_epi + (2 if g.nb < 256 else 1) * epi and g.off_bar % 8 == 0, g
+    assert g.smem >= g.off_bar + (2 * g.ns + 2 * k4.HALO_CHUNKS + 2) * 8 + 128, g
+    if g.box is not None:
+        assert g.plane % 128 == 0 and g.plane >= g.box[1] * g.box[2] * 16, g
     if g.route in ("halo", "s2d"):
         assert g.box is not None and all(1 <= d <= 256 for d in g.box), g
         assert g.box[0] * 1 % 16 == 0, g  # the inner box: 16 int8 channels, 16 bytes
@@ -136,7 +148,8 @@ def test_plan_for_every_zoo_conv(yml):
                                            (512, 256, 3, None), (24, 16, 3, None),
                                            (128, 64, 1, None), (8, 20, 3, None),
                                            (300, 48, 5, None), (256, 128, 3, 64),
-                                           (512, 256, 1, 128)])
+                                           (512, 256, 1, 128), (24, 8, 1, None),
+                                           (16, 3, 3, 64)])
 def test_pack_weight_unpacks_to_w_i8(cout, cin, k, nb):
     rng = np.random.default_rng(cout + cin + k)
     w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8))
@@ -150,15 +163,17 @@ def test_pack_weight_unpacks_to_w_i8(cout, cin, k, nb):
 
 
 def test_pack_orders_k_by_chunk_then_tap():
-    """At Cp % 16 == 0 stage s is (64-channel chunk s // taps, tap s % taps);
-    its 4 planes are 16 channels each; a channel's bytes are one row of NB."""
+    """Stage s is (64-channel chunk s // taps, tap s % taps); its 4 planes
+    are 16 channels each; a channel's bytes are one row of NB. Below 64
+    channels the chunk's other channels are zero, as at Cin 3."""
     w = torch.zeros(64, 128, 3, 3, dtype=torch.int8)
     w[5, 70, 1, 2] = 9  # chunk 1, tap 5, channel 6 of the chunk
     packed = k4.pack_weight(w)
     assert int(packed[0, 1 * 9 + 5, 0, 5, 6]) == 9
     w = torch.zeros(64, 3, 7, 7, dtype=torch.int8)
-    w[2, 1, 3, 4] = 7  # dense K: byte (3 * 7 + 4) * 4 + 1 = 101, stage 1, plane 2, byte 5
-    assert int(k4.pack_weight(w)[0, 1, 2, 2, 5]) == 7
+    w[2, 1, 3, 4] = 7  # chunk 0, tap 3 * 7 + 4 = 25, channel 1: plane 0, byte 1
+    packed = k4.pack_weight(w)
+    assert tuple(packed.shape) == (1, 49, 4, 64, 16) and int(packed[0, 25, 0, 2, 1]) == 7
 
 
 @pytest.mark.parametrize("k,pad,side", [(7, 3, 20), (7, 3, 17), (7, 3, 5), (3, 1, 9),
@@ -205,13 +220,14 @@ def test_space_to_depth_layout():
                     assert torch.equal(s[0, by, bx, (2 * r + c) * 4:(2 * r + c) * 4 + 4], want)
 
 
-@pytest.mark.parametrize("shape,route", [((1, 3, 16, 16), "s2d"), ((1, 8, 9, 9), "gather4"),
-                                         ((2, 64, 9, 9), "halo"), ((2, 64, 9, 9), "gather16")])
+@pytest.mark.parametrize("shape,route", [((1, 3, 16, 16), "s2d"), ((1, 8, 9, 9), "halo"),
+                                         ((2, 64, 9, 9), "halo"), ((2, 64, 9, 9), "gather16"),
+                                         ((2, 8, 9, 9), "gather16")])
 def test_scratch_plain_is_the_scratch_the_route_reads(shape, route):
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     s = k4.dynamic_scale(x)
-    stride = 1 if route in ("halo", "gather4") else 2
+    stride = 1 if route == "halo" else 2
     g = k4.plan(shape[0], shape[1], shape[2], shape[3], 32, 3, 3, stride, 1)
     assert g.route == route
     got = k4.scratch_plain(x, s, g)
@@ -220,7 +236,8 @@ def test_scratch_plain_is_the_scratch_the_route_reads(shape, route):
     if route == "s2d":
         assert torch.equal(got[:, :, :, :3], q[:, 0::2, 0::2])  # block row 0, column 0
         assert torch.equal(got[:, :, :, 12:15], q[:, 1::2, 1::2])  # row 1, column 1
-    else:
+    else:  # Cin rounded up to 16 channels, the rest zero
+        assert got.shape[-1] == -(-shape[1] // 16) * 16 and not got[..., shape[1]:].any()
         assert torch.equal(got[..., :shape[1]], q)
 
 
@@ -245,7 +262,58 @@ def test_refusals_before_any_launch():
     with pytest.raises(ValueError, match="scratch"):
         k4.conv_nhwc(torch.zeros(2, 8, 8, 64, dtype=torch.uint8), w, torch.ones(()), None, g,
                      torch.float32)
-    big = k4.plan(1, 12, 64, 64, 16, 41, 41, 1, 20)  # a 41x41 kernel's table of pieces
-    assert big.route == "gather4" and big.smem > k4.SMEM_LIMIT
+    big = dataclasses.replace(g, smem=k4.SMEM_LIMIT + 16)
     with pytest.raises(ValueError, match="shared memory"):
-        k4._check_operand(k4.prepare_weight(torch.zeros(16, 12, 41, 41)).operand(big), big)
+        k4._check_operand(w.packed, big)
+
+
+def test_instantiations_are_the_kernel_sources():
+    """``RINGS`` lists exactly the (route, NB, TPS, NS) that
+    csrc/int8_conv.cu's INT8_CONV_KERNELS compiles: a plan can ask for no
+    other, and each route has every NB."""
+    src = (ROOT / "multiagentperception_tpu_torch" / "csrc" / "int8_conv.cu").read_text()
+    table = src[src.index("#define INT8_CONV_KERNELS(X)"):]
+    table = table[:table.index("\n\n")]
+    names = {"kHalo": "halo", "kGather16": "gather16", "kS2d": "s2d"}
+    compiled = {(names[r], int(nb)): (int(tps), int(ns))
+                for r, nb, tps, ns in re.findall(r"X\((k\w+), (\d+), (\d+), (\d+)\)", table)}
+    assert compiled == k4.RINGS
+    assert set(k4.RINGS) == {(r, nb) for r in k4.ROUTE_IDS for nb in (64, 128, 256)}
+    ids = dict(re.findall(r"(k\w+) = (\d)", src[src.index("enum Route"):].split(";")[0]))
+    assert {names[k]: int(v) for k, v in ids.items()} == k4.ROUTE_IDS
+
+
+@pytest.mark.parametrize("cin,k,stride,route", [(3, 3, 1, "halo"), (8, 3, 1, "halo"),
+                                                (8, 1, 1, "gather16"), (3, 7, 1, "gather16"),
+                                                (12, 3, 2, "gather16"), (4, 3, 2, "s2d"),
+                                                (3, 41, 2, "gather16")])
+def test_small_cin_pads_to_16_channels(cin, k, stride, route):
+    """Below 16 channels the scratch has 16 (zeros past Cin) and the halo or
+    the gather takes the geometry; stride 2 over at most 4 channels is s2d
+    where its halo fits 227 KB (a 41x41 kernel's does not: gather16)."""
+    pad = k // 2
+    g = k4.plan(2, cin, 45, 45, 16, k, k, stride, pad)
+    _assert_fits(g)
+    assert g.route == route
+    if route != "s2d":
+        assert g.gemm[2] == 16 and g.stages == k * k
+        w = torch.from_numpy(np.random.default_rng(cin).integers(
+            -127, 128, (16, cin, k, k), dtype=np.int8))
+        packed = k4.pack_weight(w)
+        assert torch.equal(unpack_weight(packed, cin, k, k, 16), w)
+    if k == 41:
+        assert k4._plan("s2d", 2, 16, (23, 23, 16, 21, 24, 1, 10), 126, g.out, pad).smem > \
+            k4.SMEM_LIMIT
+
+
+def test_bench_kernels_times_the_smoke_shapes_and_needs_a_card(monkeypatch, capsys):
+    """``bench_kernels`` holds the 16 shapes (48 calls a step) and the timer
+    that ``chip_smoke.py`` uses, and refuses to run without a card."""
+    from multiagentperception_tpu_torch import bench_kernels
+
+    assert chip_smoke.K4_SHAPES is bench_kernels.K4_SHAPES and len(chip_smoke.K4_SHAPES) == 16
+    assert sum(shape[-1] for shape in bench_kernels.K4_SHAPES) == 48
+    assert chip_smoke._time_ms is bench_kernels.time_ms
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_kernels.main(["--iters", "1"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

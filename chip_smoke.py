@@ -143,6 +143,27 @@ and the script exits non-zero:
    the pixels and the bandwidth equal; in float32 within 1%, the bandwidth
    reported (``int8_card_vs_cpu`` says why). Phase 9's bench lines hold
    the int8 keys, and its int8 run's K4 launches.
+11. Serving (``export.export_serving`` / ``load_serving``, ``serve``). The
+   flagship from ``models.init_weights`` exported on the card at batch 8
+   (the JAX export CLI's default), saved to bytes and loaded: in float32,
+   in bf16 and in int8 (static scales calibrated on 2 seeded batches,
+   weights baked). The loaded graph holds one K1 and one K2 op node, and
+   in int8 two K4 op nodes per eligible conv and no ``aten.round`` /
+   ``amax`` / ``abs`` node. Over 3 seeded batches, counts zeroed just
+   before and read just after, K1 and K2 launch once a batch on the
+   network's route and K4 48 times a batch; the class maps agree with the
+   eager ``make_eval_fn`` / ``make_int8_eval_fn`` on at least 99.99% of
+   the pixels (equal expected), the graphs within 1e-6 and the per-frame
+   bandwidth equal. The weight-hotswap artifact (``bake_weights=False``)
+   with two seeded weight sets, each against the eager eval of those
+   weights. ``serve.serve_dataset`` over 19 in-memory frames (two batches
+   and a tail of 3 padded by repetition): 19 x 6 maps written, the
+   bandwidth the mean of the eager per-frame bandwidth over the 19 real
+   frames. Then ms per batch by CUDA events of the artifact, the eager
+   function and both in int8; the host time of each op through the
+   dispatcher against its CUDA implementation called directly; and
+   phase 10's int8 ``Evaluator`` path at batch 2 timed in turns through
+   the ops and with the CUDA implementations called directly.
 
 Prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, then the ``{"kernels": [...]}`` line (K1's record also holds its
@@ -151,8 +172,9 @@ launch counts on phase 7's paths; ``upsample_argmax_bf16`` and
 paths; each K1/K2 record also holds its launches and device time per
 launch on the bench's eval path at batch 20, ``*_bench_b20``; K4's two
 records, ``int8_conv`` and ``int8_conv_bf16``, sum one eval step's 48
-convolutions, with the quantize/GEMM split and ``library_int_mm_ms``), and
-last
+convolutions, with the quantize/GEMM split and ``library_int_mm_ms``;
+K1's, K2's and ``int8_conv``'s records hold their launches on phase 11's
+serving path of their type, ``serving_launches``), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1499,6 +1521,295 @@ def int8_card_vs_cpu(dtype: str | None = None, size: int = 256) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 11
+
+SERVE_BATCH = 8  # the JAX export CLI's default batch (scripts/export_serving.py:38)
+SERVE_BATCHES = 3
+SERVE_FRAMES = 19  # two full batches of 8 and a ragged tail of 3
+SERVE_CLASS_AGREEMENT = 0.9999
+SERVE_GRAPH_ATOL = 1e-6
+SERVE_TIMED = 10  # CUDA-event runs a timing, after the helper's warm-up
+QUANTIZE_NODES = ("aten.round.default", "aten.amax.default", "aten.abs.default")
+SERVE_TIMED_FRAMES = 240  # a timed pass of the serve loop: 30 batches of 8
+SERVE_TIMED_PASSES = 2  # after the 19-frame pass, which warms the loop up
+DISPATCH_PAIRS = 5  # alternated pairs of windows (ops, direct / direct, ops)
+DISPATCH_CALLS = 20000  # op calls a window of the hot loop (~0.1-0.3 s)
+DISPATCH_AB_REPEATS = 34  # the 6 timed batches 34 times: 204 batches a window (~3-5 s)
+
+
+def seeded_images(count: int, b: int, n: int, size: int, seed: int) -> list[torch.Tensor]:
+    """``count`` normalized float32 (B, N, H, W, 3) batches on the card."""
+    rng = np.random.default_rng(seed)
+    return [normalize_images(torch.from_numpy(rng.integers(0, 256, (b, n, size, size, 3),
+                                                           dtype=np.uint8))).to("cuda")
+            for _ in range(count)]
+
+
+def op_nodes(artifact) -> dict:
+    """The loaded program's ``call_function`` nodes, counted by target."""
+    counts: dict[str, int] = {}
+    for node in artifact.program.graph.nodes:
+        if node.op == "call_function":
+            counts[str(node.target)] = counts.get(str(node.target), 0) + 1
+    return counts
+
+
+def hold_serving(name: str, got, want) -> dict:
+    """An artifact's (class map, graph, per-frame bandwidth) against the
+    eager serving function's on the same batch: class maps on at least
+    SERVE_CLASS_AGREEMENT of the pixels (equal expected: the same ops on
+    the same card), graphs within SERVE_GRAPH_ATOL, bandwidth equal."""
+    result = {"class_agreement": (got[0] == want[0]).float().mean().item(),
+              "graph_max_abs_err": (got[1].float() - want[1].float()).abs().max().item(),
+              "bandwidth_equal": bool(torch.equal(got[2], want[2]))}
+    if result["class_agreement"] < SERVE_CLASS_AGREEMENT or \
+            result["graph_max_abs_err"] > SERVE_GRAPH_ATOL or not result["bandwidth_equal"]:
+        raise AssertionError(f"serving {name}: the artifact against the eager function {result}")
+    return result
+
+
+def serve_variant(name: str, model, batches, eager, route: str, int8: bool = False,
+                  **export_kw) -> tuple[dict, object]:
+    """Export ``model`` at the batches' shape on the card, save and load it,
+    count its op nodes (one K1, one K2, and two K4 per eligible conv with
+    ``int8``), run it over ``batches`` with the launch counts zeroed just
+    before and read just after (K1 and K2 once a batch on ``route``, K4
+    once per eligible conv a batch), and hold each output to ``eager``'s."""
+    from multiagentperception_tpu_torch.export import export_serving, load_serving
+    from multiagentperception_tpu_torch.quantize import eligible_convs
+
+    t0 = time.perf_counter()
+    blob = export_serving(model, tuple(batches[0].shape), int8=int8, **export_kw)
+    export_s = time.perf_counter() - t0
+    artifact = load_serving(blob)
+    load_s = time.perf_counter() - t0 - export_s
+    nodes = op_nodes(artifact)
+    convs = len(eligible_convs(model)) if int8 else 0
+    want_nodes = {"when2com.upsample_argmax.default": 1, "when2com.comm_fusion.default": 1,
+                  "when2com.int8_quantize.default": convs, "when2com.int8_gemm.default": convs}
+    got_nodes = {k: nodes.get(k, 0) for k in want_nodes}
+    quantizing = {k: nodes[k] for k in QUANTIZE_NODES if k in nodes}
+    if got_nodes != want_nodes or (int8 and export_kw.get("act_scales") and quantizing):
+        raise AssertionError(f"serving {name}: op nodes {got_nodes} (want {want_nodes}), "
+                             f"quantizing nodes {quantizing}")
+    hot = export_kw.get("bake_weights") is False
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    kernels = (k1.upsample_argmax, k2.comm_fusion, k4.int8_conv)
+    bench._zero_launches(kernels)
+    outs = [artifact(state, x) if hot else artifact(x) for x in batches]
+    torch.cuda.synchronize()
+    counts = {kern.__name__: dict(kern.route_launches) for kern in kernels}
+    want = {"upsample_argmax": {route: len(batches)}, "comm_fusion": {route: len(batches)},
+            "int8_conv": {route: convs * len(batches)} if int8 else {}}
+    for kname, total in want.items():
+        if counts[kname] != {**dict.fromkeys(counts[kname], 0), **total}:
+            raise AssertionError(f"serving {name}: {kname} launched {counts[kname]}, "
+                                 f"want {total}")
+    agreement = [hold_serving(name, got, eager(x)) for got, x in zip(outs, batches)]
+    return {"export_s": export_s, "load_s": load_s, "artifact_mb": len(blob) / 1e6,
+            "op_nodes": got_nodes, "quantizing_nodes": quantizing, "launches": counts,
+            "agreement": agreement}, artifact
+
+
+def run_serving() -> dict:
+    """Phase 11: the serving export of the flagship at batch 8 (float32,
+    bf16, int8 with calibrated scales, and the weight-hotswap variant with
+    two weight sets), the serve loop over 19 in-memory frames, the times,
+    and the ops' dispatch cost."""
+    from multiagentperception_tpu_torch import serve
+    from multiagentperception_tpu_torch.export import export_serving, load_serving, make_eval_fn
+    from multiagentperception_tpu_torch.quantize import calibrate_activations, make_int8_eval_fn
+
+    cfg = load_config(str(FLAGSHIP))
+    n, size = cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    batches = seeded_images(SERVE_BATCHES, SERVE_BATCH, n, size, SEED + 50)
+    model = init_weights(get_model(cfg, N_CLASSES), SEED).to("cuda").eval()
+    out = {"config": FLAGSHIP.relative_to(ROOT).as_posix(), "batch": SERVE_BATCH,
+           "agents": n, "size": size}
+    eager32 = make_eval_fn(model)
+    out["float32"], art32 = serve_variant("float32", model, batches, eager32, "f32")
+
+    cfg16 = copy.deepcopy(cfg)
+    cfg16["model"]["dtype"] = "bfloat16"
+    model16 = get_model(cfg16, N_CLASSES).to("cuda").eval()
+    model16.load_state_dict(model.state_dict())
+    out["bfloat16"], _ = serve_variant("bfloat16", model16, batches, make_eval_fn(model16),
+                                       "bf16")
+    del model16
+
+    calib = seeded_images(2, SERVE_BATCH, n, size, SEED + 51)
+    scales = calibrate_activations(model, calib, inference="activated", full_res=False)
+    eager8 = make_int8_eval_fn(model, act_scales=scales)
+    out["int8"], art8 = serve_variant("int8", model, batches, eager8, "f32", int8=True,
+                                      act_scales=scales)
+
+    # the weight-hotswap artifacts, float32 and int8 (the weights quantized
+    # in the graph): one program each, two weight sets
+    shape = tuple(batches[0].shape)
+    hot = {"float32": load_serving(export_serving(model, shape, bake_weights=False)),
+           "int8": load_serving(export_serving(model, shape, bake_weights=False, int8=True,
+                                               act_scales=scales))}
+    swaps = {name: [] for name in hot}
+    for seed in (SEED + 52, SEED + 53):
+        other = init_weights(get_model(cfg, N_CLASSES), seed).to("cuda").eval()
+        state = {k: v.detach() for k, v in other.state_dict().items()}
+        eager = {"float32": make_eval_fn(other),
+                 "int8": make_int8_eval_fn(other, act_scales=scales)}
+        for name, art in hot.items():
+            swaps[name].append(hold_serving(f"{name} hotswap seed {seed}",
+                                            art(state, batches[0]), eager[name](batches[0])))
+        del other
+    out["hotswap"] = swaps
+
+    # the serve loop over in-memory frames, the tail padded by repetition
+    frames = torch.cat(seeded_images(3, SERVE_BATCH, n, size, SEED + 54))[:SERVE_FRAMES].cpu()
+    dataset = [(f.numpy(),) for f in frames]
+    serve_dir = WORK / "serve"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    stats = serve.serve_dataset(art32, dataset, str(serve_dir), device="cuda", split="smoke")
+    per_frame = []
+    for i in range(0, SERVE_FRAMES, SERVE_BATCH):
+        chunk = frames[i:i + SERVE_BATCH]
+        real = len(chunk)
+        chunk = torch.cat([chunk, chunk[-1:].expand(SERVE_BATCH - real, *chunk.shape[1:])])
+        per_frame.append(eager32(chunk.to("cuda"))[2][:real].cpu())
+    per_frame = torch.cat(per_frame)
+    want_bw = sum(float(per_frame[i:i + SERVE_BATCH].numpy().sum())  # as serve sums
+                  for i in range(0, SERVE_FRAMES, SERVE_BATCH)) / SERVE_FRAMES
+    maps = sorted(p.name for p in serve_dir.iterdir() if not p.name.endswith("_rgb.png"))
+    if stats["maps"] != SERVE_FRAMES * n or len(maps) != SERVE_FRAMES * n or \
+            stats["bandwidth"] != want_bw:
+        raise AssertionError(f"serve loop: {stats['maps']} maps ({len(maps)} files), bandwidth "
+                             f"{stats['bandwidth']} against the eager {want_bw}")
+    out["serve_loop"] = {k: stats[k] for k in ("frames", "maps", "bandwidth")}
+    out["serve_loop"].update(eager_bandwidth=want_bw, files=len(maps),
+                             file_kind=Path(maps[0]).suffix)
+    # the loop's rate: passes over SERVE_TIMED_FRAMES frames (the 19 in turn),
+    # after the pass above has warmed it up
+    cyclic = [dataset[i % SERVE_FRAMES] for i in range(SERVE_TIMED_FRAMES)]
+    out["serve_timed"] = []
+    for k in range(SERVE_TIMED_PASSES):
+        shutil.rmtree(serve_dir, ignore_errors=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = serve.serve_dataset(art32, cyclic, str(serve_dir), device="cuda",
+                                        split="smoke")
+        out["serve_timed"].append({k: stats[k] for k in ("frames", "maps", "seconds",
+                                                        "frames_per_s", "maps_per_s")})
+    shutil.rmtree(serve_dir, ignore_errors=True)
+
+    # times at batch 8 by CUDA events: the artifact, the eager function, int8
+    x = batches[0]
+    times = {"artifact_f32": _time_ms(lambda: art32(x), iters=SERVE_TIMED),
+             "eager_f32": _time_ms(lambda: eager32(x), iters=SERVE_TIMED),
+             "artifact_int8": _time_ms(lambda: art8(x), iters=SERVE_TIMED),
+             "eager_int8": _time_ms(lambda: eager8(x), iters=SERVE_TIMED)}
+    out["batch_ms"] = times
+    out["frames_per_s"] = {k: SERVE_BATCH / (ms / 1e3) for k, ms in times.items()}
+    out["dispatch_us"] = dispatch_cost()
+    out["dispatch_ab"] = dispatch_ab()
+    return out
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """The wrappers call each op's CUDA implementation directly instead of
+    through the dispatcher: the other side of ``dispatch_ab`` only."""
+    saved = k1.OP, k2.OP, k4.QUANTIZE_OP, k4.GEMM_OP
+    k1.OP, k2.OP, k4.QUANTIZE_OP, k4.GEMM_OP = (k1._launch, k2._launch, k4._quantize_launch,
+                                                k4._gemm_launch)
+    try:
+        yield
+    finally:
+        k1.OP, k2.OP, k4.QUANTIZE_OP, k4.GEMM_OP = saved
+
+
+def dispatch_ab() -> dict:
+    """What the dispatcher costs end to end where the host bounds the
+    step: the flagship's int8 eval through ``Evaluator`` at the YAML's batch
+    (phase 10's path: 98 op calls a batch), frames/s over windows of 204
+    batches, DISPATCH_PAIRS pairs alternated (ops, direct / direct, ops),
+    through the ops and with their CUDA implementations called directly."""
+    cfg = load_config(str(FLAGSHIP))
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    ev = Evaluator(cfg)
+    ev.model.load_state_dict(init_weights(get_model(cfg, N_CLASSES), SEED).state_dict())
+    batches = seeded_batches(INT8_EVAL_BATCHES + INT8_CALIB_BATCHES, b, n, size, SEED + 55)
+    calib, timed = batches[:INT8_CALIB_BATCHES], batches[INT8_CALIB_BATCHES:]
+    scales = ev._calibrate_int8(timed, "activated", calib_loader=calib)
+    window = timed * DISPATCH_AB_REPEATS
+    rates: dict[str, list[float]] = {"ops": [], "direct": []}
+    seconds = []
+    with Int8Convs(ev.model, scales), contextlib.redirect_stdout(io.StringIO()):
+        ev.evaluate(timed)  # warm-up
+        for pair in range(DISPATCH_PAIRS):
+            for kind in ("ops", "direct") if pair % 2 == 0 else ("direct", "ops"):
+                with direct_launches() if kind == "direct" else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ev.evaluate(window)
+                    torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                rates[kind].append(len(window) * b * n / seconds[-1])
+    ratios = [o / d for o, d in zip(rates["ops"], rates["direct"])]
+    return {"batch": b, "batches_a_window": len(window), "window_s": [min(seconds), max(seconds)],
+            "int8_eval_frames_per_s": rates,
+            "median": {k: float(np.median(v)) for k, v in rates.items()},
+            "ops_over_direct": {"pairs": ratios, "median": float(np.median(ratios)),
+                                "min": min(ratios), "max": max(ratios)}}
+
+
+def dispatch_cost(calls: int = DISPATCH_CALLS) -> dict:
+    """Host time per call, in microseconds, of each op through the
+    dispatcher (``torch.ops.when2com.*``, as the wrappers and an artifact
+    call it) and of its CUDA implementation called directly, on inputs so
+    small that the host bounds the loop, under ``torch.inference_mode`` as
+    the evaluator and the artifact run: DISPATCH_PAIRS pairs of windows
+    alternated. The median difference is what the dispatcher adds to a
+    call; the pairs' differences give its spread."""
+    x1 = torch.randn(2, 11, 4, 4, device="cuda")
+    q = torch.randn(1, 2, 8, device="cuda")
+    v = torch.randn(1, 2, 4, 4, 4, device="cuda")
+    x4 = torch.randn(1, 16, 8, 8, device="cuda")
+    w4 = k4.prepare_weight(torch.randn(16, 16, 3, 3, device="cuda"))
+    s4 = k4.dynamic_scale(x4)
+    g4 = k4.plan(1, 16, 8, 8, 16, 3, 3, 1, 1)
+    xq = k4.quantize_scratch(x4, s4, g4)
+    op, direct = {}, {}
+    op["upsample_argmax"] = lambda: torch.ops.when2com.upsample_argmax(x1, 8, 8)
+    direct["upsample_argmax"] = lambda: k1._launch(x1, 8, 8)
+    op["comm_fusion"] = lambda: torch.ops.when2com.comm_fusion(q, q, v, "activated", 0.0, 0.2)
+    direct["comm_fusion"] = lambda: k2._launch(q, q, v, "activated", 0.0, 0.2)
+    op["int8_quantize"] = lambda: torch.ops.when2com.int8_quantize(x4, s4, "halo", 16)
+    direct["int8_quantize"] = lambda: k4._quantize_launch(x4, s4, "halo", 16)
+    gemm = (xq, w4.packed, w4.s_w, s4, None, 16, 3, 3, 8, 8, 1, 1, torch.float32)
+    op["int8_gemm"] = lambda: torch.ops.when2com.int8_gemm(*gemm)
+    direct["int8_gemm"] = lambda: k4._gemm_launch(*gemm)
+
+    def per_call(fn) -> float:
+        with torch.inference_mode():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    out = {}
+    for name in op:
+        us = {"op": [], "direct": []}
+        for pair in range(DISPATCH_PAIRS):
+            for kind in ("op", "direct") if pair % 2 == 0 else ("direct", "op"):
+                us[kind].append(per_call(op[name] if kind == "op" else direct[name]))
+        diffs = [o - d for o, d in zip(us["op"], us["direct"])]
+        out[name] = {"op_us": float(np.median(us["op"])),
+                     "direct_us": float(np.median(us["direct"])),
+                     "dispatch_us": float(np.median(diffs)),
+                     "dispatch_us_range": [min(diffs), max(diffs)]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -1622,6 +1933,16 @@ def main() -> int:
     lap("10_int8_eval")
     print("int8_card_vs_cpu " + json.dumps([int8_card_vs_cpu(), int8_card_vs_cpu("bfloat16")]))
     lap("10_int8_card_vs_cpu")
+
+    serving = run_serving()
+    print("serving " + json.dumps(serving))
+    for rec in records:  # each record's launches on the serving path of its type
+        run = {"upsample_argmax": "float32", "comm_fusion": "float32", "int8_conv": "int8",
+               "upsample_argmax_bf16": "bfloat16", "comm_fusion_bf16": "bfloat16"}.get(rec["name"])
+        if run is not None:
+            kern = rec["name"].removesuffix("_bf16")
+            rec["serving_launches"] = sum(serving[run]["launches"][kern].values())
+    lap("11_serving")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

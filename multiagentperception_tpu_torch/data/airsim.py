@@ -19,7 +19,9 @@ Behavioral parity with the reference Dataset:
   (airsim_loader.py:412-438).
 
 The city-graph edge table and class color tables are dataset metadata loaded
-from ``airsim_map_meta.json``.
+from ``airsim_map_meta.json`` (``NAME2COLOR`` / ``NAME2ID`` / ``ID2NAME``,
+the reference's airsim_loader.py:48-73), which ``decode_segmap`` and
+``visual.py`` read.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ with open(_META_PATH) as _f:
     _META = json.load(_f)
 
 ALL_EDGES = [((e[0][0], e[0][1]), (e[1][0], e[1][1])) for e in _META["all_edges"]]
+NAME2COLOR = _META["name2color"]
+NAME2ID = _META["name2id"]
+ID2NAME = {i: n for n, i in NAME2ID.items()}
 
 SPLITS = ("train", "val", "test")
 IMAGE_MODES = ("scene", "segmentation_decoded")
@@ -292,3 +297,12 @@ class AirsimDataset:
         if self.commun_label != "None":
             return images, labels, self.com_label[self.split][index]
         return images, labels
+
+    def decode_segmap(self, temp: np.ndarray) -> np.ndarray:
+        """Class map -> RGB in [0, 1] for visualization (airsim_loader.py:542-555)."""
+        rgb = np.zeros((temp.shape[0], temp.shape[1], 3))
+        for i, name in ID2NAME.items():
+            color = NAME2COLOR[name][0]
+            for c in range(3):
+                rgb[:, :, c][temp == i] = color[c] / 255.0
+        return rgb

@@ -92,11 +92,13 @@ K3_BF16_RARE_C64 = 1e-4
 K3_BF16_WIDE = 256  # from this C on, the far bound is read against float64
 
 
-def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
+def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int,
+                          fn=k1.upsample_argmax) -> dict:
     """K1 on NCHW logits ``x`` (on the card) against its plain version.
     Returns the pixel agreement and the largest upsampled logit lost at a
-    flipped pixel (``max_abs_err``)."""
-    got = k1.upsample_argmax(x, out_h, out_w)
+    flipped pixel (``max_abs_err``). ``fn`` is the function held: the
+    wrapper, or the op ``torch.ops.when2com.upsample_argmax`` itself."""
+    got = fn(x, out_h, out_w)
     ref = k1.upsample_argmax_plain(x, out_h, out_w)
     if got.dtype != torch.int32 or got.shape != ref.shape:
         raise AssertionError(f"K1 gives {got.dtype} {tuple(got.shape)}, "
@@ -110,18 +112,19 @@ def check_upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> dict:
         raise AssertionError(f"K1 disagrees: agree={agree}, largest gap at a mismatch "
                              f"{gap[miss].max().item() if miss.any() else 0}")
     lost = up.gather(1, ref.long()[:, None]) - up.gather(1, got.long()[:, None])
-    tied = k1.upsample_argmax(torch.ones_like(x[:2]), out_h, out_w)
+    tied = fn(torch.ones_like(x[:2]), out_h, out_w)
     if bool(tied.any()):
         raise AssertionError("K1: an all-equal input must give class 0")
     return {"max_abs_err": lost.abs().max().item(), "pixel_agreement": agree}
 
 
 def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: str,
-                      diag_bias: float, thres: float = 0.2) -> float:
+                      diag_bias: float, thres: float = 0.2, fn=k2.comm_fusion) -> float:
     """K2 in one mode against its plain version, float32 or bfloat16 inputs
     (the graph against the plain version in float64); returns the largest
-    absolute error over fused and coef."""
-    fused, coef, soft = k2.comm_fusion(q, k, v, mode=mode, diag_bias=diag_bias, thres=thres)
+    absolute error over fused and coef. ``fn`` is the function held: the
+    wrapper, or the op ``torch.ops.when2com.comm_fusion`` itself."""
+    fused, coef, soft = fn(q, k, v, mode, diag_bias, thres)
     r_fused, r_coef, r_soft = k2.comm_fusion_plain(q, k, v, mode=mode,
                                                   diag_bias=diag_bias, thres=thres)
     # the graph in float64 (it does not read V: one column of it will do)
@@ -266,23 +269,40 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                     stride: int, padding: int, s_x: torch.Tensor | None,
-                    out_dtype: torch.dtype) -> dict:
+                    out_dtype: torch.dtype, ops: bool = False) -> dict:
     """K4 against ``int8_conv_plain`` on the same tensors: int8 operands,
     int32 sums and the ``out_dtype`` output all equal (the output to the
     bit), with the calibrated ``s_x`` or, if None, the dynamic scale.
-    Launches the kernel twice (the sums, then the output)."""
+    Launches the kernel twice (the sums, then the output). ``ops`` holds
+    the two ops ``torch.ops.when2com.int8_quantize`` / ``int8_gemm``
+    called directly instead of the wrappers."""
     w = k4.prepare_weight(weight)
     s = k4.dynamic_scale(x) if s_x is None else s_x
     geometry = k4.plan(*x.shape, *weight.shape[:1], *weight.shape[2:], stride, padding)
-    if not torch.equal(k4.quantize_scratch(x, s, geometry), k4.scratch_plain(x, s, geometry)):
+    if ops:
+        quantize = torch.ops.when2com.int8_quantize
+
+        def conv(bias_, dtype):
+            xq = quantize(x, s, geometry.route, geometry.gemm[2])
+            return torch.ops.when2com.int8_gemm(xq, w.operand(geometry), w.s_w, s, bias_,
+                                                *weight.shape[1:], *x.shape[2:], stride,
+                                                padding, dtype)
+    else:
+        def quantize(x_, s_, route, cp):
+            return k4.quantize_scratch(x_, s_, geometry)
+
+        def conv(bias_, dtype):
+            return k4.int8_conv(x, w, s_x, bias_, stride, padding, out_dtype=dtype)
+    if not torch.equal(quantize(x, s, geometry.route, geometry.gemm[2]),
+                       k4.scratch_plain(x, s, geometry)):
         raise AssertionError(f"int8_conv: the quantize pass's operands ({geometry.route}) "
                              "differ from plain")
-    acc = k4.int8_conv(x, w, s_x, None, stride, padding, out_dtype=torch.int32)
+    acc = conv(None, torch.int32)
     want_acc = k4.int8_conv_plain(x, w, s, None, stride, padding, torch.int32)
     if not torch.equal(acc, want_acc):
         bad = int((acc != want_acc).sum())
         raise AssertionError(f"int8_conv: {bad} of {acc.numel()} int32 sums differ from plain")
-    y = k4.int8_conv(x, w, s_x, bias, stride, padding, out_dtype=out_dtype)
+    y = conv(bias, out_dtype)
     want = k4.int8_conv_plain(x, w, s, bias, stride, padding, out_dtype)
     if not torch.equal(_bits(y), _bits(want)):
         bad = int((_bits(y) != _bits(want)).sum())

@@ -13,7 +13,11 @@ V's dtype. On CUDA tensors ``comm_fusion`` launches ``csrc/comm_fusion.cu``
 ``comm_fusion.route_launches``); on CPU tensors it runs
 ``comm_fusion_plain``, the same function in plain PyTorch, and so it does
 on ``meta`` tensors, which compute nothing (the bench counts the model's
-FLOPs on them).
+FLOPs on them). On CPU and CUDA tensors the wrapper calls the custom op
+``when2com::comm_fusion`` (``torch.library``): its CPU implementation is
+the plain version, its CUDA one the launch (which counts), and its fake one
+only allocates the three outputs, so ``torch.export`` keeps the op as one
+node of the graph.
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ def comm_fusion_plain(query_proj: torch.Tensor, keys: torch.Tensor,
         coef = torch.where(soft > thres, soft, torch.zeros_like(soft))
     elif mode == "argmax":
         coef = one_hot_argmax(soft, dim=1)
-    else:
-        coef = soft
+    else:  # a tensor of its own: the op's outputs may not alias each other
+        coef = soft.clone()
     return fuse_values(coef, vals.to(work)).to(vals.dtype), coef, soft
 
 
@@ -62,10 +66,30 @@ def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor
     soft (B, N, N)); coef/soft are ``[b, key, query]``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if vals.device.type in ("cpu", "meta"):
+    if vals.device.type == "meta":
         return comm_fusion_plain(query_proj, keys, vals, mode, diag_bias, thres)
-    if vals.device.type != "cuda":
+    if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vals.device}")
+    return OP(query_proj, keys, vals, mode, float(diag_bias), float(thres))
+
+
+@torch.library.custom_op("when2com::comm_fusion", mutates_args=(), device_types="cpu")
+def comm_fusion_op(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                   mode: str, diag_bias: float,
+                   thres: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return comm_fusion_plain(query_proj, keys, vals, mode, diag_bias, thres)
+
+
+@comm_fusion_op.register_fake
+def _fake(query_proj, keys, vals, mode, diag_bias, thres):
+    b, n = vals.shape[:2]
+    graph = vals.new_empty((b, n, n), dtype=torch.promote_types(vals.dtype, torch.float32))
+    return torch.empty_like(vals), graph, torch.empty_like(graph)
+
+
+def _launch(query_proj, keys, vals, mode, diag_bias, thres):
+    """The op's CUDA implementation: the kernel, or an error."""
     for name, t in (("query_proj", query_proj), ("keys", keys), ("vals", vals)):
         if t.device != vals.device:
             raise ValueError(f"{name} on {t.device}, vals on {vals.device}")
@@ -108,6 +132,10 @@ def comm_fusion(query_proj: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor
     comm_fusion.launches += 1
     return fused, coef, soft
 
+
+# registered straight with the dispatcher, as K1's (upsample_argmax.py)
+torch.library.impl("when2com::comm_fusion", "cuda", _launch)
+OP = torch.ops.when2com.comm_fusion.default  # what the wrapper calls
 
 comm_fusion.launches = 0
 comm_fusion.route_launches = {route: 0 for route, _, _ in ROUTES.values()}

@@ -39,11 +39,20 @@ launches its kernel or raises; nothing falls back. Its bound at the
 flagship's eval step is 7.5 ms (float32 network) / 4.5 ms (bf16) of bytes
 a step at batch 20 x 6; PERF.md gives the times.
 
-On a CPU (or ``meta``) tensor it runs ``int8_conv_plain``: the int32 sum
-is an exact float64 ``F.conv2d`` of the int8 values (|acc| <= 127^2 * 4608
-< 2^31, far inside float64's 2^53), rounded and cast to int32. On a CUDA
-tensor it launches the kernel or raises: there is no fallback.
-``int8_conv.launches`` counts launches of the pair (one per call),
+The pair runs as two custom ops (``torch.library``), so that
+``torch.export`` keeps each as one node: ``when2com::int8_quantize`` (the
+scratch of a route) and ``when2com::int8_gemm`` (the GEMM on it), whose
+arguments are tensors, ints, strings and a dtype; the GEMM recomputes its
+``plan`` from the geometry and takes the weight only as the plan's B
+operand (with its scales). On CPU tensors their implementations are the
+plain versions: the scratch, then an exact float64 ``F.conv2d`` of its int8
+values with the weight unpacked from the operand (``unpack_weight``;
+|acc| <= 127^2 * 4608 < 2^31, far inside float64's 2^53), rounded and
+cast to int32, the same sums as ``int8_conv_plain``. On CUDA tensors
+they launch the kernel or raise: there is no fallback. Their fake
+implementations only allocate. On a ``meta`` tensor ``int8_conv`` runs
+``int8_conv_plain`` directly. ``int8_conv.launches`` counts launches of
+the pair (one per GEMM, in the GEMM op's CUDA implementation),
 ``int8_conv.route_launches`` per output type and
 ``int8_conv.geometry_launches`` per GEMM route.
 
@@ -157,6 +166,28 @@ def pack_weight(w_i8: torch.Tensor, nb: int | None = None) -> torch.Tensor:
     return _stages(mat, cout, nb or tile_n(cout))
 
 
+def unpack_weight(operand: torch.Tensor, route: str, pad: int, cout: int, c_in: int,
+                  kh: int, kw: int) -> torch.Tensor:
+    """The inverse of ``pack_weight`` (``pack_s2d`` for ``route`` "s2d", whose
+    weight is padded by ``pad``): a B operand -> the (Cout, Cin, kh, kw)
+    int8 weight it holds."""
+    slices, stages, _, nb, _ = operand.shape
+    mat = operand.permute(0, 3, 1, 2, 4).reshape(slices * nb, stages * K_STEP)[:cout]
+    if route != "s2d":
+        taps = kh * kw
+        return (mat.reshape(cout, stages // taps, taps, 64).permute(0, 2, 1, 3)
+                .reshape(cout, kh, kw, -1)[..., :c_in].permute(0, 3, 1, 2).contiguous())
+    (kh2, pad_y), (_, pad_x) = s2d_taps(kh, pad), s2d_taps(kw, pad)
+    w2 = mat.reshape(cout, kh2, -1, 2, 2, 4)
+    w_i8 = operand.new_empty((cout, c_in, kh, kw))
+    for ky in range(kh):
+        dy, sy = divmod(ky - pad, 2)
+        for kx in range(kw):
+            dx, sx = divmod(kx - pad, 2)
+            w_i8[:, :, ky, kx] = w2[:, dy + pad_y, dx + pad_x, sy, sx, :c_in]
+    return w_i8
+
+
 def s2d_taps(k: int, pad: int) -> tuple[int, int]:
     """A stride-2 convolution's taps along one axis over the space-to-depth
     scratch (2 x 2 blocks): (taps, padding) of the stride-1 convolution that
@@ -210,7 +241,8 @@ class Plan:
     launch lays it out: the instantiation's (TPS, NS) (``RINGS``), the
     bytes of a halo plane (16 channels of the box), the offsets of the ring,
     the epilogues and the mbarriers from the 128-byte aligned base, and
-    ``smem``, the dynamic shared memory a block holds."""
+    ``smem``, the dynamic shared memory a block holds. ``size`` is the
+    input's (H, W), from which the GEMM op recomputes the plan."""
     route: str
     nb: int
     slices: int
@@ -229,6 +261,7 @@ class Plan:
     off_epi: int
     off_bar: int
     smem: int
+    size: tuple[int, int] | None = None
 
 
 @functools.lru_cache(maxsize=1024)  # a model has tens of geometries
@@ -242,16 +275,16 @@ def plan(n: int, c_in: int, h: int, w: int, cout: int, kh: int, kw: int, stride:
     if c_in <= 4 and stride == 2:
         (kh2, pad2), kw2 = s2d_taps(kh, pad), -(-s2d_taps(kw, pad)[0] // 4) * 4
         g = _plan("s2d", n, cout, (-(-h // 2), -(-w // 2), 16, kh2, kw2, 1, pad2), kh2 * kw2 // 4,
-                  (oh, ow), pad)
+                  (oh, ow), pad, (h, w))
         if g.smem <= SMEM_LIMIT:
             return g
     route = "halo" if (kh, kw, stride) == (3, 3, 1) else "gather16"
     return _plan(route, n, cout, (h, w, padded_channels(c_in), kh, kw, stride, pad),
-                 k_stages(c_in, kh, kw), (oh, ow), pad)
+                 k_stages(c_in, kh, kw), (oh, ow), pad, (h, w))
 
 
 def _plan(route: str, n: int, cout: int, gemm: tuple, stages: int, out: tuple[int, int],
-          pad: int) -> Plan:
+          pad: int, size: tuple[int, int] | None = None) -> Plan:
     """``plan`` once the route is chosen. NB is ``tile_n(cout)``, halved
     (down to 64) while the tiles do not fill half the card's SMs."""
     oh, ow = out
@@ -280,7 +313,7 @@ def _plan(route: str, n: int, cout: int, gemm: tuple, stages: int, out: tuple[in
     # bytes to align the base
     smem = off_bar + (2 * ns + 2 * HALO_CHUNKS + 2) * 8 + 128
     return Plan(route, nb, -(-cout // nb), stages, tw, th, box, pixel_tiles * -(-cout // nb),
-                gemm, out, pad, tps, ns, plane, off_ring, off_epi, off_bar, smem)
+                gemm, out, pad, tps, ns, plane, off_ring, off_epi, off_bar, smem, size)
 
 
 @dataclass
@@ -306,9 +339,10 @@ class Int8Weight:
         return self.others[key]
 
 
-@torch.no_grad()
 def prepare_weight(weight: torch.Tensor) -> Int8Weight:
-    """Quantize a float32 OIHW parameter (on its device) for ``int8_conv``."""
+    """Quantize a float32 OIHW parameter (on its device) for ``int8_conv``.
+    It reads the parameter detached, so it needs no ``no_grad`` (whose grad
+    toggles a trace of a weight-hotswap export would have to inline)."""
     w_i8, s_w = quantize_weight(weight.detach())
     return Int8Weight(w_i8, s_w.contiguous(), pack_weight(w_i8))
 
@@ -317,17 +351,18 @@ def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _check(x, w: Int8Weight, stride, padding, dilation, groups, out_dtype):
-    """The geometry the kernel (and so the port) takes, or a ValueError/TypeError."""
+def _check(x, w_shape: tuple, stride, padding, dilation, groups, out_dtype):
+    """The geometry the kernel (and so the port) takes for NCHW ``x`` and an
+    OIHW weight of ``w_shape``, or a ValueError/TypeError."""
     if groups != 1:
         raise ValueError(f"int8_conv takes groups=1, got {groups}")
     if _pair(dilation) != (1, 1):
         raise ValueError(f"int8_conv takes dilation 1, got {dilation}")
     if isinstance(padding, str):
         raise ValueError(f"int8_conv takes explicit padding, got {padding!r}")
-    if x.dim() != 4 or w.w_i8.dim() != 4 or x.shape[1] != w.w_i8.shape[1]:
+    if x.dim() != 4 or len(w_shape) != 4 or x.shape[1] != w_shape[1]:
         raise ValueError(f"int8_conv: input {tuple(x.shape)} against weight "
-                         f"{tuple(w.w_i8.shape)}")
+                         f"{tuple(w_shape)}")
     if x.dtype not in QUANTIZE:
         raise TypeError(f"int8_conv takes float32 or bfloat16 input, got {x.dtype}")
     if out_dtype not in ROUTES:
@@ -335,7 +370,7 @@ def _check(x, w: Int8Weight, stride, padding, dilation, groups, out_dtype):
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     if sh != sw or ph != pw:
         raise ValueError(f"int8_conv takes square stride and padding, got {stride}, {padding}")
-    kh, kw = w.w_i8.shape[2:]
+    kh, kw = w_shape[2:]
     oh = (x.shape[2] + 2 * ph - kh) // sh + 1
     ow = (x.shape[3] + 2 * pw - kw) // sw + 1
     if oh <= 0 or ow <= 0 or x.shape[0] == 0:
@@ -348,12 +383,19 @@ def int8_conv_plain(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The same function in plain PyTorch: the int32 sum from an exact
     float64 convolution of the int8 values, then the kernel's epilogue."""
-    x_i8 = quantize_input(x, s_x)
-    acc = torch.round(F.conv2d(x_i8.double(), w.w_i8.double(), stride=stride,
+    return _sums_plain(quantize_input(x, s_x), w.w_i8, w.s_w, s_x, bias, stride, padding,
+                       out_dtype)
+
+
+def _sums_plain(x_i8: torch.Tensor, w_i8: torch.Tensor, s_w: torch.Tensor, s_x: torch.Tensor,
+                bias: torch.Tensor | None, stride, padding, out_dtype: torch.dtype):
+    """The exact int32 sums of NCHW int8 ``x_i8`` with ``w_i8``, then the
+    kernel's epilogue (none for ``out_dtype=torch.int32``)."""
+    acc = torch.round(F.conv2d(x_i8.double(), w_i8.double(), stride=stride,
                                padding=padding)).to(torch.int32)
     if out_dtype == torch.int32:
         return acc
-    y = acc.float() * (s_x * w.s_w).view(1, -1, 1, 1)
+    y = acc.float() * (s_x * s_w).view(1, -1, 1, 1)
     if bias is not None:
         y = y + bias.float().view(1, -1, 1, 1)
     return y.to(out_dtype)
@@ -400,17 +442,19 @@ def quantize_s2d(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 def quantize_scratch(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torch.Tensor:
     """The quantize pass of ``geometry``'s route: the scratch its GEMM reads."""
-    if geometry.route == "s2d":
-        return quantize_s2d(x, s_x)
-    return quantize_nhwc(x, s_x, geometry.gemm[2])
+    return QUANTIZE_OP(x, s_x, geometry.route, geometry.gemm[2])
 
 
 def scratch_plain(x: torch.Tensor, s_x: torch.Tensor, geometry: Plan) -> torch.Tensor:
     """``quantize_scratch`` in plain PyTorch."""
+    return _scratch_plain(x, s_x, geometry.route, geometry.gemm[2])
+
+
+def _scratch_plain(x: torch.Tensor, s_x: torch.Tensor, route: str, cp: int) -> torch.Tensor:
     q = quantize_input(x, s_x).permute(0, 2, 3, 1)
-    if geometry.route == "s2d":  # 4 channels a pixel, 2 x 2 pixels a block
+    if route == "s2d":  # 4 channels a pixel, 2 x 2 pixels a block
         return space_to_depth(F.pad(q, (0, 4 - x.shape[1])).contiguous())
-    return F.pad(q, (0, geometry.gemm[2] - x.shape[1])).contiguous()
+    return F.pad(q, (0, cp - x.shape[1])).contiguous()
 
 
 def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
@@ -422,34 +466,31 @@ def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
     one), or None for the dynamic scale ``dynamic_scale(x)``. ``bias`` is
     the float32 parameter."""
     out_dtype = out_dtype or x.dtype
-    stride_, pad, oh, ow = _check(x, w, stride, padding, dilation, groups, out_dtype)
+    stride_, pad, _, _ = _check(x, w.w_i8.shape, stride, padding, dilation, groups, out_dtype)
     if s_x is None:
         s_x = dynamic_scale(x)
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "meta":
         return int8_conv_plain(x, w, s_x, bias, stride, padding, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    tensors = [w.w_i8, w.s_w, w.packed, s_x] + ([] if bias is None else [bias])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("int8_conv: the input, weight, scales and bias must share a device")
-    if s_x.dtype != torch.float32 or s_x.numel() != 1:
-        raise TypeError("int8_conv: s_x must be one float32 value")
-    if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()):
-        raise TypeError("int8_conv: the bias must be the contiguous float32 parameter")
-    if not x.is_contiguous():
-        raise ValueError("int8_conv kernel takes a contiguous NCHW input")
     n, c_in, h, wd = x.shape
-    if n * oh * ow >= 2**31 or n * (h + 1) * (wd + 1) * padded_channels(c_in) >= 2**31:
-        raise ValueError(f"int8_conv: input {tuple(x.shape)} too large for 32-bit indices")
-    geometry = plan(n, c_in, h, wd, w.w_i8.shape[0], *w.w_i8.shape[2:], stride_, pad)
-    operand = w.operand(geometry)
-    _check_operand(operand, geometry)
-    out = conv_nhwc(quantize_scratch(x, s_x, geometry), w, s_x, bias, geometry, out_dtype,
-                    operand)
-    int8_conv.route_launches[ROUTES[out_dtype][0]] += 1
-    int8_conv.geometry_launches[geometry.route] += 1
-    int8_conv.launches += 1
-    return out
+    kernel = tuple(w.w_i8.shape[2:])
+    geometry = plan(n, c_in, h, wd, w.w_i8.shape[0], *kernel, stride_, pad)
+    return int8_conv_ops(x, w.operand(geometry), w.s_w, s_x, bias, kernel, stride_, pad,
+                         out_dtype)
+
+
+def int8_conv_ops(x: torch.Tensor, operand: torch.Tensor, s_w: torch.Tensor,
+                  s_x: torch.Tensor, bias: torch.Tensor | None, kernel: tuple[int, int],
+                  stride: int, pad: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """``int8_conv`` on checked arguments, as the two ops: ``operand`` is
+    the B operand that the geometry's plan reads (``Int8Weight.operand``) of
+    a ``kernel`` (kh, kw) weight, ``s_w`` its scales. A serving graph with
+    baked int8 weights calls this on its buffers."""
+    n, c_in, h, w = x.shape
+    geometry = plan(n, c_in, h, w, s_w.shape[0], *kernel, stride, pad)
+    xq = QUANTIZE_OP(x, s_x, geometry.route, geometry.gemm[2])
+    return GEMM_OP(xq, operand, s_w, s_x, bias, c_in, *kernel, h, w, stride, pad, out_dtype)
 
 
 def _check_operand(operand: torch.Tensor, geometry: Plan) -> None:
@@ -462,35 +503,148 @@ def _check_operand(operand: torch.Tensor, geometry: Plan) -> None:
         raise ValueError(f"int8_conv: {geometry} needs {geometry.smem} bytes of shared memory")
 
 
+def _check_scratch(xq: torch.Tensor, geometry: Plan) -> None:
+    h, wd, cp = geometry.gemm[:3]
+    if xq.dtype != torch.int8 or not xq.is_contiguous() or tuple(xq.shape[1:]) != (h, wd, cp):
+        raise ValueError(f"int8_conv: the scratch {tuple(xq.shape)} {xq.dtype} is not "
+                         f"{geometry.route}'s ({h}, {wd}, {cp})")
+
+
 def conv_nhwc(xq: torch.Tensor, w: Int8Weight, s_x: torch.Tensor, bias: torch.Tensor | None,
               geometry: Plan, out_dtype: torch.dtype,
               operand: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's second launch alone, the GEMM: ``geometry``'s scratch
-    ``xq`` (``quantize_scratch``) -> NCHW ``out_dtype`` on the card.
-    ``int8_conv`` checks its arguments; this checks the layouts."""
+    ``xq`` (``quantize_scratch``) -> NCHW ``out_dtype``, through the GEMM op
+    (its plain version on CPU tensors)."""
     if operand is None:
         operand = w.operand(geometry)
-        _check_operand(operand, geometry)
-    h, wd, cp, kh, kw, stride, pad = geometry.gemm
-    n, cout = xq.shape[0], w.w_i8.shape[0]
-    if xq.dtype != torch.int8 or not xq.is_contiguous() or tuple(xq.shape[1:]) != (h, wd, cp):
-        raise ValueError(f"int8_conv: the scratch {tuple(xq.shape)} {xq.dtype} is not "
-                         f"{geometry.route}'s ({h}, {wd}, {cp})")
+    _check_operand(operand, geometry)
+    _check_scratch(xq, geometry)
+    stride = 2 if geometry.route == "s2d" else geometry.gemm[5]  # the s2d GEMM's is 1
+    _, c_in, kh, kw = w.w_i8.shape
+    return GEMM_OP(xq, operand, w.s_w, s_x, bias, c_in, kh, kw, *geometry.size, stride,
+                   geometry.pad, out_dtype)
+
+
+# ------------------------------------------------------------------ the ops
+
+@torch.library.custom_op("when2com::int8_quantize", mutates_args=(), device_types="cpu")
+def int8_quantize_op(x: torch.Tensor, s_x: torch.Tensor, route: str, cp: int) -> torch.Tensor:
+    """The scratch that ``route``'s GEMM reads from NCHW ``x``: (N, H, W, cp)
+    int8, or the s2d route's (N, ceil(H/2), ceil(W/2), 16). The CPU
+    implementation: the plain version."""
+    return _scratch_plain(x, s_x, route, cp)
+
+
+@int8_quantize_op.register_fake
+def _quantize_fake(x, s_x, route, cp):
+    n, _, h, w = x.shape
+    shape = (n, (h + 1) // 2, (w + 1) // 2, 16) if route == "s2d" else (n, h, w, cp)
+    return x.new_empty(shape, dtype=torch.int8)
+
+
+def _quantize_launch(x, s_x, route, cp):
+    """The CUDA implementation: the quantize pass, or an error."""
+    if x.dtype not in QUANTIZE:
+        raise TypeError(f"int8_conv takes float32 or bfloat16 input, got {x.dtype}")
+    if s_x.device != x.device:
+        raise ValueError("int8_conv: the input, weight, scales and bias must share a device")
+    if s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise TypeError("int8_conv: s_x must be one float32 value")
+    if not x.is_contiguous():
+        raise ValueError("int8_conv kernel takes a contiguous NCHW input")
+    n, c_in, h, w = x.shape
+    if n * (h + 1) * (w + 1) * cp >= 2**31:
+        raise ValueError(f"int8_conv: input {tuple(x.shape)} too large for 32-bit indices")
+    if route == "s2d":
+        if c_in > 4:
+            raise ValueError(f"int8_conv: the s2d scratch takes Cin <= 4, got {c_in}")
+        return quantize_s2d(x, s_x)
+    if cp < c_in or cp % 16:
+        raise ValueError(f"int8_conv: {cp} scratch channels for Cin {c_in}")
+    return quantize_nhwc(x, s_x, cp)
+
+
+def _gemm_plan(xq, s_w, c_in, kh, kw, h, w, stride, pad) -> Plan:
+    return plan(xq.shape[0], c_in, h, w, s_w.shape[0], kh, kw, stride, pad)
+
+
+@torch.library.custom_op("when2com::int8_gemm", mutates_args=(), device_types="cpu")
+def int8_gemm_op(xq: torch.Tensor, operand: torch.Tensor, s_w: torch.Tensor,
+                 s_x: torch.Tensor, bias: torch.Tensor | None, c_in: int, kh: int, kw: int,
+                 h: int, w: int, stride: int, pad: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The GEMM of an ``h`` x ``w`` input's convolution with a (len(s_w),
+    c_in, kh, kw) int8 weight on its scratch ``xq`` (``int8_quantize``):
+    NCHW ``out_dtype``. ``operand`` is the weight as the plan's B operand
+    (``Int8Weight.operand``), ``s_w`` its per-channel scales. The CPU
+    implementation: the exact sums of the scratch's int8 values with the
+    weight unpacked from the operand (``unpack_weight``)."""
+    geometry = _gemm_plan(xq, s_w, c_in, kh, kw, h, w, stride, pad)
+    _check_operand(operand, geometry)
+    _check_scratch(xq, geometry)
+    w_i8 = unpack_weight(operand, geometry.route, pad, s_w.shape[0], c_in, kh, kw)
+    n = xq.shape[0]
+    if geometry.route == "s2d":  # the blocks back to pixels
+        h2, w2 = geometry.gemm[:2]
+        xq = xq.reshape(n, h2, w2, 2, 2, 4).permute(0, 1, 3, 2, 4, 5).reshape(
+            n, 2 * h2, 2 * w2, 4)[:, :h, :w]
+    x_i8 = xq[..., :c_in].permute(0, 3, 1, 2)
+    # contiguous NCHW, as the kernel writes (the conv of the NHWC view is not)
+    return _sums_plain(x_i8, w_i8, s_w, s_x, bias, stride, pad, out_dtype).contiguous()
+
+
+@int8_gemm_op.register_fake
+def _gemm_fake(xq, operand, s_w, s_x, bias, c_in, kh, kw, h, w, stride, pad, out_dtype):
+    out = ((h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1)
+    return xq.new_empty((xq.shape[0], s_w.shape[0], *out), dtype=out_dtype)
+
+
+def _gemm_launch(xq, operand, s_w, s_x, bias, c_in, kh, kw, h, w, stride, pad, out_dtype):
+    """The CUDA implementation: the GEMM kernel, or an error."""
+    tensors = [operand, s_w, s_x] + ([] if bias is None else [bias])
+    if any(t.device != xq.device for t in tensors):
+        raise ValueError("int8_conv: the input, weight, scales and bias must share a device")
+    if out_dtype not in ROUTES:
+        raise TypeError(f"int8_conv writes float32, bfloat16 or int32, got {out_dtype}")
+    if s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise TypeError("int8_conv: s_x must be one float32 value")
+    if s_w.dtype != torch.float32 or s_w.dim() != 1 or not s_w.is_contiguous():
+        raise TypeError("int8_conv: s_w must be the contiguous float32 (Cout,) scales")
+    if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()):
+        raise TypeError("int8_conv: the bias must be the contiguous float32 parameter")
+    geometry = _gemm_plan(xq, s_w, c_in, kh, kw, h, w, stride, pad)
+    n, cout = xq.shape[0], s_w.shape[0]
     oh, ow = geometry.out
+    if n * oh * ow >= 2**31:
+        raise ValueError(f"int8_conv: output ({n}, {cout}, {oh}, {ow}) too large for 32-bit "
+                         "indices")
+    _check_operand(operand, geometry)
+    _check_scratch(xq, geometry)
+    gh, gw, cp, gkh, gkw, gstride, gpad = geometry.gemm
     out = torch.empty((n, cout, oh, ow), dtype=out_dtype, device=xq.device)
     lib = _build.load("int8_conv")
     with _on(xq.device):
         rc = getattr(lib, ROUTES[out_dtype][1])(
-            xq.data_ptr(), operand.data_ptr(), w.s_w.data_ptr(), s_x.data_ptr(),
+            xq.data_ptr(), operand.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, wd, cp, cout, kh, kw, stride, pad, oh, ow, ROUTE_IDS[geometry.route],
+            n, gh, gw, cp, cout, gkh, gkw, gstride, gpad, oh, ow, ROUTE_IDS[geometry.route],
             geometry.nb, geometry.tps, geometry.ns, geometry.tw, geometry.th, geometry.plane,
             geometry.off_ring, geometry.off_epi, geometry.off_bar, geometry.smem,
             _stream(xq.device))
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed ({geometry.route}): CUDA error {rc}")
+    int8_conv.route_launches[ROUTES[out_dtype][0]] += 1
+    int8_conv.geometry_launches[geometry.route] += 1
+    int8_conv.launches += 1
     return out
 
+
+# registered straight with the dispatcher, as K1's (upsample_argmax.py)
+torch.library.impl("when2com::int8_quantize", "cuda", _quantize_launch)
+torch.library.impl("when2com::int8_gemm", "cuda", _gemm_launch)
+QUANTIZE_OP = torch.ops.when2com.int8_quantize.default  # what the wrappers call
+GEMM_OP = torch.ops.when2com.int8_gemm.default
 
 int8_conv.launches = 0
 int8_conv.route_launches = {route: 0 for route, _ in ROUTES.values()}

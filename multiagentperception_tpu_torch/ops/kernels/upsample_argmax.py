@@ -12,7 +12,11 @@ tensor it launches ``csrc/upsample_argmax.cu`` (entry point
 ``upsample_argmax.route_launches``), which never writes the
 full-resolution logits; on a CPU tensor it runs ``upsample_argmax_plain``,
 the same function in plain PyTorch, and so it does on a ``meta`` tensor,
-which computes nothing (the bench counts the model's FLOPs on them). The kernel
+which computes nothing (the bench counts the model's FLOPs on them). On CPU
+and CUDA tensors the wrapper calls the custom op ``when2com::upsample_argmax``
+(``torch.library``): its CPU implementation is the plain version, its CUDA
+one the launch (which counts), and its fake one only allocates the class
+map, so ``torch.export`` keeps the op as one node of the graph. The kernel
 takes its span path (a lane per run of ``SPAN`` output columns, the class
 loop unrolled) where ``shared_spans`` holds for the output width and the
 logits have the model's 11 classes, and its per-pixel path elsewhere.
@@ -84,10 +88,26 @@ def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     int32 class map."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW logits, got shape {tuple(x.shape)}")
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "meta":
         return upsample_argmax_plain(x, out_h, out_w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return OP(x, out_h, out_w)
+
+
+@torch.library.custom_op("when2com::upsample_argmax", mutates_args=(), device_types="cpu")
+def upsample_argmax_op(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return upsample_argmax_plain(x, out_h, out_w)
+
+
+@upsample_argmax_op.register_fake
+def _fake(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    return x.new_empty((x.shape[0], out_h, out_w), dtype=torch.int32)
+
+
+def _launch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The op's CUDA implementation: the kernel, or an error."""
     if x.dtype not in ROUTES:
         raise TypeError(f"upsample_argmax kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -117,6 +137,11 @@ def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     upsample_argmax.launches += 1
     return out
 
+
+# registered straight with the dispatcher, without custom_op's per-call
+# Python wrapper (PERF.md section 6: its host cost on the int8 eval path)
+torch.library.impl("when2com::upsample_argmax", "cuda", _launch)
+OP = torch.ops.when2com.upsample_argmax.default  # what the wrapper calls
 
 upsample_argmax.launches = 0
 upsample_argmax.route_launches = {route: 0 for route, _ in ROUTES.values()}

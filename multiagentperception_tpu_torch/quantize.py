@@ -22,6 +22,15 @@ only ``type(mod) is nn.Conv``, only ``type(mod) is Conv2d`` is swapped.
 in the network dtype. BatchNorm, the communication step, the key/query
 MLPs and the resize stay in the network dtype, as in JAX.
 
+For a serving export, ``bake_int8`` quantizes and packs every eligible
+conv's weights once, outside any trace, into a copy of the model whose
+eligible convs are ``BakedInt8Conv`` modules: their buffers hold the int8
+weights as the B operand of the conv's plan at the export's input shape
+(the one copy of them: the GEMM's CPU version unpacks it), the per-channel
+scales and the static activation scale, so that the exported
+graph holds no weight quantization (JAX constant-folds them the same way,
+export.py:64-67).
+
 Scales are ``{module name: float}``: the name is the conv's
 ``named_modules`` name (``u_encoder.feature_backbone.feature_backbone.conv1``),
 the port's counterpart of JAX's flax path tuple. ``convert.scales_from_flax``
@@ -30,6 +39,7 @@ carries JAX's scales across.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Callable
 
@@ -39,8 +49,11 @@ from torch import nn
 from multiagentperception_tpu_torch.models.blocks import Conv2d
 from multiagentperception_tpu_torch.ops.kernels.int8_conv import (
     EPS,
+    _check,
     dynamic_scale,
     int8_conv,
+    int8_conv_ops,
+    plan,
     prepare_weight,
     quantize_input,
     quantize_weight,
@@ -48,7 +61,8 @@ from multiagentperception_tpu_torch.ops.kernels.int8_conv import (
 
 __all__ = ["quantize_weight", "quantize_activation", "default_skip", "eligible_convs",
            "Int8Convs", "calibrate_activations", "scales_to_json", "scales_from_json",
-           "quantized_apply", "make_int8_eval_fn"]
+           "quantized_apply", "make_int8_eval_fn", "BakedInt8Conv", "conv_input_shapes",
+           "bake_int8"]
 
 Skip = Callable[[nn.Module], bool]
 
@@ -183,3 +197,81 @@ def make_int8_eval_fn(model: nn.Module, inference: str = "activated",
             return model(images, **kwargs)
 
     return make_eval_fn(model, inference=inference, apply_fn=apply)
+
+
+class BakedInt8Conv(nn.Module):
+    """An eligible ``Conv2d`` with its int8 weights baked in: the buffers
+    ``operand`` (the int8 weight as the kernel's B operand for the plan of
+    the one input shape it serves), ``s_w`` (Cout,), ``bias`` and ``s_x``
+    (the static activation scale, a float32 scalar; None scales
+    dynamically). Its forward is the swap's (``Int8Convs``) on these
+    buffers, bit for bit, without the float weight."""
+
+    def __init__(self, conv: Conv2d, weight, operand: torch.Tensor, s_x: float | None):
+        super().__init__()
+        self.weight_shape = tuple(weight.w_i8.shape)
+        self.register_buffer("operand", operand)
+        self.register_buffer("s_w", weight.s_w)
+        self.register_buffer("bias", None if conv.bias is None else conv.bias.detach().clone())
+        self.register_buffer("s_x", None if s_x is None else torch.tensor(
+            float(s_x), dtype=torch.float32, device=operand.device))
+        self.stride, self.padding = conv.stride, conv.padding
+        self.dilation, self.groups = conv.dilation, conv.groups
+        self.compute_dtype = conv.compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.compute_dtype or x.dtype
+        stride, pad, _, _ = _check(x, self.weight_shape, self.stride, self.padding,
+                                   self.dilation, self.groups, out_dtype)
+        s_x = dynamic_scale(x) if self.s_x is None else self.s_x
+        return int8_conv_ops(x, self.operand, self.s_w, s_x, self.bias, self.weight_shape[2:],
+                             stride, pad, out_dtype)
+
+
+def conv_input_shapes(model: nn.Module, input_shape: tuple,
+                      input_dtype: torch.dtype = torch.float32, skip: Skip | None = default_skip,
+                      **forward_kwargs) -> dict:
+    """``{name: input shape}`` of every eligible conv in one eval-mode
+    forward of images shaped ``input_shape``, run by a copy of the model on
+    the ``meta`` device (nothing computed, no kernel launched). Each conv
+    must see one shape."""
+    shapes: dict[str, tuple] = {}
+
+    def recorder(name: str):
+        def hook(_mod, args):
+            shape = tuple(args[0].shape)
+            if shapes.setdefault(name, shape) != shape:
+                raise ValueError(f"{name} sees inputs {shapes[name]} and {shape}: a baked "
+                                 "int8 conv serves one shape")
+        return hook
+
+    meta = copy.deepcopy(model).to("meta").eval()
+    for name, mod in eligible_convs(meta, skip):
+        mod.register_forward_pre_hook(recorder(name))
+    with torch.no_grad():
+        meta(torch.empty(input_shape, dtype=input_dtype, device="meta"), **forward_kwargs)
+    return shapes
+
+
+@torch.no_grad()
+def bake_int8(model: nn.Module, input_shape: tuple, input_dtype: torch.dtype = torch.float32,
+              act_scales: dict | None = None, skip: Skip | None = default_skip,
+              **forward_kwargs) -> nn.Module:
+    """A copy of ``model`` in eval mode whose eligible convs are
+    ``BakedInt8Conv`` modules for images shaped ``input_shape`` (each conv's
+    input shape, and so its plan, from ``conv_input_shapes``): weights
+    quantized and packed once, here, and ``act_scales`` (``{name: scale}``)
+    as static scales; a conv without one scales dynamically. ``model`` is
+    unchanged."""
+    shapes = conv_input_shapes(model, input_shape, input_dtype, skip, **forward_kwargs)
+    baked = copy.deepcopy(model).eval()
+    for name, mod in eligible_convs(baked, skip):
+        weight = prepare_weight(mod.weight)
+        n, c_in, h, w = shapes[name]
+        _, _, kh, kw = mod.weight.shape  # square stride and padding (BakedInt8Conv checks)
+        operand = weight.operand(plan(n, c_in, h, w, mod.out_channels, kh, kw, mod.stride[0],
+                                      mod.padding[0]))
+        scale = None if act_scales is None else act_scales.get(name)
+        parent, _, child = name.rpartition(".")
+        setattr(baked.get_submodule(parent), child, BakedInt8Conv(mod, weight, operand, scale))
+    return baked

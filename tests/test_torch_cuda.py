@@ -637,3 +637,98 @@ def test_int8_eval_on_the_card_launches_k4_per_conv(cuda):
         metrics[dev] = ev.last_eval_metrics.confusion_matrix.astype(np.int64)
     moved = np.abs(metrics["cuda"] - metrics["cpu"]).sum() // 2
     assert moved <= 0.01 * metrics["cpu"].sum()
+
+
+# ------------------------------------------------------------------ the ops and the serving export
+
+def test_upsample_argmax_op_launches_and_counts(cuda):
+    """``torch.ops.when2com.upsample_argmax`` called directly, not through
+    the wrapper: its CUDA implementation launches K1 and counts."""
+    x = torch.randn(12, 11, 16, 16, generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = k1.upsample_argmax.launches
+    checks.check_upsample_argmax(x, 512, 512, fn=torch.ops.when2com.upsample_argmax)
+    assert k1.upsample_argmax.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_comm_fusion_op_launches_and_counts(cuda, dtype):
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(2, 6, 1024, generator=g).to(cuda, dtype)
+    k = (torch.randn(2, 6, 1024, generator=g) * 2 / 1024 ** 0.5).to(cuda, dtype)
+    v = torch.randn(2, 6, 512, 16, 16, generator=g).to(cuda, dtype)
+    before = dict(k2.comm_fusion.route_launches)
+    checks.check_comm_fusion(q, k, v, "activated", 0.001, fn=torch.ops.when2com.comm_fusion)
+    route = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert k2.comm_fusion.route_launches == {**before, route: before[route] + 1}
+
+
+@pytest.mark.parametrize("name", ["stem_7x7s2_cin3", "3x3s1", "3x3s2", "multi_halo64"])
+def test_int8_ops_launch_and_count(cuda, name):
+    """K4's two ops called directly: the scratch, the sums and the output
+    equal their plain versions; the GEMM op counts its launches."""
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    cin, cout, side, k, stride, pad, bias, n, route = K4_CONVS[name]
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(n, cin, side, side, generator=gen).to(cuda)
+    w = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(cuda)
+    b = torch.randn(cout, generator=gen).to(cuda) if bias else None
+    before, routed = k4.int8_conv.launches, k4.int8_conv.geometry_launches[route]
+    checks.check_int8_conv(x, w, b, stride, pad, None, torch.float32, ops=True)
+    assert k4.int8_conv.launches == before + 2
+    assert k4.int8_conv.geometry_launches[route] == routed + 2
+
+
+def _toy_mimocom(device, size: int = 128):
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+
+    cfg = normalize_config({
+        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": True},
+        "data": {"img_rows": size, "img_cols": size}})
+    model = init_weights(get_model(cfg, 11), 0).to(device).eval()
+    x = torch.randn(2, 3, size, size, 3, generator=torch.Generator().manual_seed(8)) * 0.5
+    return model, x.to(device)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float32", "int8"])
+def test_serving_artifact_on_the_card(cuda, int8):
+    """An artifact exported on the card runs there: tracing launches
+    nothing, the call launches K1 and K2 once (and K4 48 times in int8), and
+    its outputs equal the eager serving function's."""
+    from multiagentperception_tpu_torch import quantize as tq
+    from multiagentperception_tpu_torch.export import export_serving, load_serving, make_eval_fn
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    model, x = _toy_mimocom(cuda)
+    scales = tq.calibrate_activations(model, [x], inference="activated", full_res=False) \
+        if int8 else None
+    kernels = (k1.upsample_argmax, k2.comm_fusion, k4.int8_conv)
+    before = [kern.launches for kern in kernels]
+    artifact = load_serving(export_serving(model, tuple(x.shape), int8=int8, act_scales=scales))
+    assert [kern.launches for kern in kernels] == before  # the trace ran the fake kernels
+    cls, prob, nc = artifact(x)
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1, 1, 48 if int8 else 0]
+    eager = tq.make_int8_eval_fn(model, act_scales=scales) if int8 else make_eval_fn(model)
+    want = eager(x)
+    assert torch.equal(cls, want[0])
+    torch.testing.assert_close(prob, want[1], rtol=0, atol=1e-6)
+    assert torch.equal(nc, want[2])
+
+
+def test_cpu_artifact_moved_to_the_card_launches_the_kernels(cuda):
+    """An artifact exported on the CPU, loaded with ``device='cuda'``, runs
+    K1 and K2 on the card and gives the eager card outputs."""
+    from multiagentperception_tpu_torch.export import export_serving, load_serving, make_eval_fn
+
+    model, x = _toy_mimocom("cpu")
+    artifact = load_serving(export_serving(model, tuple(x.shape)), device=cuda)
+    before = (k1.upsample_argmax.launches, k2.comm_fusion.launches)
+    cls, prob, nc = artifact(x.to(cuda))
+    assert (k1.upsample_argmax.launches, k2.comm_fusion.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = make_eval_fn(model.to(cuda))(x.to(cuda))
+    assert torch.equal(cls, want[0])
+    torch.testing.assert_close(prob, want[1], rtol=0, atol=1e-6)
+    assert torch.equal(nc, want[2])

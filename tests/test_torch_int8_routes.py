@@ -48,16 +48,6 @@ N_FLAGSHIP = 120  # the bench's batch 20 x 6 agents
 WANT_ROUTE = {(7, 2): "s2d", (3, 1): "halo", (3, 2): "gather16", (1, 2): "gather16"}
 
 
-def unpack_weight(packed: torch.Tensor, c_in: int, kh: int, kw: int, cout: int) -> torch.Tensor:
-    """``k4.pack_weight``'s inverse: the OIHW int8 weight back from the packed one."""
-    slices, stages, _, nb, _ = packed.shape
-    chunks = stages // (kh * kw)
-    mat = packed.permute(0, 3, 1, 2, 4).reshape(slices * nb, stages * k4.K_STEP)[:cout]
-    hwio = mat.reshape(cout, chunks, kh * kw, 64).permute(0, 2, 1, 3).reshape(
-        cout, kh, kw, chunks * 64)[..., :c_in]
-    return hwio.permute(0, 3, 1, 2).contiguous()
-
-
 def _assert_fits(g: k4.Plan) -> None:
     assert g.smem <= k4.SMEM_LIMIT, g
     assert g.nb in (64, 128, 256) and g.tiles > 0 and g.stages > 0, g
@@ -157,9 +147,21 @@ def test_pack_weight_unpacks_to_w_i8(cout, cin, k, nb):
     nb = nb or k4.tile_n(cout)
     stages = k4.k_stages(cin, k, k)
     assert tuple(packed.shape) == (-(-cout // nb), stages, 4, nb, 16)
-    assert torch.equal(unpack_weight(packed, cin, k, k, cout), w)
+    assert torch.equal(k4.unpack_weight(packed, "halo", 0, cout, cin, k, k), w)
     # everything but w_i8's bytes is zero: padding channels, K's tail, Cout's tail
     assert int(packed.ne(0).sum()) == int(w.ne(0).sum())
+
+
+@pytest.mark.parametrize("cout,cin,k,pad,nb", [(64, 3, 7, 3, 64), (64, 3, 7, 3, 128),
+                                               (16, 4, 3, 1, 64), (24, 1, 5, 2, 64),
+                                               (8, 2, 4, 1, 64), (300, 3, 2, 0, 256)])
+def test_unpack_weight_inverts_pack_s2d(cout, cin, k, pad, nb):
+    """The s2d route's B operand back to the OIHW weight: what the GEMM op's
+    CPU version convolves with."""
+    rng = np.random.default_rng(cout + cin + k + pad)
+    w = torch.from_numpy(rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8))
+    packed = k4.pack_s2d(w, pad, nb)
+    assert torch.equal(k4.unpack_weight(packed, "s2d", pad, cout, cin, k, k), w)
 
 
 def test_pack_orders_k_by_chunk_then_tap():
@@ -300,7 +302,7 @@ def test_small_cin_pads_to_16_channels(cin, k, stride, route):
         w = torch.from_numpy(np.random.default_rng(cin).integers(
             -127, 128, (16, cin, k, k), dtype=np.int8))
         packed = k4.pack_weight(w)
-        assert torch.equal(unpack_weight(packed, cin, k, k, 16), w)
+        assert torch.equal(k4.unpack_weight(packed, route, pad, 16, cin, k, k), w)
     if k == 41:
         assert k4._plan("s2d", 2, 16, (23, 23, 16, 21, 24, 1, 10), 126, g.out, pad).smem > \
             k4.SMEM_LIMIT

@@ -17,6 +17,7 @@ import torch
 
 from multiagentperception_tpu.ops.pallas.comm_fusion import fused_comm_step
 from multiagentperception_tpu.ops.pallas.upsample_argmax import upsample_argmax_pallas
+from multiagentperception_tpu_torch.ops.kernels import checks
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.ops.resize import _weight_matrix
@@ -125,3 +126,145 @@ def test_comm_fusion_rejects_unknown_mode():
     q, k, v = (torch.from_numpy(a) for a in _comm_inputs())
     with pytest.raises(ValueError, match="mode"):
         k2.comm_fusion(q, k, v, mode="topk")
+
+
+def test_comm_fusion_plain_returns_three_distinct_tensors():
+    """In softmax mode ``coef`` equals ``soft`` but is a tensor of its own:
+    the custom op's outputs may not alias each other."""
+    q, k, v = (torch.from_numpy(a) for a in _comm_inputs())
+    for mode in MODES:
+        fused, coef, soft = k2.comm_fusion_plain(q, k, v, mode=mode, diag_bias=0.001)
+        assert len({t.untyped_storage().data_ptr() for t in (fused, coef, soft)}) == 3
+        if mode == "softmax":
+            assert torch.equal(coef, soft)
+
+
+# ----------------------------------------------------------------- the ops
+
+# (Cin, Cout, side, kernel, stride, padding, bias, images): a conv of each
+# GEMM route (s2d stem, halo 3x3/1, gather16 3x3/2 and 1x1/2)
+K4_OPS = {"s2d": (3, 16, 13, 7, 2, 3, False, 2), "halo": (8, 24, 9, 3, 1, 1, True, 2),
+          "gather16_3x3s2": (32, 16, 9, 3, 2, 1, False, 1),
+          "gather16_1x1s2": (16, 32, 9, 1, 2, 0, True, 2)}
+
+
+def _k4_inputs(name: str):
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    cin, cout, side, k, stride, pad, bias, n = K4_OPS[name]
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(n, cin, side, side, generator=g)
+    weight = torch.randn(cout, cin, k, k, generator=g) / (cin * k * k) ** 0.5
+    w = k4.prepare_weight(weight)
+    b = torch.randn(cout, generator=g) if bias else None
+    s_x = k4.dynamic_scale(x)
+    geometry = k4.plan(n, cin, side, side, cout, k, k, stride, pad)
+    xq = k4.scratch_plain(x, s_x, geometry)
+    gemm = (xq, w.operand(geometry), w.s_w, s_x, b, cin, k, k, side, side, stride, pad)
+    return x, weight, w, b, s_x, geometry, gemm
+
+
+def test_ops_are_registered_in_the_namespace():
+    from multiagentperception_tpu_torch.ops import kernels
+
+    assert kernels.NAMESPACE == "when2com"
+    for name in kernels.OPS:
+        assert hasattr(getattr(torch.ops.when2com, name), "default"), name
+
+
+def test_upsample_argmax_op_cpu_is_the_plain_version():
+    """Through ``torch.ops.when2com`` on CPU tensors, with the check the
+    card runs (``checks.check_upsample_argmax``)."""
+    x = torch.from_numpy(_logits()).permute(0, 3, 1, 2).contiguous()
+    assert torch.equal(torch.ops.when2com.upsample_argmax(x, 64, 64),
+                       k1.upsample_argmax_plain(x, 64, 64))
+    res = checks.check_upsample_argmax(x, 64, 64, fn=torch.ops.when2com.upsample_argmax)
+    assert res["pixel_agreement"] == 1.0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_comm_fusion_op_cpu_is_the_plain_version(mode):
+    q, k, v = (torch.from_numpy(a) for a in _comm_inputs())
+    got = torch.ops.when2com.comm_fusion(q, k, v, mode, 0.001, 0.2)
+    for a, b in zip(got, k2.comm_fusion_plain(q, k, v, mode, 0.001, 0.2)):
+        assert torch.equal(a, b)
+    checks.check_comm_fusion(q, k, v, mode, 0.001, fn=torch.ops.when2com.comm_fusion)
+
+
+@pytest.mark.parametrize("name", list(K4_OPS))
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "s32"])
+def test_int8_ops_cpu_are_the_plain_version(name, out_dtype):
+    """The quantize op writes ``scratch_plain``'s scratch and the GEMM op on
+    it gives ``int8_conv_plain``'s sums and outputs, to the bit."""
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    x, weight, w, b, s_x, geometry, gemm = _k4_inputs(name)
+    xq = torch.ops.when2com.int8_quantize(x, s_x, geometry.route, geometry.gemm[2])
+    assert torch.equal(xq, gemm[0])
+    got = torch.ops.when2com.int8_gemm(*gemm, out_dtype)
+    stride, pad = gemm[-2:]
+    want = k4.int8_conv_plain(x, w, s_x, b, stride, pad, out_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(k4.int8_conv(x, w, None, b, stride, pad, out_dtype=out_dtype), want)
+    assert torch.equal(k4.conv_nhwc(xq, w, s_x, b, geometry, out_dtype), want)
+    checks.check_int8_conv(x, weight, b, stride, pad, None, out_dtype, ops=True)
+
+
+def _op_calls():
+    """(name, op, args) of each op on CPU tensors."""
+    x = torch.from_numpy(_logits()).permute(0, 3, 1, 2).contiguous()
+    q, k, v = (torch.from_numpy(a) for a in _comm_inputs())
+    calls = [("upsample_argmax", torch.ops.when2com.upsample_argmax.default, (x, 64, 48)),
+             ("comm_fusion", torch.ops.when2com.comm_fusion.default,
+              (q, k, v, "activated", 0.001, 0.2))]
+    for name in ("s2d", "gather16_1x1s2"):
+        xx, _, _, _, s_x, geometry, gemm = _k4_inputs(name)
+        calls.append((f"int8_quantize_{name}", torch.ops.when2com.int8_quantize.default,
+                      (xx, s_x, geometry.route, geometry.gemm[2])))
+        calls.append((f"int8_gemm_{name}", torch.ops.when2com.int8_gemm.default,
+                      (*gemm, torch.bfloat16)))
+    return calls
+
+
+@pytest.mark.parametrize("index", range(6), ids=lambda i: ["upsample_argmax", "comm_fusion",
+                                                           "int8_quantize_s2d",
+                                                           "int8_gemm_s2d",
+                                                           "int8_quantize_gather16",
+                                                           "int8_gemm_gather16"][i])
+def test_fake_implementation_matches_the_real_one(index):
+    """Under fake tensors (as ``torch.export`` traces) each op allocates
+    outputs of the real implementation's shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _, op, args = _op_calls()[index]
+    real = op(*args)
+    with FakeTensorMode() as mode:
+        fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        fake = op(*fake_args)
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(t.shape, t.dtype) for t in fake] == [(t.shape, t.dtype) for t in real]
+
+
+@pytest.mark.parametrize("index", range(6), ids=lambda i: ["upsample_argmax", "comm_fusion",
+                                                           "int8_quantize_s2d",
+                                                           "int8_gemm_s2d",
+                                                           "int8_quantize_gather16",
+                                                           "int8_gemm_gather16"][i])
+def test_opcheck_on_the_cpu_implementations(index):
+    """``torch.library.opcheck``: the schema, the fake implementation and
+    the dispatcher's registrations agree with the CPU implementation."""
+    _, op, args = _op_calls()[index]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_count_flops_still_counts_the_plain_versions(train):
+    """On ``meta`` tensors the wrappers take their plain versions, not the
+    ops, so the bench's FLOP count (and so its MFU) is the one read before
+    the kernels became ops, at 2 x 3 agents at 64x64."""
+    from multiagentperception_tpu_torch import bench
+
+    want = {False: (4034135040, 2923576320), True: (11870078976, 8550623232)}[train]
+    assert bench.count_flops(2, 64, 3, train) == want

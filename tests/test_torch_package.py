@@ -141,3 +141,46 @@ def test_unported_configs_raise_not_implemented():
     cfg = load_config(str(ROOT / "configs" / "extensions" / "mrms_when2com_topk.yml"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, 11)
+
+
+def test_serving_modules_load_no_jax_module():
+    code = (
+        "import json, sys\n"
+        "import multiagentperception_tpu_torch.export_serving\n"
+        "import multiagentperception_tpu_torch.serve\n"
+        "import multiagentperception_tpu_torch.visual\n"
+        "import multiagentperception_tpu_torch.visualize\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "multiagentperception_tpu_torch.visual" in loaded
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
+    assert not bad, f"the port pulled in {bad}"
+
+
+def test_importing_the_kernels_registers_every_op_without_the_models():
+    code = (
+        "import json, sys, torch\n"
+        "import multiagentperception_tpu_torch.ops.kernels as kernels\n"
+        "ops = [hasattr(getattr(torch.ops.when2com, n), 'default') for n in kernels.OPS]\n"
+        "print(json.dumps([ops, sorted(sys.modules)]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120)
+    ops, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert ops == [True] * 4
+    assert not [m for m in loaded if m.startswith("multiagentperception_tpu_torch.models")]
+
+
+@pytest.mark.parametrize("cli", ["export_serving", "serve", "visualize"])
+def test_serving_clis_default_to_the_card(no_card, cli, tmp_path):
+    import importlib
+
+    main = importlib.import_module(f"multiagentperception_tpu_torch.{cli}").main
+    args = {"export_serving": ["--config", str(FLAGSHIP), "--out", str(tmp_path / "m.pt2")],
+            "serve": ["--config", str(FLAGSHIP), "--artifact", str(tmp_path / "m.pt2")],
+            "visualize": ["--config", str(FLAGSHIP), "--model_path", str(tmp_path / "x.pkl")]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args[cli])

@@ -142,7 +142,13 @@ and the script exits non-zero:
    and scales, TF32 off: in bf16 the confusion matrices within 0.1% of
    the pixels and the bandwidth equal; in float32 within 1%, the bandwidth
    reported (``int8_card_vs_cpu`` says why). Phase 9's bench lines hold
-   the int8 keys, and its int8 run's K4 launches.
+   the int8 keys, and its int8 run's K4 launches. Then the same on trained
+   weights: the flagship at 128x128 trained on the card for 400 iterations
+   (batch 4, Adam 1e-4) over the informative fixture's frames, as
+   scripts/prove_learning.py trains the JAX model, its ``activated`` mIoU,
+   selection accuracy and bandwidth printed, and its int8 eval card
+   against CPU on the train frames (``trained_int8_card_vs_cpu``): within
+   0.1% of the pixels and the bandwidth equal.
 11. Serving (``export.export_serving`` / ``load_serving``, ``serve``). The
    flagship from ``models.init_weights`` exported on the card at batch 8
    (the JAX export CLI's default), saved to bytes and loaded: in float32,
@@ -164,13 +170,37 @@ and the script exits non-zero:
    dispatcher against its CUDA implementation called directly; and
    phase 10's int8 ``Evaluator`` path at batch 2 timed in turns through
    the ops and with the CUDA implementations called directly.
+12. The rest of the model surface, each at its YAML's own size (512x512)
+   through phase 7's ``run_zoo_config``: 2 eval batches a mode with K1's
+   and K2's launches held exactly (K1 once a batch where the decoder has
+   pre-upsample logits, never with ``n_segnet_decoder``; K2 once a batch
+   in MIMOcom's ``activated`` / ``argmax_test`` on the full graph, never
+   in ``topk`` or with one output), 3 train steps with finite losses,
+   card against CPU at 256x256. configs/extensions/mrms_when2com_topk.yml
+   in ``topk``, ``activated`` and ``argmax_test``, and its per-frame
+   bandwidth (``per_frame_links``) averaging to ``num_connect``, at most
+   ``topk_k`` links a query but where keys tie, and the YAML through the
+   ``train``, ``test``, ``export_serving`` and ``serve`` CLIs on the card
+   over the informative fixture at 512x512 (``topk_clis``); the flagship with the
+   SegNet pair, ``FCN_decoder``, ``feat_squeezer`` 2 and 4,
+   ``query: false`` and ``multiple_output: false``; srms_when2com with
+   ``sparse: true`` (training through sparsemax's backward). K2 against
+   its plain version at the squeezed value maps, (2, 6, 512, 8, 8) and
+   (2, 6, 512, 4, 4) (``checks.check_comm_fusion_squeezed``). The SegNet
+   model's int8 eval at 512x512 (K4 once per swapped conv call, its GEMM
+   routes counted) and card against CPU at 256x256; K4 against its plain
+   version and timed, as phase 10 times it, at every int8 conv geometry
+   of the SegNet and squeezer models that the flagship does not have.
 
 Prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, then the ``{"kernels": [...]}`` line (K1's record also holds its
 launch counts on phase 7's paths; ``upsample_argmax_bf16`` and
 ``comm_fusion_bf16`` are the bf16 routes, with their launches on phase 8's
 paths; each K1/K2 record also holds its launches and device time per
-launch on the bench's eval path at batch 20, ``*_bench_b20``; K4's two
+launch on the bench's eval path at batch 20, ``*_bench_b20``, and K1's,
+K2's and ``int8_conv``'s their launches on phase 12's paths,
+``phase12_launches`` (``int8_conv``: also ``phase12_shapes``, its times
+at the new geometries); K4's two
 records, ``int8_conv`` and ``int8_conv_bf16``, sum one eval step's 48
 convolutions, with the quantize/GEMM split and ``library_int_mm_ms``;
 K1's, K2's and ``int8_conv``'s records hold their launches on phase 11's
@@ -680,14 +710,22 @@ def htod_pageable_vs_pinned(ev, batches) -> dict:
 
 # ------------------------------------------------------------------ phase 3
 
+def _config(yml: Path, model_keys: dict | None = None) -> dict:
+    """The YAML's config with ``model_keys`` over its model section."""
+    cfg = load_config(str(yml))
+    cfg["model"].update(model_keys or {})
+    return cfg
+
+
 @_no_tf32()
-def card_vs_cpu(yml: Path = FLAGSHIP, size: int = 256) -> dict:
-    """The YAML at ``size`` with TF32 off, one set of weights, one batch and
-    one seed (so the selection baselines draw the same partners): actions
+def card_vs_cpu(yml: Path = FLAGSHIP, size: int = 256, model_keys: dict | None = None) -> dict:
+    """The YAML (with ``model_keys`` over its model section) at ``size`` with
+    TF32 off, one set of weights, one batch and one seed (so the selection
+    baselines draw the same partners), in its default eval mode: actions
     and bandwidth equal (LearnWhen2Com's ``activated`` action is its
     thresholded row: the same links, weights within 1e-5), class maps agree
     on at least 99.9% of pixels."""
-    cfg = load_config(str(yml))
+    cfg = _config(yml, model_keys)
     cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = size
     b, n = cfg["training"]["batch_size"], cfg["model"]["agent_num"]
     state = init_weights(get_model(cfg, N_CLASSES), SEED + 1).state_dict()
@@ -921,14 +959,31 @@ ZOO_MODES = {"MIMOcomWho": ("activated", "softmax", "argmax_test"),
              "LearnWho2Com": ("argmax_test", "softmax")}
 
 
-def run_zoo_config(yml: Path) -> dict:
-    """One reference YAML at its own size: a seeded model saved as a
-    reference-format ``.pkl`` and loaded through ``load_weight``, evaluated
-    over ZOO_EVAL_BATCHES batches in each inference mode (K1 must launch in
-    each), then ZOO_TRAIN_STEPS iterations of ``Trainer.train`` with a loss
-    readback each. One model per YAML serves both. The score tables and
-    the training log go to WORK/zoo/<name>.log."""
-    cfg = load_config(str(yml))
+def _expected_launches(trainer, mode: str | None, batches: int) -> dict:
+    """K1's and K2's launches over ``batches`` eval batches in ``mode``: K1
+    once a batch where the decoder has pre-upsample logits (none with
+    ``n_segnet_decoder``), K2 once a batch for MIMOcom's ``activated`` and
+    ``argmax_test`` on the full N x N graph (not on ``topk``, not with one
+    output), else never."""
+    mode = mode or trainer.eval_default
+    k2_on = (trainer.arch == "MIMOcom" and trainer.model.mo_flag
+             and mode in ("activated", "argmax_test"))
+    return {"upsample_argmax": batches if trainer.model.decoder.has_pre_logits else 0,
+            "comm_fusion": batches if k2_on else 0}
+
+
+def run_zoo_config(yml: Path, name: str | None = None, model_keys: dict | None = None,
+                   modes: tuple | None = None) -> dict:
+    """One YAML at its own size, with ``model_keys`` over its model section
+    (``name`` names the run): a seeded model saved as a reference-format
+    ``.pkl`` and loaded through ``load_weight``, evaluated over
+    ZOO_EVAL_BATCHES batches in each inference mode (``modes``, default
+    every mode of the architecture), K1's and K2's launches counted in each
+    (``_expected_launches``), then ZOO_TRAIN_STEPS iterations of
+    ``Trainer.train`` with a loss readback each. One model per YAML serves
+    both. The score tables and the training log go to WORK/zoo/<name>.log."""
+    name = name or yml.stem
+    cfg = _config(yml, model_keys)
     cfg["training"].update(train_iters=ZOO_TRAIN_STEPS, val_interval=ZOO_TRAIN_STEPS,
                            print_interval=1)
     arch, kind = cfg["model"]["arch"], cfg["data"]["commun_label"]
@@ -936,7 +991,7 @@ def run_zoo_config(yml: Path) -> dict:
     batches = seeded_batches(ZOO_EVAL_BATCHES, b, n, size, SEED + 7, kind)
     train_batches = seeded_batches(ZOO_TRAIN_STEPS, b, n, size, SEED + 8, kind)
     recording_loss, recorded = _recording_loss(cfg)
-    logdir = WORK / "zoo" / yml.stem
+    logdir = WORK / "zoo" / name
     logdir.mkdir(parents=True, exist_ok=True)
     trainer = Trainer(cfg, logging.getLogger("chip_smoke"), recording_loss, train_batches,
                       batches, device="cuda", logdir=str(logdir))
@@ -944,29 +999,33 @@ def run_zoo_config(yml: Path) -> dict:
     pkl = logdir / "seed0.pkl"
     torch.save({"epoch": 0, "model_state": trainer.model.state_dict(), "best_iou": 0.0}, pkl)
     trainer.load_weight(str(pkl))
-    result = {"config": yml.relative_to(ROOT).as_posix(), "arch": arch, "batch": b,
-              "agents": n, "size": size, "commun_label": kind, "eval": {}}
+    result = {"config": yml.relative_to(ROOT).as_posix(), "model_keys": model_keys or {},
+              "arch": arch, "batch": b, "agents": n, "size": size, "commun_label": kind,
+              "eval": {}}
     with open(logdir.with_suffix(".log"), "w") as log, contextlib.redirect_stdout(log):
         trainer.evaluate(batches[:1])  # warm-up: cuDNN's and the allocator's first calls
-        for mode in ZOO_MODES.get(arch, (None,)):
-            k1.upsample_argmax.launches = 0
+        for mode in modes or ZOO_MODES.get(arch, (None,)):
+            k1.upsample_argmax.launches = k2.comm_fusion.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             score, class_iou = trainer.evaluate(batches, inference_mode=mode)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = k1.upsample_argmax.launches
-            if launches < 1:
-                raise AssertionError(f"{yml.name} {mode}: K1 never launched")
+            counted = {"upsample_argmax": launches, "comm_fusion": k2.comm_fusion.launches}
+            want = _expected_launches(trainer, mode, len(batches))
+            if counted != want:
+                raise AssertionError(f"{name} {mode}: launches {counted}, want {want}")
             metrics = trainer.last_eval_metrics
             labels = np.stack([bt[1] for bt in batches])  # (batches, B, N, H, W)
             if not (trainer.mo_flag and arch != "All_agents"):
                 labels = labels[:, :, 0]  # the target is agent 0's
             if int(metrics.confusion_matrix.sum()) != int((labels < N_CLASSES).sum()):
-                raise AssertionError(f"{yml.name} {mode}: confusion matrix miscounts")
+                raise AssertionError(f"{name} {mode}: confusion matrix miscounts")
             if not all(np.isfinite(float(v)) for v in score.values()):
-                raise AssertionError(f"{yml.name} {mode}: non-finite scores")
-            row = {"k1_launches": launches, "batch_ms": seconds / len(batches) * 1e3,
+                raise AssertionError(f"{name} {mode}: non-finite scores")
+            row = {"k1_launches": launches, "k2_launches": counted["comm_fusion"],
+                   "batch_ms": seconds / len(batches) * 1e3,
                    "miou": float(score["Mean IoU : \t"])}
             if metrics.count:
                 row["bandwidth"] = metrics.get_avg_bandW()
@@ -979,7 +1038,7 @@ def run_zoo_config(yml: Path) -> dict:
         peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in recorded]
     if len(losses) != ZOO_TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"{yml.name}: train losses {losses}")
+        raise AssertionError(f"{name}: train losses {losses}")
     steps = trainer.iter_seconds
     result.update({"losses": losses, "train_first_step_ms": steps[0] * 1e3,
                    "train_ms_per_step": float(np.mean(steps[1:])) * 1e3,
@@ -987,7 +1046,7 @@ def run_zoo_config(yml: Path) -> dict:
     del trainer
     shutil.rmtree(logdir)
     torch.cuda.empty_cache()
-    result["card_vs_cpu"] = card_vs_cpu(yml)
+    result["card_vs_cpu"] = card_vs_cpu(yml, model_keys=model_keys)
     return result
 
 
@@ -1296,25 +1355,28 @@ def int_mm_yardstick(x: torch.Tensor, prep, s_x, k: int, stride: int, pad: int,
     return {"library_int_mm_ms": ms}
 
 
-def check_int8_conv(gen) -> list[dict]:
+def check_int8_conv(gen, shapes=K4_SHAPES, n: int = BENCH_BATCH * 6,
+                    dtypes=K4_DTYPES, per: str = "one eval step's 48 int8 convolutions at "
+                    "batch 20 x 6") -> list[dict]:
     """K4 against its plain version (``checks.check_int8_conv``: operands,
     int32 sums and output equal, the output to the bit) at every conv shape
-    of the flagship's eval step at the bench's batch 20 x 6, in both
-    network dtypes (the bf16 route reads float32 frames at the stem and
-    bf16 maps elsewhere), with a static scale (0.8 of the input's max / 127,
-    so some values clip) and with the dynamic one. Then each shape is timed
-    with its static scale: K4, its two launches alone (the quantize pass on
-    the input, the GEMM on its scratch), its plain version, cuDNN's bf16
+    of the flagship's eval step at the bench's batch 20 x 6 (or at ``shapes``,
+    ``n`` images), in both network dtypes (or ``dtypes``) (the bf16 route reads
+    float32 frames at the stem and bf16 maps elsewhere), with a static scale
+    (0.8 of the input's max / 127, so some values clip) and with the dynamic
+    one. Then each shape is timed with its static scale: K4, its two
+    launches alone (the quantize pass on the input, the GEMM on its
+    scratch), its plain version, cuDNN's bf16
     convolution of the same shape (the speed yardstick of the whole
     function; no PyTorch call computes an int8 convolution, and the port
     never calls this one) and ``torch._int_mm`` on the same int8 matrices
     (the GEMM's yardstick). One record per network dtype; its ms, plain,
     library and bound are sums over one eval step's conv calls."""
-    n = BENCH_BATCH * 6
     records = []
-    for route, dtype in K4_DTYPES.items():
+    geometries = shapes
+    for route, dtype in dtypes.items():
         shapes, err = [], 0.0
-        for cin, cout, side, k, stride, pad, has_bias, calls in K4_SHAPES:
+        for cin, cout, side, k, stride, pad, has_bias, calls in geometries:
             in_dtype = torch.float32 if cin == 3 else dtype
             x = torch.randn(n, cin, side, side, generator=gen).to("cuda", in_dtype)
             w = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to("cuda")
@@ -1375,28 +1437,30 @@ def check_int8_conv(gen) -> list[dict]:
             "quantize_ms": step("quantize_ms"), "gemm_ms": step("gemm_ms"),
             "quantize_bound_ms": step("quantize_bound_ms"), "gemm_bound_ms": step("gemm_bound_ms"),
             "library_int_mm_ms": None if None in int_mm else step("library_int_mm_ms"),
-            "per": "one eval step's 48 int8 convolutions at batch 20 x 6 (sums over "
-                   "'shapes'); library: cuDNN bf16; library_int_mm: torch._int_mm on the "
-                   "GEMM's int8 matrices",
+            "per": f"{per} (sums over 'shapes'); library: cuDNN bf16; library_int_mm: "
+                   "torch._int_mm on the GEMM's int8 matrices",
             "shapes": shapes})
         torch.cuda.empty_cache()
     return records
 
 
-def run_int8_slice(dtype: str | None = None) -> dict:
-    """The flagship's ``activated`` int8 eval through ``Evaluator.evaluate(...,
-    int8=True)`` at the YAML's batch, in float32 or ``dtype``: scales
-    calibrated on INT8_CALIB_BATCHES held-out batches, then INT8_EVAL_BATCHES
-    batches with K1, K2 and K4's counts zeroed just before and read just
-    after. K1 launches once a batch, K2 once a batch and once a calibration
-    batch, K4 once per swapped conv call, which is once per eligible conv a
-    batch. Then the same batches timed and traced under the evaluator's
-    swap (its weights already quantized): frames/s, device time, and the
+def run_int8_slice(dtype: str | None = None, model_keys: dict | None = None,
+                   trace: bool = True) -> dict:
+    """The flagship's (with ``model_keys`` over its model section)
+    ``activated`` int8 eval through ``Evaluator.evaluate(..., int8=True)``
+    at the YAML's batch, in float32 or ``dtype``: scales calibrated on
+    INT8_CALIB_BATCHES held-out batches, then INT8_EVAL_BATCHES batches
+    with K1, K2 and K4's counts zeroed just before and read just after. K1
+    launches once a batch (never for a decoder with no pre-upsample
+    logits), K2 once a batch and once a calibration batch, K4 once per
+    swapped conv call, which is once per eligible conv a batch. Then the
+    same batches timed under the evaluator's swap (its weights already
+    quantized): frames/s; with ``trace``, also traced: device time, and the
     trace's convolutions: cuDNN runs only the skipped head's, once a batch
     (counted by the ``aten::`` operators the trace records on the host)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = load_config(str(FLAGSHIP))
+    cfg = _config(FLAGSHIP, model_keys)
     if dtype is not None:
         cfg["model"]["dtype"] = dtype
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
@@ -1414,8 +1478,8 @@ def run_int8_slice(dtype: str | None = None) -> dict:
     swap = ev.int8_convs
     eligible = len(swap.convs)
     counts = {kern.__name__: dict(kern.route_launches) for kern in kernels}
-    want = {"upsample_argmax": len(timed), "comm_fusion": len(timed) + len(calib),
-            "int8_conv": eligible * len(timed)}
+    want = {"upsample_argmax": len(timed) if ev.model.decoder.has_pre_logits else 0,
+            "comm_fusion": len(timed) + len(calib), "int8_conv": eligible * len(timed)}
     for name, total in want.items():
         if counts[name] != {**dict.fromkeys(counts[name], 0), route: total}:
             raise AssertionError(f"int8 eval {route}: {name} launched {counts[name]}, "
@@ -1432,6 +1496,16 @@ def run_int8_slice(dtype: str | None = None) -> dict:
         ev.evaluate(timed)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        result = {"dtype": dtype or "float32", "model_keys": model_keys or {}, "batch": b,
+                  "agents": n, "size": size, "batches": len(timed),
+                  "calibration_batches": len(calib), "int8_convs_per_batch": eligible,
+                  "launches": counts, "k4_gemm_route_launches": gemm_routes,
+                  "eval_frames_per_s": len(timed) * b * n / seconds,
+                  "batch_ms": seconds / len(timed) * 1e3,
+                  "bandwidth": int8_scores.get_avg_bandW(),
+                  "mean_iou": float(int8_scores.get_scores()[0]["Mean IoU : \t"])}
+        if not trace:
+            return result
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             ev.evaluate(timed)
             torch.cuda.synchronize()
@@ -1455,26 +1529,19 @@ def run_int8_slice(dtype: str | None = None) -> dict:
                 or "quantize_s2d" in e.key) / 1e3
     (WORK / f"profile_int8_{route}.txt").write_text(events.table(
         sort_by="self_device_time_total", row_limit=40))
-    return {"dtype": dtype or "float32", "batch": b, "agents": n, "size": size,
-            "batches": len(timed), "calibration_batches": len(calib),
-            "int8_convs_per_batch": eligible, "launches": counts,
-            "k4_gemm_route_launches": gemm_routes,
-            "eval_frames_per_s": len(timed) * b * n / seconds,
-            "batch_ms": seconds / len(timed) * 1e3,
-            "device_ms_per_batch": device_ms / len(timed),
+    return {**result, "device_ms_per_batch": device_ms / len(timed),
             "k4_device_ms_per_batch": k4_ms / len(timed),
             "device_busy_share": device_ms / (seconds * 1e3),
             "cudnn_convolutions_per_batch": cudnn / len(timed),
-            "k4_gemms_traced_per_batch": k4_traced / len(timed),
-            "bandwidth": int8_scores.get_avg_bandW(),
-            "mean_iou": float(int8_scores.get_scores()[0]["Mean IoU : \t"])}
+            "k4_gemms_traced_per_batch": k4_traced / len(timed)}
 
 
 # card against CPU, int8: the share of pixels whose class may differ, by network dtype
 INT8_CARD_VS_CPU_MOVED = {"float32": 0.01, "bfloat16": 0.001}
 
 
-def int8_card_vs_cpu(dtype: str | None = None, size: int = 256) -> dict:
+def int8_card_vs_cpu(dtype: str | None = None, size: int = 256,
+                     model_keys: dict | None = None) -> dict:
     """The flagship's ``activated`` int8 eval at ``size`` on the card and on
     the CPU from one set of weights and one set of scales (calibrated on the
     card), TF32 off for the float layers: the confusion matrices apart by
@@ -1489,36 +1556,308 @@ def int8_card_vs_cpu(dtype: str | None = None, size: int = 256) -> dict:
     quantizer (on an NVIDIA H100 80GB HBM3 at 700 W: 0.54% of the pixels
     moved, and one off-diagonal link of one batch crossed the 0.2
     threshold, bandwidth 0.9583 against 0.9167); in bf16 the BatchNorm's output is rounded to bf16
-    first, which absorbs most of them (0.019%, the bandwidth equal)."""
-    cfg = load_config(str(FLAGSHIP))
+    first, which absorbs most of them (0.019%, the bandwidth equal).
+    ``model_keys`` go over the flagship's model section."""
+    cfg = _config(FLAGSHIP, model_keys)
     cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = size
     if dtype is not None:
         cfg["model"]["dtype"] = dtype
     b, n = cfg["training"]["batch_size"], cfg["model"]["agent_num"]
     state = init_weights(get_model(cfg, N_CLASSES), SEED + 31).state_dict()
     batches = seeded_batches(3, b, n, size, SEED + 31)
+    result = _int8_card_against_cpu(cfg, state, batches[:1], batches[1:])
+    name = dtype or "float32"
+    if result["pixels_moved"] > INT8_CARD_VS_CPU_MOVED[name] * result["pixels"] or \
+            (dtype is not None and result["bandwidth_card"] != result["bandwidth_cpu"]):
+        raise AssertionError(f"int8 {name}: card against CPU {result}")
+    return {"model_keys": model_keys or {}, "size": size, **result}
+
+
+def _int8_card_against_cpu(cfg: dict, state: dict, calib, batches) -> dict:
+    """``cfg``'s ``activated`` int8 eval over ``batches`` on the card and on
+    the CPU from ``state`` and one set of scales (calibrated on the card
+    over ``calib``), TF32 off: the pixels whose class the two sides' confusion
+    matrices move, and each side's bandwidth."""
     out, scales = {}, None
     with _no_tf32():
         for dev in ("cuda", "cpu"):
             ev = Evaluator(cfg, device=dev)
             ev.model.load_state_dict(state, strict=True)
             if scales is None:
-                scales = ev._calibrate_int8(batches, "activated", calib_loader=batches[:1])
+                scales = ev._calibrate_int8(batches, "activated", calib_loader=calib)
             with Int8Convs(ev.model, scales):
-                ev.evaluate(batches[1:])
+                ev.evaluate(batches)
             out[dev] = ev.last_eval_metrics
     card, cpu = out["cuda"], out["cpu"]
-    name = dtype or "float32"
     moved = int(np.abs(card.confusion_matrix.astype(np.int64)
                        - cpu.confusion_matrix.astype(np.int64)).sum()) // 2
     pixels = int(cpu.confusion_matrix.sum())
-    result = {"dtype": name, "size": size, "tf32": False, "pixels_moved": moved,
-              "pixels": pixels, "bandwidth_card": card.get_avg_bandW(),
-              "bandwidth_cpu": cpu.get_avg_bandW()}
-    if moved > INT8_CARD_VS_CPU_MOVED[name] * pixels or \
-            (dtype is not None and card.get_avg_bandW() != cpu.get_avg_bandW()):
-        raise AssertionError(f"int8 {name}: card against CPU {result}")
+    return {"dtype": cfg["model"].get("dtype") or "float32", "tf32": False,
+            "pixels_moved": moved, "pixels": pixels, "moved_share": moved / pixels,
+            "bandwidth_card": card.get_avg_bandW(), "bandwidth_cpu": cpu.get_avg_bandW()}
+
+
+# int8 card against CPU on trained weights: the share of pixels that may move
+# (on an NVIDIA H100 80GB HBM3 at 700 W: 0.072%, the bandwidth equal; seeded: 0.54%)
+INT8_TRAINED_MOVED = 0.001
+# the learning proof's run (scripts/prove_learning.py's defaults): the flagship
+# at 128x128 over the informative fixture's train split, batch 4, Adam 1e-4
+LEARN_SIZE, LEARN_FRAMES, LEARN_ITERS, LEARN_BATCH, LEARN_LR = 128, 32, 400, 4, 1e-4
+LEARN_EVAL_BATCHES = 8
+
+
+class _ShuffledBatches:
+    """A loader over in-memory frames: each pass a new seeded order, the
+    ragged tail dropped (``DataLoader(shuffle=True, drop_last=True)``)."""
+
+    def __init__(self, frames: list, batch: int, seed: int):
+        self.frames, self.batch = frames, batch
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        order = self.rng.permutation(len(self.frames))
+        for i in range(0, len(order) - self.batch + 1, self.batch):
+            yield _stack([self.frames[j] for j in order[i:i + self.batch]])
+
+
+def _stack(frames: list) -> tuple:
+    """(images, labels, commun_label) batch of (scene, labels, noise, link) frames,
+    the images normalized as the loader normalizes them."""
+    raw = np.stack([f[0] for f in frames])
+    images = normalize_images(torch.from_numpy(raw)).numpy()
+    labels = np.stack([f[1] for f in frames]).astype(np.int32)
+    commun = np.stack([np.stack([f[2], f[3]]) for f in frames]).astype(np.int64)
+    return images, labels, commun
+
+
+def trained_int8_card_vs_cpu() -> dict:
+    """int8 card against CPU on trained weights. The flagship at 128x128 is
+    trained on the card for LEARN_ITERS iterations over the informative
+    fixture's train split (``data.synthetic.informative_frames``, as
+    scripts/prove_learning.py trains the JAX model), then evaluated in
+    ``activated`` (its mIoU, selection accuracy and bandwidth printed), and
+    held in int8 on the card against the CPU on the train frames, from one
+    set of scales: pixels moved within INT8_TRAINED_MOVED and the bandwidth
+    equal. Trained activations sit away from the quantizer's half-steps
+    more than seeded ones do, so fewer ulps of the float layers flip an
+    int8 value than phase 10's seeded check allows for (1%)."""
+    from multiagentperception_tpu_torch.data.synthetic import informative_frames
+
+    cfg = load_config(str(FLAGSHIP))
+    cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = LEARN_SIZE
+    cfg["training"].update(train_iters=LEARN_ITERS, batch_size=LEARN_BATCH,
+                           val_interval=LEARN_ITERS, print_interval=max(LEARN_ITERS // 8, 1))
+    cfg["training"]["optimizer"] = {"name": "adam", "lr": LEARN_LR}
+    frames = [f[2:] for f in informative_frames("6agent", LEARN_SIZE, LEARN_FRAMES,
+                                                n_noisy=2)["train"]]
+    ordered = [_stack(frames[i:i + LEARN_BATCH])
+               for i in range(0, LEARN_EVAL_BATCHES * LEARN_BATCH, LEARN_BATCH)]
+    logdir = WORK / "learn"
+    logdir.mkdir(parents=True, exist_ok=True)
+    trainer = Trainer(cfg, logging.getLogger("chip_smoke"), get_loss_function(cfg),
+                      _ShuffledBatches(frames, LEARN_BATCH, SEED), ordered[:2],
+                      device="cuda", logdir=str(logdir))
+    init_weights(trainer.model, SEED)
+    t0 = time.perf_counter()
+    with open(logdir.with_suffix(".log"), "w") as log, contextlib.redirect_stdout(log):
+        trainer.train()
+        score, _ = trainer.evaluate(ordered, inference_mode="activated")
+    seconds = time.perf_counter() - t0
+    metrics = trainer.last_eval_metrics
+    when_acc, who_acc = metrics.get_selection_accuracy()
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    shutil.rmtree(logdir)
+    torch.cuda.empty_cache()
+    result = _int8_card_against_cpu(cfg, state, ordered[:2], ordered[2:])
+    learned = {"iters": LEARN_ITERS, "size": LEARN_SIZE, "batch": LEARN_BATCH, "lr": LEARN_LR,
+               "train_and_eval_s": seconds, "miou_activated": float(score["Mean IoU : \t"]),
+               "when2com_acc": when_acc, "who2com_acc": who_acc,
+               "bandwidth": metrics.get_avg_bandW()}
+    if result["pixels_moved"] > INT8_TRAINED_MOVED * result["pixels"] or \
+            result["bandwidth_card"] != result["bandwidth_cpu"]:
+        raise AssertionError(f"int8 on trained weights: card against CPU {result}")
+    return {"trained": learned, **result}
+
+
+# ------------------------------------------------------------------ phase 12
+
+TOPK_YAML = ROOT / "configs" / "extensions" / "mrms_when2com_topk.yml"
+SRMS_WHEN2COM = ROOT / "configs" / "single-request-multiple-support" / "srms_when2com.yml"
+TOPK_MODES = ("topk", "activated", "argmax_test")
+SEGNET = {"enc_backbone": "n_segnet_encoder", "dec_backbone": "n_segnet_decoder"}
+# the flagship with each model option that no YAML sets, at the YAML's own size
+OVERRIDES = {"segnet": SEGNET, "fcn": {"dec_backbone": "FCN_decoder"},
+             "squeezer2": {"feat_squeezer": 2}, "squeezer4": {"feat_squeezer": 4},
+             "no_query": {"query": False}, "one_output": {"multiple_output": False}}
+
+
+def topk_bandwidth(yml: Path = TOPK_YAML) -> dict:
+    """The topk YAML's seeded model over ZOO_EVAL_BATCHES batches in
+    ``topk`` on the card: each batch's per-frame bandwidth
+    (``per_frame_links`` with ``topk_k``) averages to the forward's
+    ``num_connect``, and every query keeps at most ``topk_k`` links, or more
+    only where keys tie with its k-th strongest."""
+    from multiagentperception_tpu_torch.ops.comm import per_frame_links
+
+    cfg = load_config(str(yml))
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    k = cfg["model"]["topk_k"]
+    ev = Evaluator(cfg)
+    init_weights(ev.model, SEED)
+    per_frame, ties = [], 0
+    for images, _, _ in seeded_batches(ZOO_EVAL_BATCHES, b, n, size, SEED + 7):
+        with torch.inference_mode():
+            _, prob, _, nc = ev.model(ev._images(images), inference="topk", full_res=False)
+        frames = per_frame_links(prob, "topk", n, topk_k=k)
+        if abs(float(frames.double().mean()) - float(nc)) > 1e-6 * max(float(nc), 1.0):
+            raise AssertionError(f"topk: per-frame bandwidth {frames.tolist()} against "
+                                 f"num_connect {float(nc)}")
+        top = torch.sort(prob, dim=1, descending=True).values  # (B, K, Q)
+        kept = (prob >= top[:, k - 1:k]).sum(dim=1)  # links a query keeps
+        tied = top[:, k] == top[:, k - 1]
+        if bool(((kept > k) & ~tied).any()):
+            raise AssertionError(f"topk: a query keeps {kept.max()} > {k} links without a tie")
+        ties += int(tied.sum())
+        per_frame += frames.tolist()
+    del ev
+    torch.cuda.empty_cache()
+    return {"topk_k": k, "per_frame_bandwidth": per_frame, "queries_with_ties": ties}
+
+
+CLI_TIMEOUT_S = 600
+
+
+def _cli(module: str, *args: str, cwd: Path) -> str:
+    """``python -m multiagentperception_tpu_torch.<module> *args`` in ``cwd``
+    (on the card: no ``--device``); its stdout, or an AssertionError with
+    its output's end."""
+    out = subprocess.run([sys.executable, "-m", f"multiagentperception_tpu_torch.{module}",
+                          *args], cwd=cwd, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)}: rc {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def topk_clis(yml: Path = TOPK_YAML) -> dict:
+    """The topk YAML through the CLIs a user runs, on the card: over the
+    informative fixture at the YAML's 512x512 (one trajectory a split, 2
+    frames each, written with the port's ``generate_informative_fixture``),
+    ``train`` (2 iterations, then its test-split eval in ``topk``),
+    ``test`` on the checkpoint it wrote, ``export_serving`` (the artifact in
+    the YAML's ``topk``) and ``serve`` over the test split. Each must exit
+    0; the evaluations print a bandwidth, the export's meta says ``topk``."""
+    import yaml
+
+    from multiagentperception_tpu_torch.data.synthetic import generate_informative_fixture
+
+    work = WORK / "topk_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = yaml.safe_load(yml.read_text())
+    generate_informative_fixture(str(work / "data"), "6agent", cfg["data"]["img_rows"],
+                                 frames_per_traj=2, n_train=1, n_val=1, n_test=1)
+    cfg["data"]["path"] = str(work / "data")
+    cfg["training"].update(train_iters=2, val_interval=2, print_interval=1, n_workers=2)
+    config = work / "mrms_when2com_topk.yml"
+    config.write_text(yaml.safe_dump(cfg))
+    seconds, t0 = {}, time.perf_counter()
+    trained = _cli("train", "--config", str(config), cwd=work)
+    seconds["train"] = time.perf_counter() - t0
+    (pkl,) = work.glob("runs/*/*/MIMOcom_airsim_best_model.pkl")
+    t0 = time.perf_counter()
+    tested = _cli("test", "--config", str(config), "--model_path", str(pkl), cwd=work)
+    seconds["test"] = time.perf_counter() - t0
+    artifact = work / "topk.pt2"
+    t0 = time.perf_counter()
+    _cli("export_serving", "--config", str(config), "--model_path", str(pkl), "--out",
+         str(artifact), "--batch", "1", cwd=work)
+    seconds["export_serving"] = time.perf_counter() - t0
+    meta = json.loads(Path(str(artifact) + ".meta.json").read_text())
+    t0 = time.perf_counter()
+    served = _cli("serve", "--config", str(config), "--artifact", str(artifact), "--out",
+                  str(work / "preds"), cwd=work)
+    seconds["serve"] = time.perf_counter() - t0
+    if "Bandwidth:" not in trained or "Bandwidth:" not in tested or meta["inference"] != "topk":
+        raise AssertionError(f"topk CLIs: no bandwidth printed, or the artifact's mode is "
+                             f"{meta['inference']}")
+    result = {"seconds": seconds, "test_bandwidth": [l for l in tested.splitlines()
+                                                     if l.startswith("Bandwidth:")],
+              "served": served.strip().splitlines()[-1]}
+    shutil.rmtree(work)
     return result
+
+
+def model_k4_shapes(cfg: dict) -> tuple:
+    """The int8 conv geometries of ``cfg``'s ``activated`` eval at the YAML's
+    batch, as ``K4_SHAPES`` lists them (Cin, Cout, side, kernel, stride,
+    padding, bias, calls a batch), from one forward on the ``meta`` device."""
+    from multiagentperception_tpu_torch.quantize import conv_input_shapes, eligible_convs
+
+    b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    with torch.device("meta"):
+        model = get_model(cfg, N_CLASSES)
+    shapes = conv_input_shapes(model, (b, n, size, size, 3), inference="activated",
+                               full_res=False)
+    calls: dict = {}
+    for name, mod in eligible_convs(model):
+        _, cin, side, _ = shapes[name]
+        key = (cin, mod.out_channels, side, mod.kernel_size[0], mod.stride[0],
+               mod.padding[0], mod.bias is not None)
+        calls[key] = calls.get(key, 0) + 1
+    return tuple((*key, count) for key, count in sorted(calls.items()))
+
+
+def run_phase12(records: list) -> dict:
+    """The rest of the model surface on the card (the module docstring's
+    phase 12); adds each run's K1, K2 and K4 launches to their records."""
+    out: dict = {"card": bench._card_line()}
+    out["topk"] = run_zoo_config(TOPK_YAML, modes=TOPK_MODES)
+    out["topk"]["bandwidth_check"] = topk_bandwidth()
+    out["topk"]["clis"] = topk_clis()
+    print("phase12 topk " + json.dumps(out["topk"]))
+    for name, keys in OVERRIDES.items():
+        out[name] = run_zoo_config(FLAGSHIP, f"mrms_when2com_{name}", keys)
+        print(f"phase12 {name} " + json.dumps(out[name]))
+    out["sparse"] = run_zoo_config(SRMS_WHEN2COM, "srms_when2com_sparse", {"sparse": True},
+                                   modes=("activated",))
+    print("phase12 sparse " + json.dumps(out["sparse"]))
+    out["k2_squeezed"] = checks.check_comm_fusion_squeezed(
+        torch.Generator().manual_seed(SEED + 12), "cuda")
+    print("phase12 k2_squeezed " + json.dumps(out["k2_squeezed"]))
+    segnet_cfg = _config(FLAGSHIP, SEGNET)
+    out["int8_segnet"] = run_int8_slice(model_keys=SEGNET, trace=False)
+    out["int8_segnet_card_vs_cpu"] = int8_card_vs_cpu(model_keys=SEGNET)
+    print("phase12 int8_segnet " + json.dumps([out["int8_segnet"],
+                                                out["int8_segnet_card_vs_cpu"]]))
+    geometries = {model_k4_shapes(segnet_cfg)}
+    for name in ("squeezer2", "squeezer4"):
+        geometries.add(model_k4_shapes(_config(FLAGSHIP, OVERRIDES[name])))
+    flagship = {g[:7] for g in K4_SHAPES}
+    new = sorted({g for shapes in geometries for g in shapes if g[:7] not in flagship})
+    (k4_new,) = check_int8_conv(
+        torch.Generator().manual_seed(SEED + 41), new, segnet_cfg["training"]["batch_size"] * 6,
+        {"f32": torch.float32}, "the SegNet and squeezer overrides' int8 convolutions not "
+        "among the flagship's, at batch 2 x 6, each call of a step")
+    out["k4_new_geometries"] = k4_new
+    print("phase12 k4_new_geometries " + json.dumps(k4_new))
+
+    runs = {name: run for name, run in out.items() if isinstance(run, dict) and "eval" in run}
+    by_name = {rec["name"]: rec for rec in records}
+    by_name["upsample_argmax"]["phase12_launches"] = {
+        name: {mode: row["k1_launches"] for mode, row in run["eval"].items()}
+        for name, run in runs.items()}
+    by_name["comm_fusion"]["phase12_launches"] = {
+        name: {mode: row["k2_launches"] for mode, row in run["eval"].items()}
+        for name, run in runs.items()}
+    by_name["comm_fusion"]["phase12_squeezed_max_abs_err"] = out["k2_squeezed"]
+    by_name["int8_conv"]["phase12_launches"] = {
+        "segnet_int8_eval": out["int8_segnet"]["launches"]["int8_conv"]["f32"],
+        "segnet_gemm_routes": out["int8_segnet"]["k4_gemm_route_launches"]}
+    by_name["int8_conv"]["phase12_shapes"] = k4_new["shapes"]
+    return out
 
 
 # ------------------------------------------------------------------ phase 11
@@ -1933,6 +2272,8 @@ def main() -> int:
     lap("10_int8_eval")
     print("int8_card_vs_cpu " + json.dumps([int8_card_vs_cpu(), int8_card_vs_cpu("bfloat16")]))
     lap("10_int8_card_vs_cpu")
+    print("int8_trained_card_vs_cpu " + json.dumps(trained_int8_card_vs_cpu()))
+    lap("10_int8_trained_card_vs_cpu")
 
     serving = run_serving()
     print("serving " + json.dumps(serving))
@@ -1943,6 +2284,9 @@ def main() -> int:
             kern = rec["name"].removesuffix("_bf16")
             rec["serving_launches"] = sum(serving[run]["launches"][kern].values())
     lap("11_serving")
+
+    print("phase12 card " + run_phase12(records)["card"])
+    lap("12_model_surface")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

@@ -1,17 +1,22 @@
-"""flax variables -> the port's state_dict, for every architecture with the
-resnet_encoder / simple_decoder backbones.
+"""flax variables -> the port's state_dict, for every model the JAX
+package's ``get_model`` builds: the seven architectures over every
+backbone (``resnet_encoder``, ``n_segnet_encoder``; ``simple_decoder``,
+``FCN_decoder``, ``n_segnet_decoder``) and ``feat_squeezer``.
 
-The port's own copy of ``multiagentperception_tpu/compat/torch_export.py:163-237``. The port's
+The port's own copy of ``multiagentperception_tpu/compat/torch_export.py:45-50,
+105-160, 163-237``. The port's
 modules carry the reference's ptsemseg names, so the result is also a
 reference state_dict, and a reference ``.pkl`` (``{'model_state': ...}``,
 as ``compat.save_reference_checkpoint`` writes it) loads into the port
 directly.
 
 Transforms: conv kernel ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``;
-dense ``(in, out)`` -> ``(out, in)``; the first Dense after the flatten also
-permutes its inputs HWC -> CHW, over the policy map's own size
-(``models.modules.policy_map_shape``, so image sides need not be multiples
-of 128); BatchNorm scale/bias/mean/var ->
+transposed-conv kernel ``(kh, kw, in, out)``, which flax applies unflipped,
+-> flipped ``[::-1, ::-1]`` and ``(in, out, kh, kw)``, torch's layout of
+the reference's ``ConvTranspose2d``; dense ``(in, out)`` -> ``(out, in)``;
+the first Dense after the flatten also permutes its inputs HWC -> CHW, over
+the policy map's own size (``models.modules.policy_map_shape``, so image
+sides need not be multiples of 128); BatchNorm scale/bias/mean/var ->
 weight/bias/running_mean/running_var (+ ``num_batches_tracked``).
 
 ``scales_from_flax`` carries the JAX package's int8 activation scales
@@ -27,6 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from multiagentperception_tpu_torch.models.backbone import NSegnetDecoder, NSegnetEncoder
 from multiagentperception_tpu_torch.models.modules import policy_map_shape
 
 
@@ -43,6 +49,10 @@ class _Out:
         self.put(f"{tp}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
         if "bias" in p:
             self.put(f"{tp}.bias", p["bias"])
+
+    def deconv(self, tp: str, p) -> None:
+        self.put(f"{tp}.weight", np.asarray(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        self.put(f"{tp}.bias", p["bias"])
 
     def bn(self, tp: str, p, s) -> None:
         self.put(f"{tp}.weight", p["scale"])
@@ -73,6 +83,9 @@ class _ConvNames(_Out):
 
     def conv(self, tp: str, p) -> None:
         self.names[p.path] = tp
+
+    def deconv(self, tp: str, p) -> None:
+        pass  # JAX's int8 swaps nn.Conv alone: no transposed conv has a scale
 
     def bn(self, tp: str, p, s) -> None:
         pass
@@ -105,6 +118,11 @@ def _cbr(out: _Out, tp: str, p, s) -> None:
     out.bn(f"{tp}.cbr_unit.1", p["BatchNorm_0"], s["BatchNorm_0"])
 
 
+def _dcbr(out: _Out, tp: str, p, s) -> None:
+    out.deconv(f"{tp}.dcbr_unit.0", p["ConvTranspose_0"])
+    out.bn(f"{tp}.dcbr_unit.1", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
 def _basic_block(out: _Out, tp: str, p, s) -> None:
     out.conv(f"{tp}.conv1", p["Conv_0"])
     out.bn(f"{tp}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
@@ -115,15 +133,23 @@ def _basic_block(out: _Out, tp: str, p, s) -> None:
         out.bn(f"{tp}.downsample.1", p["BatchNorm_2"], s["BatchNorm_2"])
 
 
-def _img_encoder(out: _Out, tp: str, p, s) -> None:
-    rp, rs = p["ResnetEncoder_0"], s["ResnetEncoder_0"]
-    trunk = f"{tp}.feature_backbone.feature_backbone"
-    out.conv(f"{trunk}.conv1", rp["Conv_0"])
-    out.bn(f"{trunk}.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
-    for layer in range(1, 5):
-        for blk in range(2):
-            name = f"BasicBlock_{(layer - 1) * 2 + blk}"
-            _basic_block(out, f"{trunk}.layer{layer}.{blk}", rp[name], rs[name])
+def _img_encoder(out: _Out, tp: str, p, s, enc: str) -> None:
+    if enc == "resnet_encoder":
+        rp, rs = p["ResnetEncoder_0"], s["ResnetEncoder_0"]
+        trunk = f"{tp}.feature_backbone.feature_backbone"
+        out.conv(f"{trunk}.conv1", rp["Conv_0"])
+        out.bn(f"{trunk}.bn1", rp["BatchNorm_0"], rs["BatchNorm_0"])
+        for layer in range(1, 5):
+            for blk in range(2):
+                name = f"BasicBlock_{(layer - 1) * 2 + blk}"
+                _basic_block(out, f"{trunk}.layer{layer}.{blk}", rp[name], rs[name])
+    elif enc == "n_segnet_encoder":
+        sp, ss = p["NSegnetEncoder_0"], s["NSegnetEncoder_0"]
+        for i in range(len(NSegnetEncoder.PLAN)):
+            _cbr(out, f"{tp}.feature_backbone.conv{i + 1}", sp[f"ConvBNRelu_{i}"],
+                 ss[f"ConvBNRelu_{i}"])
+    else:
+        raise KeyError(f"Encoder {enc} not available")
     _cbr(out, f"{tp}.squeezer", p["ConvBNRelu_0"], s["ConvBNRelu_0"])
 
 
@@ -134,24 +160,49 @@ def _km(out: _Out, tp: str, p, chw: tuple[int, int, int]) -> None:
     out.dense(f"{tp}.fc.4", mlp["Dense_2"])
 
 
-def _policy_net(out: _Out, tp: str, p, s) -> None:
-    _img_encoder(out, f"{tp}.img_encoder", p["ImgEncoder_0"], s["ImgEncoder_0"])
+def _policy_net(out: _Out, tp: str, p, s, enc: str) -> None:
+    _img_encoder(out, f"{tp}.img_encoder", p["ImgEncoder_0"], s["ImgEncoder_0"], enc)
     for i in range(5):
         _cbr(out, f"{tp}.conv{i + 1}", p[f"ConvBNRelu_{i}"], s[f"ConvBNRelu_{i}"])
 
 
-def _decoder(out: _Out, P) -> None:
-    dec = P["ImgDecoder_0"]["SimpleDecoder_0"]
-    out.conv("decoder.output_decoder.pred.0", dec["Conv_0"])
-    out.conv("decoder.output_decoder.pred.2", dec["Conv_1"])
+def _decoder(out: _Out, P, S, dec: str, squeezer: int) -> None:
+    # a decoder of plain convs has no batch_stats
+    p, s = P["ImgDecoder_0"], S["ImgDecoder_0"] if "ImgDecoder_0" in S else {}
+    if squeezer == 2:
+        _dcbr(out, "decoder.desqueezer", p["DeconvBNRelu_0"], s["DeconvBNRelu_0"])
+    elif squeezer == 4:
+        _dcbr(out, "decoder.desqueezer1", p["DeconvBNRelu_0"], s["DeconvBNRelu_0"])
+        _dcbr(out, "decoder.desqueezer2", p["DeconvBNRelu_1"], s["DeconvBNRelu_1"])
+    od = "decoder.output_decoder"
+    if dec in ("simple_decoder", "FCN_decoder"):
+        head = p["SimpleDecoder_0" if dec == "simple_decoder" else "FCNDecoder_0"]
+        out.conv(f"{od}.pred.0", head["Conv_0"])
+        out.conv(f"{od}.pred.2", head["Conv_1"])
+    elif dec == "n_segnet_decoder":
+        dp, ds = p["NSegnetDecoder_0"], s["NSegnetDecoder_0"]
+        counts = {True: 0, False: 0}  # flax numbers each block type apart
+        for i, (transposed, _) in enumerate(NSegnetDecoder.PLAN):
+            name = f"{'DeconvBNRelu' if transposed else 'ConvBNRelu'}_{counts[transposed]}"
+            counts[transposed] += 1
+            (_dcbr if transposed else _cbr)(out, f"{od}.deconv{i + 1}", dp[name], ds[name])
+    else:
+        raise KeyError(f"Decoder {dec} not available")
 
 
 def state_dict_from_flax(cfg: Mapping[str, Any],
                          variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ``{'params', 'batch_stats'}`` (nested dicts of arrays) of any of
-    the seven JAX models (``resnet_encoder``, ``simple_decoder``, no
-    squeezer) -> the port's state_dict of that model (loads with
-    ``strict=True``). Flax names -> torch names: ``ImgEncoder_0`` ->
+    """Flax ``{'params', 'batch_stats'}`` (nested dicts of arrays) of any
+    model the JAX ``get_model`` builds -> the port's state_dict of that
+    model (loads with ``strict=True``). Flax names -> torch names:
+    ``ResnetEncoder_0`` / ``NSegnetEncoder_0.ConvBNRelu_i`` ->
+    ``feature_backbone.feature_backbone.*`` / ``feature_backbone.conv{i+1}``,
+    the ImgEncoder's ``ConvBNRelu_0`` -> ``squeezer``, the ImgDecoder's
+    ``DeconvBNRelu_0`` (/ ``_1``) -> ``desqueezer`` (/ ``desqueezer1``,
+    ``desqueezer2``), ``SimpleDecoder_0`` / ``FCNDecoder_0`` ->
+    ``output_decoder.pred``, ``NSegnetDecoder_0``'s interleaved
+    ``DeconvBNRelu_j`` / ``ConvBNRelu_i`` -> ``output_decoder.deconv1..12``,
+    ``ImgEncoder_0`` ->
     ``encoder``, ``degraded_encoder`` -> ``degarded_encoder`` (the
     reference's spelling), ``PolicyNet4_0`` -> ``query_key_net``,
     ``GeneralDotAttention_0.Dense_0`` / ``MIMOGeneralDotAttention_0.proj`` /
@@ -180,14 +231,11 @@ def _walk(cfg: Mapping[str, Any], P, S, out: _Out) -> _Out:
     (params) and ``S`` (batch_stats), handing each to ``out``."""
     m = cfg["model"]
     arch = m["arch"]
-    if (m["enc_backbone"], m["dec_backbone"]) != ("resnet_encoder", "simple_decoder") \
-            or (m.get("feat_squeezer") or -1) != -1:
-        raise NotImplementedError("the weight bridge covers resnet_encoder, simple_decoder "
-                                  "and no squeezer")
-    chw = policy_map_shape((cfg["data"]["img_rows"], cfg["data"]["img_cols"]))
+    encoder = m.get("enc_backbone") or "resnet_encoder"
+    chw = policy_map_shape((cfg["data"]["img_rows"], cfg["data"]["img_cols"]), encoder)
 
     def enc(flax_name: str, torch_name: str | None = None) -> None:
-        _img_encoder(out, torch_name or flax_name, P[flax_name], S[flax_name])
+        _img_encoder(out, torch_name or flax_name, P[flax_name], S[flax_name], encoder)
 
     if arch in ("Single_agent", "MIMO_All_agents"):
         enc("ImgEncoder_0", "encoder")
@@ -204,10 +252,10 @@ def _walk(cfg: Mapping[str, Any], P, S, out: _Out) -> _Out:
         else:
             for i in range(m["agent_num"]):
                 enc(f"encoder{i + 1}")
-        _policy_net(out, "query_key_net", P["PolicyNet4_0"], S["PolicyNet4_0"])
+        _policy_net(out, "query_key_net", P["PolicyNet4_0"], S["PolicyNet4_0"], encoder)
     elif arch in ("MIMOcom", "MIMOcomWho"):
         enc("u_encoder")
-        _policy_net(out, "query_key_net", P["query_key_net"], S["query_key_net"])
+        _policy_net(out, "query_key_net", P["query_key_net"], S["query_key_net"], encoder)
     else:
         raise KeyError(f"Model {arch} not available")
 
@@ -226,5 +274,6 @@ def _walk(cfg: Mapping[str, Any], P, S, out: _Out) -> _Out:
             a = P["AdditiveAttention_0"]
             for i, name in enumerate(("linear_feat", "linear_context", "linear_out")):
                 out.dense(f"attention_net.{name}", a[f"Dense_{i}"])
-    _decoder(out, P)
+    _decoder(out, P, S, m.get("dec_backbone") or "simple_decoder",
+             int(m.get("feat_squeezer") or -1))
     return out

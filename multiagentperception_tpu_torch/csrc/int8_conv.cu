@@ -105,6 +105,15 @@ constexpr int kHaloChunks = 4;                // halo chunks in flight (two tile
 constexpr int kQThreads = 256;
 constexpr int kSmemLimit = 232448;            // dynamic shared memory a CTA may hold (227 KB)
 
+// A debug build's lagging warp (default off): with INT8_CONV_LAG_CYCLES > 0,
+// warp 1 of each consumer warpgroup spins that many cycles after every
+// epilogue, so the other warps run a tile ahead of it; the turn barriers
+// must hold the ring's order all the same (tests/test_torch_cuda.py builds
+// it as ops/kernels/_build.py's "int8_conv_lag").
+#ifndef INT8_CONV_LAG_CYCLES
+#define INT8_CONV_LAG_CYCLES 0
+#endif
+
 enum Route { kHalo = 0, kGather16 = 1, kS2d = 2 };
 enum OutKind { kF32 = 0, kBF16 = 1, kS32 = 2 };
 
@@ -537,6 +546,11 @@ __device__ __forceinline__ void epilogue(int (&acc)[Tl::MB][Tl::NB / 2], float* 
       store_pass<8, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
     else
       store_pass<4, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
+  }
+  if (INT8_CONV_LAG_CYCLES > 0 && warp == 1) {
+    const long long until = clock64() + INT8_CONV_LAG_CYCLES;
+    while (clock64() < until) {
+    }
   }
 }
 

@@ -8,7 +8,9 @@ selection draw :208-211 and :493-498, ``_eval_step_fn`` :457-544,
 
 Per batch the card computes the class map from the decoder's pre-upsample
 logits with the upsample+argmax kernel — the full-resolution logits are
-never built — for every architecture, and the Normal/Noise/Overall
+never built — for every architecture (a decoder with no pre-upsample
+logits, ``n_segnet_decoder``, gives full-resolution ones, whose argmax is
+taken instead, as JAX does), and the Normal/Noise/Overall
 confusion matrices; the host reads back three (C, C) histograms, the
 actions and the bandwidth where the forward returns them. The frames and
 labels reach the card from pinned memory without blocking the host
@@ -51,7 +53,7 @@ from multiagentperception_tpu_torch.device import resolve_device
 from multiagentperception_tpu_torch.metrics import runningScore
 from multiagentperception_tpu_torch.models import get_model
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
-from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
 from multiagentperception_tpu_torch.quantize import Int8Convs, calibrate_activations
 
@@ -186,11 +188,13 @@ class Evaluator:
     def predict(self, images, inference: str | None = None):
         """(B, N, H, W, 3) images -> (class map (B', H, W) int32, action or
         None, num_connect or None), device tensors. The class map comes from
-        the decoder's pre-upsample logits through the upsample+argmax kernel."""
+        the decoder's pre-upsample logits through the upsample+argmax kernel,
+        or, for a decoder with none (``n_segnet_decoder``), from the argmax
+        of its full-resolution logits (``class_map``)."""
         x = self._images(images)
         pre, action, num_connect = self._outputs(self.model(
             x, full_res=False, **self._forward_kwargs(inference or self.eval_default, "eval")))
-        return upsample_argmax(pre, x.shape[-3], x.shape[-2]), action, num_connect
+        return class_map(pre, x.shape[-3], x.shape[-2]), action, num_connect
 
     def _flags(self, commun_label) -> torch.Tensor:
         """Per prediction, whether its frame is a normal one (JAX :529-541)."""

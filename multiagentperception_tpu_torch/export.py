@@ -2,8 +2,9 @@
 
 ``make_eval_fn`` builds the eval step a server runs: images -> (int32
 class map, comm graph, per-frame bandwidth ``(B,)``). The class map comes
-from the decoder's pre-upsample logits through K1 ``upsample_argmax``, as
-``Evaluator.predict`` makes it. ``quantize.make_int8_eval_fn`` passes its
+from the decoder's pre-upsample logits through K1 ``upsample_argmax`` (or
+the argmax of a SegNet decoder's full-resolution logits), as
+``Evaluator.predict`` makes it (``class_map``). ``quantize.make_int8_eval_fn`` passes its
 int8 forward as ``apply_fn``, so both share this bandwidth accounting.
 
 ``export_serving`` serializes that step with ``torch.export`` into bytes
@@ -27,18 +28,19 @@ import torch
 from torch import nn
 
 from multiagentperception_tpu_torch.ops.comm import per_frame_links
-from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 
 
-def _eval_outputs(apply, images: torch.Tensor, inference: str):
-    """The serving step's body: (class map, graph, per-frame bandwidth)."""
+def _eval_outputs(apply, images: torch.Tensor, inference: str, topk_k: int = 2):
+    """The serving step's body: (class map, graph, per-frame bandwidth).
+    ``topk_k`` is the model's (JAX export.py:42-43)."""
     pre, prob, _action, num_connect = apply(images, inference=inference, full_res=False)
     if prob.dim() == 3 and prob.shape[1] == prob.shape[2]:
-        nc = per_frame_links(prob, inference, prob.shape[1])
+        nc = per_frame_links(prob, inference, prob.shape[1], topk_k=topk_k)
     else:  # SRMS single-query graphs: broadcast the model's scalar
         nc = torch.as_tensor(num_connect, dtype=torch.float32,
                              device=images.device).expand(images.shape[0])
-    return upsample_argmax(pre, images.shape[-3], images.shape[-2]), prob, nc
+    return class_map(pre, images.shape[-3], images.shape[-2]), prob, nc
 
 
 def make_eval_fn(model: torch.nn.Module, inference: str = "activated", apply_fn=None):
@@ -55,9 +57,13 @@ def make_eval_fn(model: torch.nn.Module, inference: str = "activated", apply_fn=
     @torch.inference_mode()
     def eval_fn(images: torch.Tensor):
         model.eval()
-        return _eval_outputs(apply, images, inference)
+        return _eval_outputs(apply, images, inference, _topk_k(model))
 
     return eval_fn
+
+
+def _topk_k(model: nn.Module) -> int:
+    return getattr(model, "topk_k", 2)
 
 
 class _Serving(nn.Module):
@@ -69,7 +75,7 @@ class _Serving(nn.Module):
         self.inference = inference
 
     def forward(self, images: torch.Tensor):
-        return _eval_outputs(self.model, images, self.inference)
+        return _eval_outputs(self.model, images, self.inference, _topk_k(self.model))
 
 
 class _HotSwap(nn.Module):
@@ -90,12 +96,13 @@ class _HotSwap(nn.Module):
         def apply(x, **kwargs):
             return functional_call(self._model, state, (x,), kwargs, strict=True)
 
+        topk_k = _topk_k(self._model)
         if not self.int8:
-            return _eval_outputs(apply, images, self.inference)
+            return _eval_outputs(apply, images, self.inference, topk_k)
         from multiagentperception_tpu_torch.quantize import Int8Convs
 
         with Int8Convs(self._model, self.act_scales):  # a new weight cache per trace
-            return _eval_outputs(apply, images, self.inference)
+            return _eval_outputs(apply, images, self.inference, topk_k)
 
 
 def export_serving(model: nn.Module, input_shape: tuple, input_dtype: torch.dtype = torch.float32,

@@ -3,13 +3,15 @@ serialize a checkpoint's eval step for serving.
 
     python -m multiagentperception_tpu_torch.export_serving --config <yml> \\
         [--model_path <ckpt.pkl>] --out model.pt2 [--batch 8] \\
-        [--inference activated] [--int8 [--calib_data <root>] [--calib_batches 4]] \\
+        [--inference MODE] [--int8 [--calib_data <root>] [--calib_batches 4]] \\
         [--torch_out <weights.pkl>] [--device cpu]
 
 Writes a ``torch.export`` artifact (``export.export_serving``) that
 ``python -m multiagentperception_tpu_torch.serve`` runs without the model
 code, and beside it ``<out>.meta.json``, what the artifact itself does not
-record: the config and the mode it was built from. ``--model_path`` is a
+record: the config and the mode it was built from (``--inference``,
+default the config's eval mode: ``model.eval_inference``, e.g. ``topk``,
+else ``activated``). ``--model_path`` is a
 reference-format ``.pkl``, loaded as ``Evaluator.load_weight`` loads it;
 without it the weights are ``models.init_weights``' seed 0.
 ``--torch_out`` also writes the weights as a reference-format ``.pkl``.
@@ -38,7 +40,8 @@ def main(argv=None) -> None:
     p.add_argument("--torch_out", default=None,
                    help="also write the weights as a reference-format .pkl")
     p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--inference", default="activated")
+    p.add_argument("--inference", default=None,
+                   help="eval mode (default model.eval_inference, else activated)")
     p.add_argument("--int8", action="store_true", help="post-training int8 quantized export")
     p.add_argument("--calib_data", default=None,
                    help="dataset root for static activation calibration (with --int8); "
@@ -58,6 +61,7 @@ def main(argv=None) -> None:
 
     cfg = load_config(args.config)
     evaluator = Evaluator(cfg, device=args.device)  # raises first if no card
+    args.inference = args.inference or cfg["model"].get("eval_inference") or "activated"
     if args.model_path:
         evaluator.load_weight(args.model_path)
     else:

@@ -1,20 +1,21 @@
 """Model registry (port of multiagentperception_tpu/models/__init__.py:28-129).
 
-All seven reference architectures with the ``resnet_encoder`` /
-``simple_decoder`` backbones: every model the ten reference YAMLs reach,
-in float32 or, with ``model.dtype: bfloat16`` or the
-``training.mixed_precision`` shorthand, computing in bf16 with float32
-parameters and BatchNorm statistics (``compute_dtype``). What the port does
-not carry yet raises ``NotImplementedError`` naming the key and
-ROADMAP.md, never a silent substitute: ``feat_squeezer``, other backbones,
-``sparse: true`` on the SRMS attentions, ``model.dtype: float16``,
-``agent_parallel*``, and ``topk`` (``topk_k``, ``eval_inference: topk``).
-MIMOcom keeps the flagship's shape (``query: true``, ``multiple_output:
-true``).
+Every model the JAX package's ``get_model`` builds: the seven reference
+architectures over the ``resnet_encoder`` / ``n_segnet_encoder`` encoders
+and the ``simple_decoder`` / ``FCN_decoder`` / ``n_segnet_decoder``
+decoders, with ``feat_squeezer``, ``sparse`` (sparsemax on the SRMS
+attentions), MIMOcom's ``query: false`` / ``multiple_output: false`` and its
+``topk`` eval (``topk_k``), in float32 or, with ``model.dtype: bfloat16``
+or the ``training.mixed_precision`` shorthand, computing in bf16 with
+float32 parameters and BatchNorm statistics (``compute_dtype``). What the
+port does not carry yet raises ``NotImplementedError`` naming the key and
+ROADMAP.md, never a silent substitute: ``model.dtype: float16`` and
+``agent_parallel*``.
 ``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
-modes always run the fused comm step (models/agents.py). ``model.remat``
-checkpoints MIMOcom's two towers in its training forward (JAX
-models/__init__.py:111); the other architectures ignore it with a warning.
+modes always run the fused comm step where it applies (models/agents.py).
+``model.remat`` checkpoints MIMOcom's two towers in its training forward
+(JAX models/__init__.py:111); the other architectures ignore it with a
+warning.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch import nn
 
 from multiagentperception_tpu_torch.models.agents import (
     AllAgents,
+    Backbones,
     LearnWhen2Com,
     LearnWho2Com,
     MIMOAllAgents,
@@ -81,19 +83,15 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
                 logging.getLogger("multiagentperception_tpu_torch").warning(
                     "config: model.%s is a MIMOcom extension and is ignored for arch %s",
                     k, name)
-    for key, value in (("enc_backbone", "resnet_encoder"), ("dec_backbone", "simple_decoder")):
-        if m.get(key) != value:
-            _refuse(key, m.get(key))
-    if (m.get("feat_squeezer") or -1) != -1:
-        _refuse("feat_squeezer", m["feat_squeezer"])
     for key in ("agent_parallel", "agent_parallel_train"):
         if m.get(key):
             _refuse(key, m[key])
-    if m.get("eval_inference") == "topk":
-        _refuse("eval_inference", "topk")
 
+    backbones = Backbones(m.get("enc_backbone") or "resnet_encoder",
+                          m.get("dec_backbone") or "simple_decoder",
+                          int(m.get("feat_squeezer") or -1))
     common = dict(n_classes=n_classes, feat_channel=m.get("feat_channel", 512),
-                  dtype=compute_dtype(cfg))
+                  dtype=compute_dtype(cfg), backbones=backbones)
     if name == "Single_agent":
         return SingleAgent(**common)
     if name in ("All_agents", "MIMO_All_agents"):
@@ -101,30 +99,28 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
                             agent_num=m["agent_num"], **common)
     img_size = (cfg["data"]["img_rows"], cfg["data"]["img_cols"])
     comm = dict(agent_num=m["agent_num"], key_size=m["key_size"],
-                query_size=m["query_size"], img_size=img_size, **common)
+                query_size=m["query_size"], img_size=img_size, has_query=bool(m["query"]),
+                **common)
     if name in ("MIMOcom", "MIMOcomWho") and m.get("shared_img_encoder") != "unified":
         raise ValueError("Incorrect shared_img_encoder flag")  # as the JAX models
+    mo_flag = bool(m.get("multiple_output"))
     if name == "MIMOcom":
-        for key in ("query", "multiple_output"):
-            if not m.get(key):
-                _refuse(key, m.get(key))
-        if m.get("topk_k") is not None:
-            _refuse("topk_k", m["topk_k"])
-        return MIMOcom(remat=bool(m.get("remat")), **comm)
+        # the sparse flag is accepted and ignored by the MIMO attention, as in JAX
+        topk = {} if m.get("topk_k") is None else {"topk_k": int(m["topk_k"])}
+        return MIMOcom(remat=bool(m.get("remat")), mo_flag=mo_flag, **topk, **comm)
     if name == "MIMOcomWho":
-        return MIMOcomWho(has_query=bool(m["query"]),
-                          mo_flag=bool(m.get("multiple_output")), **comm)
-    if m.get("sparse"):
-        _refuse("sparse", m["sparse"])  # sparsemax: ROADMAP A.6
-    return MODELS[name](attention=m["attention"], has_query=bool(m["query"]),
+        return MIMOcomWho(mo_flag=mo_flag, **comm)
+    return MODELS[name](attention=m["attention"], sparse=bool(m.get("sparse")),
                         shared_img_encoder=m["shared_img_encoder"], **comm)
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded init in the JAX package's distributions: he-normal convs,
-    xavier-normal linears, zero biases, fresh BatchNorm. Drawn on the CPU
-    from one ``torch.Generator``, so every device gets the same weights."""
+    """Seeded init in the JAX package's distributions: he-normal convs and
+    transposed convs (fan-in over the kernel and the input channels, as
+    flax's kernel (kh, kw, in, out)), xavier-normal linears, zero biases,
+    fresh BatchNorm. Drawn on the CPU from one ``torch.Generator``, so every
+    device gets the same weights."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -137,6 +133,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             w.copy_(torch.randn(w.shape, generator=gen) * std)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw): fan-in over in
+            w = mod.weight
+            std = math.sqrt(2.0 / (w.shape[0] * w[0, 0].numel()))
+            w.copy_(torch.randn(w.shape, generator=gen) * std)
+            mod.bias.zero_()
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     return model

@@ -23,12 +23,20 @@ per-agent encoders, agent 0 alone and agents 1..N-1 together for
 The pruned eval modes decode once. The JAX models decode the soft fusion
 first and XLA drops that unused decode; eager PyTorch would run it, so the
 port does not (BatchNorm runs on running stats there, nothing else changes).
-MIMOcom's pruned modes run the communication step through ``comm_fusion``
-(the kernel on the card, its plain version on the CPU), as the JAX model
-does under ``model.pallas_comm``; its plain pruned path computes the same
-outputs, so the port takes the option and ignores it. MIMOcomWho's graph
-is drop-diagonal with no bias, a different graph: its pruned modes use
+MIMOcom's ``argmax_test`` and ``activated`` on the full N x N graph run the
+communication step through ``comm_fusion`` (the kernel on the card, its
+plain version on the CPU), as the JAX model does under
+``model.pallas_comm``; its plain pruned path computes the same outputs, so
+the port takes the option and ignores it. Its ``topk`` mode and its
+single-query graph (``multiple_output: false``) take the plain selections
+(``topk_select``, ``argmax_select``, ``activated_select``), as the JAX
+model's Pallas branch leaves them to XLA. MIMOcomWho's graph is
+drop-diagonal with no bias, a different graph: its pruned modes use
 ``argmax_select`` / ``activated_select``.
+
+Every architecture takes ``backbones`` (``Backbones``: ``model.enc_backbone``,
+``model.dec_backbone``, ``model.feat_squeezer``), the SRMS ones ``sparse``
+(sparsemax over keys), as the JAX models take those fields.
 
 The ``selection`` baselines (``shuffle_features: selection``) take their
 random partners as ``rand_ids``, drawn by the caller on the host (the
@@ -47,7 +55,9 @@ float32, and MIMOcom's pruned modes hand the comm step bf16 Q', K and V.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -71,10 +81,12 @@ from multiagentperception_tpu_torch.ops.comm import (
     fuse_values,
     num_connect_offdiag,
     one_hot_argmax,
+    topk_select,
 )
 from multiagentperception_tpu_torch.ops.kernels.comm_fusion import comm_fusion
 
 INFERENCE_MODES = ("softmax", "argmax_test", "activated")
+MIMOCOM_MODES = INFERENCE_MODES + ("topk",)  # topk: MIMOcom alone, as in JAX
 DIAG_BIAS = 0.001  # prefer-own-frame bias (reference agent.py:1164-1167)
 THRES = 0.2  # activated keeps links with weight > THRES (reference agent.py:800)
 
@@ -99,8 +111,31 @@ def _check_mode(module: nn.Module, inference: str, modes=INFERENCE_MODES) -> Non
         raise ValueError(f"inference mode {inference!r} in training: the training "
                          "forward is the soft fusion (inference='softmax')")
     if inference not in modes:
-        raise ValueError(f"inference mode {inference!r} not in {modes} "
-                         "(topk waits for a later slice, ROADMAP.md)")
+        raise ValueError(f"Incorrect inference mode {inference!r}: "
+                         f"{type(module).__name__} takes {modes}")
+
+
+@dataclass(frozen=True)
+class Backbones:
+    """The towers' backbones (``model.enc_backbone``, ``model.dec_backbone``)
+    and ``model.feat_squeezer``, which every architecture hands to its
+    encoders, policy tower and decoder, as the JAX models do."""
+
+    enc_backbone: str = "resnet_encoder"
+    dec_backbone: str = "simple_decoder"
+    feat_squeezer: int = -1
+
+    def encoder(self, feat_channel: int, dtype) -> ImgEncoder:
+        return ImgEncoder(feat_channel, dtype, self.enc_backbone, self.feat_squeezer)
+
+    def decoder(self, in_ch: int, n_classes: int, dtype) -> ImgDecoder:
+        return ImgDecoder(in_ch, n_classes, dtype, self.dec_backbone, self.feat_squeezer)
+
+    def policy(self, dtype) -> PolicyNet4:
+        return PolicyNet4(dtype, self.enc_backbone)
+
+    def policy_features(self, img_size) -> int:
+        return math.prod(policy_map_shape(tuple(img_size), self.enc_backbone))
 
 
 def _need_ids(rand_ids):
@@ -114,10 +149,10 @@ class SingleAgent(nn.Module):
     """Encoder -> decoder, no communication (reference: agent.py:375-395)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, backbones: Backbones = Backbones()):
         super().__init__()
-        self.encoder = ImgEncoder(feat_channel, dtype)
-        self.decoder = ImgDecoder(feat_channel, n_classes, dtype)
+        self.encoder = backbones.encoder(feat_channel, dtype)
+        self.decoder = backbones.decoder(feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True) -> torch.Tensor:
         return self.decoder(self.encoder(_nchw(x)), full_res)
@@ -130,14 +165,15 @@ class AllAgents(nn.Module):
     baseline; returns ``(pred, rand_action)``) (reference: agent.py:399-469)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
-                 shuffle_flag=None, agent_num: int = 5, dtype: torch.dtype | None = None):
+                 shuffle_flag=None, agent_num: int = 5, dtype: torch.dtype | None = None,
+                 backbones: Backbones = Backbones()):
         super().__init__()
         self.shuffle_flag = shuffle_flag
         self.agent_num = agent_num
         for i in range(agent_num):
-            setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel, dtype))
+            setattr(self, f"encoder{i + 1}", backbones.encoder(feat_channel, dtype))
         width = 2 if shuffle_flag in ("selection", "fixed2") else agent_num
-        self.decoder = ImgDecoder(width * feat_channel, n_classes, dtype)
+        self.decoder = backbones.decoder(width * feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True,
                 rand_ids: torch.Tensor | None = None):
@@ -161,13 +197,14 @@ class MIMOAllAgents(nn.Module):
     (reference: agent.py:892-980)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
-                 shuffle_flag=None, agent_num: int = 6, dtype: torch.dtype | None = None):
+                 shuffle_flag=None, agent_num: int = 6, dtype: torch.dtype | None = None,
+                 backbones: Backbones = Backbones()):
         super().__init__()
         self.shuffle_flag = shuffle_flag
         self.agent_num = agent_num
-        self.encoder = ImgEncoder(feat_channel, dtype)
+        self.encoder = backbones.encoder(feat_channel, dtype)
         width = 2 if shuffle_flag in ("selection", "ComNet") else agent_num
-        self.decoder = ImgDecoder(width * feat_channel, n_classes, dtype)
+        self.decoder = backbones.decoder(width * feat_channel, n_classes, dtype)
 
     def forward(self, x: torch.Tensor, full_res: bool = True,
                 rand_ids: torch.Tensor | None = None):
@@ -191,30 +228,33 @@ class MIMOAllAgents(nn.Module):
 class _SRMSComm(nn.Module):
     """What LearnWho2Com and LearnWhen2Com share: the value encoders of
     ``shared_img_encoder`` (``_encode``, port of agents.py:207-220), the
-    policy tower and its key/query heads, the SRMS attention, the decoder."""
+    policy tower and its key/query heads, the SRMS attention (sparsemax with
+    ``sparse``), the decoder."""
 
     def __init__(self, n_classes, feat_channel, attention, has_query, agent_num,
-                 shared_img_encoder, key_size, query_size, img_size, dec_width, dtype):
+                 shared_img_encoder, key_size, query_size, img_size, dec_width, dtype,
+                 sparse, backbones):
         super().__init__()
         self.agent_num = agent_num
         self.has_query = has_query
         self.query_size = query_size
         self.shared_img_encoder = shared_img_encoder
         if shared_img_encoder == "unified":
-            self.u_encoder = ImgEncoder(feat_channel, dtype)
+            self.u_encoder = backbones.encoder(feat_channel, dtype)
         elif shared_img_encoder == "only_normal_agents":
-            self.degarded_encoder = ImgEncoder(feat_channel, dtype)  # the reference's spelling
-            self.normal_encoder = ImgEncoder(feat_channel, dtype)
+            # the reference's spelling
+            self.degarded_encoder = backbones.encoder(feat_channel, dtype)
+            self.normal_encoder = backbones.encoder(feat_channel, dtype)
         else:
             for i in range(agent_num):
-                setattr(self, f"encoder{i + 1}", ImgEncoder(feat_channel, dtype))
-        policy_features = math.prod(policy_map_shape(tuple(img_size)))
-        self.query_key_net = PolicyNet4(dtype)
+                setattr(self, f"encoder{i + 1}", backbones.encoder(feat_channel, dtype))
+        policy_features = backbones.policy_features(img_size)
+        self.query_key_net = backbones.policy(dtype)
         self.key_net = KMGenerator(policy_features, key_size, dtype)
         if has_query:
             self.query_net = KMGenerator(policy_features, query_size, dtype)
-        self.attention_net = get_srms_attention(attention, query_size, key_size, dtype)
-        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes, dtype)
+        self.attention_net = get_srms_attention(attention, query_size, key_size, dtype, sparse)
+        self.decoder = backbones.decoder(dec_width * feat_channel, n_classes, dtype)
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, 3) -> value maps (B, N, C, h, w)."""
@@ -253,10 +293,11 @@ class LearnWho2Com(_SRMSComm):
                  attention: str = "general", has_query: bool = True, agent_num: int = 5,
                  shared_img_encoder: str = "unified", key_size: int = 1024,
                  query_size: int = 8, img_size: tuple[int, int] = (512, 512),
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, sparse: bool = False,
+                 backbones: Backbones = Backbones()):
         super().__init__(n_classes, feat_channel, attention, has_query, agent_num,
                          shared_img_encoder, key_size, query_size, img_size, dec_width=2,
-                         dtype=dtype)
+                         dtype=dtype, sparse=sparse, backbones=backbones)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax", full_res: bool = True):
         _check_mode(self, inference, self.MODES)
@@ -287,10 +328,11 @@ class LearnWhen2Com(_SRMSComm):
                  attention: str = "general", has_query: bool = True, agent_num: int = 5,
                  shared_img_encoder: str = "unified", key_size: int = 1024,
                  query_size: int = 8, img_size: tuple[int, int] = (512, 512),
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, sparse: bool = False,
+                 backbones: Backbones = Backbones()):
         super().__init__(n_classes, feat_channel, attention, has_query, agent_num,
                          shared_img_encoder, key_size, query_size, img_size, dec_width=1,
-                         dtype=dtype)
+                         dtype=dtype, sparse=sparse, backbones=backbones)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax", full_res: bool = True):
         _check_mode(self, inference)
@@ -348,19 +390,20 @@ class _MIMOComm(nn.Module):
     remat = False
 
     def __init__(self, n_classes, feat_channel, agent_num, key_size, query_size, img_size,
-                 has_query, attention, dec_width, dtype):
+                 has_query, mo_flag, attention, dec_width, dtype, backbones):
         super().__init__()
         self.agent_num = agent_num
         self.has_query = has_query
+        self.mo_flag = mo_flag
         self.query_size = query_size
-        policy_features = math.prod(policy_map_shape(tuple(img_size)))
-        self.u_encoder = ImgEncoder(feat_channel, dtype)
-        self.query_key_net = PolicyNet4(dtype)
+        policy_features = backbones.policy_features(img_size)
+        self.u_encoder = backbones.encoder(feat_channel, dtype)
+        self.query_key_net = backbones.policy(dtype)
         self.key_net = KMGenerator(policy_features, key_size, dtype)
         if has_query:
             self.query_net = KMGenerator(policy_features, query_size, dtype)
         self.attention_net = attention(query_size, key_size, dtype)
-        self.decoder = ImgDecoder(dec_width * feat_channel, n_classes, dtype)
+        self.decoder = backbones.decoder(dec_width * feat_channel, n_classes, dtype)
 
     def _tower(self, tower: nn.Module, flat: torch.Tensor) -> torch.Tensor:
         """``tower(flat)``; under ``remat`` in a training forward that
@@ -372,7 +415,8 @@ class _MIMOComm(nn.Module):
                                               _running_stats_kept(tower)))
 
     def _towers(self, x: torch.Tensor):
-        """(values (B, N, C, h, w), keys (B, N, key_size), queries (B, N, query_size))."""
+        """(values (B, N, C, h, w), keys (B, N, key_size), queries (B, Q,
+        query_size)): Q = N, or 1 (agent 0's) without ``mo_flag``."""
         b, n = x.shape[:2]
         flat = _nchw(x)
         val_mat = _unfold(self._tower(self.u_encoder, flat), n)  # the value tower
@@ -382,6 +426,8 @@ class _MIMOComm(nn.Module):
             query = _unfold(self.query_net(qk_map), n)
         else:
             query = torch.ones(b, n, self.query_size, dtype=val_mat.dtype, device=x.device)
+        if not self.mo_flag:
+            query = query[:, :1]
         return val_mat, keys, query
 
 
@@ -389,36 +435,60 @@ class MIMOcom(_MIMOComm):
     """The when2com MRMS model (reference: agent.py:983-1204): the N x N
     graph (+0.001 I) over the shared towers, the decoder per agent.
     Returns ``(pred, prob (B, K, Q), action (B, Q), num_connect)``.
-    ``remat`` checkpoints the two towers in the training forward."""
+    ``remat`` checkpoints the two towers in the training forward.
+    ``has_query=False`` (``query: false``) uses a query of ones and no
+    ``query_net``; ``mo_flag=False`` (``multiple_output: false``) keeps agent
+    0's query alone: the graph is (B, K, 1), with no diagonal bias, and one
+    prediction a sample. ``topk`` (``eval_inference: topk``, not in the
+    reference) keeps each query's ``topk_k`` strongest links, renormalized.
+
+    ``argmax_test`` and ``activated`` on the full graph run the fused comm
+    step (``comm_fusion``: K2 on the card); ``topk`` and the single-query
+    graph take the plain selections, as the JAX model's Pallas branch
+    leaves them to XLA (agents.py:471-485)."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  agent_num: int = 6, key_size: int = 1024, query_size: int = 32,
                  img_size: tuple[int, int] = (512, 512), dtype: torch.dtype | None = None,
-                 remat: bool = False):
+                 remat: bool = False, has_query: bool = True, mo_flag: bool = True,
+                 topk_k: int = 2, backbones: Backbones = Backbones()):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
-                         has_query=True, attention=MIMOGeneralDotAttention, dec_width=1,
-                         dtype=dtype)
+                         has_query=has_query, mo_flag=mo_flag,
+                         attention=MIMOGeneralDotAttention, dec_width=1, dtype=dtype,
+                         backbones=backbones)
         self.remat = remat
+        self.topk_k = topk_k
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):
-        _check_mode(self, inference)
+        _check_mode(self, inference, MIMOCOM_MODES)
         n = x.shape[1]
         val_mat, keys, query = self._towers(x)
+        mo = query.shape[1] == n
         if inference == "softmax":
             # the soft fusion uses the graph (B, K, Q) before the diagonal bias
             feat, prob = self.attention_net(query, keys, val_mat)
             pred = self.decoder(_fold(feat), full_res)
-            prob = prob + DIAG_BIAS * torch.eye(n, dtype=prob.dtype, device=prob.device)
+            if mo:
+                prob = prob + DIAG_BIAS * torch.eye(n, dtype=prob.dtype, device=prob.device)
             num_connect = torch.tensor(float(n - 1), device=x.device)
             return pred, prob, torch.argmax(prob, dim=1), num_connect
 
-        mode = "argmax" if inference == "argmax_test" else "activated"
-        feat, coef, prob = comm_fusion(
-            self.attention_net.project(query), keys, val_mat,
-            mode=mode, diag_bias=DIAG_BIAS)
+        if mo and inference != "topk":
+            mode = "argmax" if inference == "argmax_test" else "activated"
+            feat, coef, prob = comm_fusion(
+                self.attention_net.project(query), keys, val_mat,
+                mode=mode, diag_bias=DIAG_BIAS)
+            num_connect = num_connect_offdiag(coef, n)
+        else:
+            prob = self.attention_net.graph(query, keys)
+            if mo:
+                prob = prob + DIAG_BIAS * torch.eye(n, dtype=prob.dtype, device=prob.device)
+            select = {"argmax_test": argmax_select, "activated": activated_select,
+                      "topk": functools.partial(topk_select, k=self.topk_k)}[inference]
+            feat, coef, num_connect = select(val_mat, prob, n)
         pred = self.decoder(_fold(feat), full_res)
-        return pred, prob, torch.argmax(coef, dim=1), num_connect_offdiag(coef, n)
+        return pred, prob, torch.argmax(coef, dim=1), num_connect
 
 
 class MIMOcomWho(_MIMOComm):
@@ -433,19 +503,18 @@ class MIMOcomWho(_MIMOComm):
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  has_query: bool = True, agent_num: int = 6, key_size: int = 1024,
                  query_size: int = 32, img_size: tuple[int, int] = (512, 512),
-                 mo_flag: bool = True, dtype: torch.dtype | None = None):
+                 mo_flag: bool = True, dtype: torch.dtype | None = None,
+                 backbones: Backbones = Backbones()):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
-                         has_query=has_query, attention=MIMOWhoGeneralDotAttention,
-                         dec_width=2, dtype=dtype)
-        self.mo_flag = mo_flag
+                         has_query=has_query, mo_flag=mo_flag,
+                         attention=MIMOWhoGeneralDotAttention, dec_width=2, dtype=dtype,
+                         backbones=backbones)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):
         _check_mode(self, inference)
         n = x.shape[1]
         val_mat, keys, query = self._towers(x)
-        if not self.mo_flag:
-            query = query[:, :1]
         if inference == "softmax":
             feat, prob = self.attention_net(query, keys, val_mat)
             num_connect = torch.tensor(float(n - 1), device=x.device)

@@ -7,8 +7,10 @@ return the fused map ``(B, C, h, w)`` and the probability row ``(B, 1, K)``;
 the MIMO attentions return ``(B, Q, C, h, w)`` and the graph ``(B, K, Q)``,
 normalized over keys. Submodule names are the reference's
 (``attention_net.linear``, ``linear_feat``/``linear_context``/``linear_out``).
-``sparse`` (sparsemax) is not ported: ``models.get_model`` refuses it where
-it would change the result; the MIMO attentions ignore it, as the JAX ones do.
+``sparse`` selects sparsemax (``ops.sparsemax``) instead of the softmax
+over keys in the SRMS attentions (JAX attention.py:28-29); the MIMO
+attentions accept it and ignore it, as the JAX ones and the reference do
+(agent.py:274 always softmaxes).
 
 ``dtype`` is the compute dtype of the linear layers (``models.blocks``).
 In bf16 the SRMS attentions stay in bf16 end to end, the logits' softmax
@@ -25,11 +27,18 @@ from torch import nn
 
 from multiagentperception_tpu_torch.models.blocks import Linear
 from multiagentperception_tpu_torch.ops.comm import drop_diagonal_softmax, fuse_values
+from multiagentperception_tpu_torch.ops.sparsemax import sparsemax
 
 
 class _SRMSAttention(nn.Module):
-    """``graph(q, k)`` -> the (B, K, 1) coefficients, normalized over keys;
-    the forward fuses the values along them."""
+    """``graph(q, k)`` -> the (B, K, 1) coefficients, normalized over keys
+    by softmax, or by sparsemax with ``sparse``; the forward fuses the
+    values along them."""
+
+    sparse = False
+
+    def _normalize(self, logits: torch.Tensor) -> torch.Tensor:
+        return sparsemax(logits, dim=1) if self.sparse else torch.softmax(logits, dim=1)
 
     def forward(self, q, k, v):
         coef = self.graph(q, k)
@@ -37,49 +46,57 @@ class _SRMSAttention(nn.Module):
 
 
 class ScaledDotAttention(_SRMSAttention):
-    """softmax over keys of K Q^T / sqrt(128); no weights (reference: agent.py:194-213)."""
+    """Normalized over keys, K Q^T / sqrt(128); no weights (reference: agent.py:194-213)."""
 
     temperature = 128.0 ** 0.5
 
+    def __init__(self, sparse: bool = False):
+        super().__init__()
+        self.sparse = sparse
+
     def graph(self, q, k):
-        return torch.softmax(torch.einsum("bkd,bqd->bkq", k, q) / self.temperature, dim=1)
+        return self._normalize(torch.einsum("bkd,bqd->bkq", k, q) / self.temperature)
 
 
 class AdditiveAttention(_SRMSAttention):
     """Bahdanau scoring out(feat(k) + context(q)) (reference: agent.py:215-239)."""
 
     def __init__(self, query_size: int, key_size: int, hidden: int = 128,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, sparse: bool = False):
         super().__init__()
+        self.sparse = sparse
         self.linear_feat = Linear(key_size, hidden, compute_dtype=dtype)
         self.linear_context = Linear(query_size, hidden, compute_dtype=dtype)
         self.linear_out = Linear(hidden, 1, compute_dtype=dtype)
 
     def graph(self, q, k):
         logits = self.linear_out(self.linear_feat(k) + self.linear_context(q))  # (B, K, 1)
-        return torch.softmax(logits, dim=1)
+        return self._normalize(logits)
 
 
 class GeneralDotAttention(_SRMSAttention):
     """Single-query general dot product, Q' = W q (reference: agent.py:345-368)."""
 
-    def __init__(self, query_size: int, key_size: int, dtype: torch.dtype | None = None):
+    def __init__(self, query_size: int, key_size: int, dtype: torch.dtype | None = None,
+                 sparse: bool = False):
         super().__init__()
+        self.sparse = sparse
         self.linear = Linear(query_size, key_size, compute_dtype=dtype)
 
     def graph(self, q, k):
-        return torch.softmax(torch.einsum("bkd,bqd->bkq", k, self.linear(q)), dim=1)
+        return self._normalize(torch.einsum("bkd,bqd->bkq", k, self.linear(q)))
 
 
 def get_srms_attention(name: str, query_size: int, key_size: int,
-                       dtype: torch.dtype | None = None) -> nn.Module:
+                       dtype: torch.dtype | None = None, sparse: bool = False) -> nn.Module:
     """The SRMS attention of ``model.attention`` (reference: agent.py:530-536):
-    ``additive``, ``general``, anything else ``scaled``."""
+    ``additive``, ``general``, anything else ``scaled``; ``sparse`` normalizes
+    with sparsemax."""
     if name == "additive":
-        return AdditiveAttention(query_size, key_size, dtype=dtype)
+        return AdditiveAttention(query_size, key_size, dtype=dtype, sparse=sparse)
     if name == "general":
-        return GeneralDotAttention(query_size, key_size, dtype)
-    return ScaledDotAttention()
+        return GeneralDotAttention(query_size, key_size, dtype, sparse)
+    return ScaledDotAttention(sparse)
 
 
 class MIMOGeneralDotAttention(nn.Module):

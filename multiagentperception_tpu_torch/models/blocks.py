@@ -1,7 +1,7 @@
 """NN primitive blocks, NCHW (port of multiagentperception_tpu/models/blocks.py).
 
 Submodule names follow the reference's ptsemseg modules (``cbr_unit.{0,1}``,
-``conv1/bn1/conv2/bn2/downsample``, ``fc.{0,2,4}``), so a reference
+``dcbr_unit.{0,1}``, ``conv1/bn1/conv2/bn2/downsample``, ``fc.{0,2,4}``), so a reference
 state_dict loads with ``strict=True``. ``nn.BatchNorm2d`` is the JAX
 ``TorchBatchNorm`` (blocks.py:30-77) in both modes: in eval mode it
 normalizes with ``running_mean``/``running_var`` and eps 1e-5; in training
@@ -12,7 +12,7 @@ variance ``n/(n-1)``, as torch does.
 Mixed precision follows the JAX blocks' ``dtype=`` (blocks.py:17-19): with
 ``dtype=torch.bfloat16`` the convolutions and linear layers cast their
 input, weight and bias to bf16 at the call and return bf16 (``Conv2d``,
-``Linear``), while every parameter and BatchNorm statistic stays float32.
+``ConvTranspose2d``, ``Linear``), while every parameter and BatchNorm statistic stays float32.
 ``nn.BatchNorm2d`` with float32 parameters takes the bf16 input, works in
 float32 and returns bf16, in both modes, which is the JAX ``TorchBatchNorm``
 with ``dtype`` set (blocks.py:61-77). ``dtype=None`` is the float32 program.
@@ -68,19 +68,43 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-class ConvBNRelu(nn.Module):
-    """Conv (with bias) -> BatchNorm -> ReLU (reference: models/utils.py:87-120).
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` when one is
+    set, as ``Conv2d`` does (flax ``nn.ConvTranspose(dtype=...)``). torch
+    2.13's CPU bf16 transposed convolution has no fault of the kind
+    ``Conv2d`` works around (its gradients lie within bf16 rounding of
+    float64's at the decoders' geometries), so it runs as it is."""
 
-    Symmetric padding (k-1)//2 at every stride, as the reference's torch
-    convs pad (the JAX package pads the same explicitly; flax SAME would pad
-    (0, 1) at stride 2).
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class ConvBNRelu(nn.Module):
+    """Conv -> BatchNorm -> ReLU (reference: models/utils.py:87-120); with
+    ``relu=False`` Conv -> BatchNorm (``ConvBN``, utils.py:9-40).
+
+    Symmetric padding (k-1)//2 at every stride and dilation, as the
+    reference's torch convs pad (the JAX package pads the same explicitly;
+    flax SAME would pad (0, 1) at stride 2).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, relu: bool = True, dtype: torch.dtype | None = None):
+                 stride: int = 1, relu: bool = True, dtype: torch.dtype | None = None,
+                 dilation: int = 1, bias: bool = True):
         super().__init__()
         p = (kernel_size - 1) // 2
-        layers = [Conv2d(in_ch, out_ch, kernel_size, stride, p, bias=True, compute_dtype=dtype),
+        layers = [Conv2d(in_ch, out_ch, kernel_size, stride, p, dilation=dilation, bias=bias,
+                         compute_dtype=dtype),
                   nn.BatchNorm2d(out_ch)]
         if relu:
             layers.append(nn.ReLU(inplace=True))
@@ -88,6 +112,37 @@ class ConvBNRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cbr_unit(x)
+
+
+class ConvBN(ConvBNRelu):
+    """Conv -> BatchNorm, no ReLU (reference: models/utils.py:9-40)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 dtype: torch.dtype | None = None, dilation: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel_size, stride, False, dtype, dilation, bias)
+
+
+class DeconvBNRelu(nn.Module):
+    """ConvTranspose(k=3, stride 2, padding 1, output_padding 1, bias) ->
+    BatchNorm -> ReLU, an exact x2 upsample (reference: models/utils.py:148-168).
+
+    This is the reference's geometry: on the stride-dilated input it pads
+    (1, 2). The JAX ``DeconvBNRelu`` pads (1, 2) explicitly for that reason
+    (flax ``SAME`` splits the padding otherwise and moves every output one
+    pixel, blocks.py:121-129) and keeps its kernel unflipped in
+    (kh, kw, in, out); ``convert.state_dict_from_flax`` flips it into torch's
+    (in, out, kh, kw).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dcbr_unit = nn.Sequential(
+            ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1, bias=True,
+                            compute_dtype=dtype),
+            nn.BatchNorm2d(out_ch), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dcbr_unit(x)
 
 
 class MLP(nn.Module):

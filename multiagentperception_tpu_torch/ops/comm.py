@@ -60,22 +60,42 @@ def activated_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int,
     return fuse_values(coef, vals), coef, num_connect_offdiag(coef, agent_num)
 
 
+def _topk_mask(prob: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, K, Q) -> per query, the keys at least as strong as its k-th
+    strongest: every key tied with the k-th is kept, so a tie keeps more
+    than k links (JAX ops/comm.py:89-90, ``pq >= kth``). k lies in 1..K."""
+    if not 1 <= k <= prob.shape[1]:
+        raise ValueError(f"topk: k={k} links of {prob.shape[1]} keys")
+    kth = torch.topk(prob, k, dim=1).values[:, -1:]  # (B, 1, Q)
+    return prob >= kth
+
+
+def topk_select(vals: torch.Tensor, prob: torch.Tensor, agent_num: int, k: int):
+    """Bandwidth-constrained graph (port of ops/comm.py:80-95; not in the
+    reference): per query, the top-k keys' weights (ties with the k-th
+    kept), renormalized by ``max(sum, 1e-12)``, the rest zero. Returns
+    (fused, coef (B, K, Q), num_connect)."""
+    kept = torch.where(_topk_mask(prob, k), prob, torch.zeros_like(prob))
+    coef = kept / torch.clamp_min(kept.sum(dim=1, keepdim=True), 1e-12)
+    return fuse_values(coef, vals), coef, num_connect_offdiag(coef, agent_num)
+
+
 def per_frame_links(prob: torch.Tensor, inference: str, agent_num: int,
-                    thres: float = 0.2) -> torch.Tensor:
+                    topk_k: int = 2, thres: float = 0.2) -> torch.Tensor:
     """Per-sample bandwidth (port of ops/comm.py:98-119): off-diagonal links
     per agent of each batch element, ``(B,)`` float32. The mode's mask is
-    applied again to the returned ``(B, K, Q)`` graph, so the mean equals
-    ``num_connect_offdiag`` of the pruned graph; ``softmax`` (the full
-    graph) gives K-1. Each quotient is taken in float64 and rounded once,
-    as ``num_connect_offdiag``. ``topk`` is not ported and raises."""
+    applied again to the returned ``(B, K, Q)`` graph (``topk`` keeps the
+    ``topk_k`` strongest keys and those tied with them, unnormalized), so
+    the mean equals ``num_connect_offdiag`` of the pruned graph;
+    ``softmax`` (the full graph) gives K-1. Each quotient is taken in
+    float64 and rounded once, as ``num_connect_offdiag``."""
     b, k, q = prob.shape
-    if inference == "topk":
-        raise NotImplementedError("per_frame_links: inference 'topk' is not ported "
-                                  "(ROADMAP.md A.8)")
     if inference == "argmax_test":
         coef = one_hot_argmax(prob, dim=1)
     elif inference == "activated":
         coef = torch.where(prob > thres, prob, torch.zeros_like(prob))
+    elif inference == "topk":
+        coef = torch.where(_topk_mask(prob, topk_k), prob, torch.zeros_like(prob))
     else:  # softmax: the full graph
         return torch.full((b,), float(k - 1), dtype=torch.float32, device=prob.device)
     eye = torch.eye(k, q, dtype=torch.bool, device=prob.device)

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled alone by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` under the
 package (a directory ``.gitignore`` lists). The hash covers the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
-is rebuilt and an unchanged one is loaded.
+is rebuilt and an unchanged one is loaded. A debug build (``VARIANTS``)
+compiles a source with extra flags under a name of its own and binds the
+source's entry points; ``build()`` builds it only when it is named.
 Nothing here runs at import time: this module is imported on hosts that
 have no ``nvcc``.
 
@@ -53,6 +55,10 @@ SIGNATURES = {
                   "int8_conv_s32": _K4_ARGS},
 }
 
+# debug builds: name -> (source, extra nvcc flags). int8_conv_lag: K4 with
+# warp 1 of each consumer warpgroup held ~200k cycles after each epilogue
+VARIANTS = {"int8_conv_lag": ("int8_conv", ("-DINT8_CONV_LAG_CYCLES=200000",))}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -68,16 +74,24 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built from csrc/ at first use")
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    """(source name, nvcc flags) of kernel ``name``."""
+    source, extra = VARIANTS.get(name, (name, ()))
+    return source, NVCC_FLAGS + extra
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    source, flags = _source(name)
+    src = (CSRC / f"{source}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _start(name: str, target: Path) -> tuple[subprocess.Popen, Path]:
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, flags = _source(name)
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -114,7 +128,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(_target(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
+        for fn_name, argtypes in SIGNATURES[_source(name)[0]].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

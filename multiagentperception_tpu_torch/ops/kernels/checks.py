@@ -149,6 +149,25 @@ def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: s
                (coef.double() - x_coef).abs().max().item())
 
 
+# K2 at the value maps of model.feat_squeezer 2 and 4 at 512x512: (B, N, D, C, h, w)
+SQUEEZED_COMM_SHAPES = ((2, 6, 1024, 512, 8, 8), (2, 6, 1024, 512, 4, 4))
+
+
+def check_comm_fusion_squeezed(gen: torch.Generator, device, dtype=torch.float32) -> dict:
+    """``check_comm_fusion`` in every mode at ``SQUEEZED_COMM_SHAPES`` (the
+    flagship with ``feat_squeezer`` 2 and 4), on inputs drawn from ``gen``
+    whose logits spread about 2, so ``activated`` keeps off-diagonal links.
+    Returns the largest error at each shape, by ``h x w``; launches K2 three
+    times a shape."""
+    errs = {}
+    for b, n, d, c, h, w in SQUEEZED_COMM_SHAPES:
+        q = torch.randn(b, n, d, generator=gen).to(device, dtype)
+        k = (torch.randn(b, n, d, generator=gen) * 2 / d ** 0.5).to(device, dtype)
+        v = torch.randn(b, n, c, h, w, generator=gen).to(device, dtype)
+        errs[f"{h}x{w}"] = max(check_comm_fusion(q, k, v, mode, 0.001) for mode in k2.MODES)
+    return errs
+
+
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     """The spacing of bfloat16 numbers (8 significant bits) at ``|v|``."""
     mag = v.float().abs().clamp(min=2.0 ** -126)

@@ -93,6 +93,7 @@ RINGS = {("halo", 64): (3, 8), ("halo", 128): (3, 4), ("halo", 256): (1, 8),
          ("s2d", 64): (1, 8), ("s2d", 128): (1, 8), ("s2d", 256): (1, 8),
          ("gather16", 64): (1, 8), ("gather16", 128): (1, 8), ("gather16", 256): (1, 6)}
 EPS = 1e-8
+LIBRARY = "int8_conv"  # the build the launches bind; a test may name a debug one (_build.VARIANTS)
 # output dtype: (route, C entry point of the GEMM)
 ROUTES = {torch.float32: ("f32", "int8_conv_f32"),
           torch.bfloat16: ("bf16", "int8_conv_bf16"),
@@ -417,7 +418,7 @@ def quantize_nhwc(x: torch.Tensor, s_x: torch.Tensor, cp: int) -> torch.Tensor:
     """The quantize pass alone: NCHW x -> (N, H, W, Cp) int8 on the card."""
     n, c, h, w = x.shape
     xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
-    lib = _build.load("int8_conv")
+    lib = _build.load(LIBRARY)
     with _on(x.device):
         rc = getattr(lib, QUANTIZE[x.dtype])(x.data_ptr(), s_x.data_ptr(), n, c, h * w, cp,
                                              xq.data_ptr(), _stream(x.device))
@@ -431,7 +432,7 @@ def quantize_s2d(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     space-to-depth scratch (N, ceil(H/2), ceil(W/2), 16) int8 on the card."""
     n, c, h, w = x.shape
     xq = torch.empty((n, -(-h // 2), -(-w // 2), 16), dtype=torch.int8, device=x.device)
-    lib = _build.load("int8_conv")
+    lib = _build.load(LIBRARY)
     with _on(x.device):
         rc = getattr(lib, QUANTIZE_S2D[x.dtype])(x.data_ptr(), s_x.data_ptr(), n, c, h, w,
                                                  xq.data_ptr(), _stream(x.device))
@@ -623,7 +624,7 @@ def _gemm_launch(xq, operand, s_w, s_x, bias, c_in, kh, kw, h, w, stride, pad, o
     _check_scratch(xq, geometry)
     gh, gw, cp, gkh, gkw, gstride, gpad = geometry.gemm
     out = torch.empty((n, cout, oh, ow), dtype=out_dtype, device=xq.device)
-    lib = _build.load("int8_conv")
+    lib = _build.load(LIBRARY)
     with _on(xq.device):
         rc = getattr(lib, ROUTES[out_dtype][1])(
             xq.data_ptr(), operand.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),

@@ -95,6 +95,17 @@ def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return OP(x, out_h, out_w)
 
 
+def class_map(logits: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The ``(B', out_h, out_w)`` int32 class map of a forward's logits with
+    ``full_res=False``: ``upsample_argmax`` of a decoder's pre-upsample
+    logits, or, where the decoder has none and its logits are already
+    ``(out_h, out_w)`` (``n_segnet_decoder``), their argmax over classes,
+    ties to the lowest (JAX trainer.py:512-517), with no kernel."""
+    if tuple(logits.shape[-2:]) == (out_h, out_w):
+        return logits.argmax(1).to(torch.int32)
+    return upsample_argmax(logits, out_h, out_w)
+
+
 @torch.library.custom_op("when2com::upsample_argmax", mutates_args=(), device_types="cpu")
 def upsample_argmax_op(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """The op's CPU implementation: the plain version."""

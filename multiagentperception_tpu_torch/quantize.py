@@ -5,7 +5,9 @@ Every eligible ``models.blocks.Conv2d`` of a model runs as an int8
 convolution (``ops/kernels/int8_conv``, K4 on the card) while an
 ``Int8Convs`` swap is active, with no change to model code: the
 counterpart of the JAX package's flax method interceptor. As JAX swaps
-only ``type(mod) is nn.Conv``, only ``type(mod) is Conv2d`` is swapped.
+only ``type(mod) is nn.Conv``, only ``type(mod) is Conv2d`` is swapped:
+the transposed convs of the SegNet decoder and the de-squeezers
+(``models.blocks.ConvTranspose2d``) stay in the network dtype.
 
 - **weights**: symmetric per-output-channel int8 (scale max|w| / 127) of
   the float32 parameter, quantized once per swap and cached on the

@@ -5,12 +5,15 @@
         [--int8 [--calib_split train] [--calib_batches N]]
 
 Takes any of the ten reference YAMLs under ``configs/multi-request-multi-support/``
-and ``configs/single-request-multiple-support/`` unchanged (all seven
-architectures; the ``topk`` extension is refused by name), loads a
+and ``configs/single-request-multiple-support/`` and
+``configs/extensions/mrms_when2com_topk.yml`` unchanged (all seven
+architectures, every backbone; the topk YAML evaluates in its
+``eval_inference: topk``), loads a
 reference-format ``.pkl`` and evaluates the config's test split on the
 card (``--device cpu`` to run on the CPU; without a card and without it,
 the run stops with an error). Every architecture's class map comes from
-the upsample+argmax kernel. ``--int8`` evaluates the post-training
+the upsample+argmax kernel (from the argmax of the full-resolution logits
+with ``n_segnet_decoder``, which has no pre-upsample ones). ``--int8`` evaluates the post-training
 quantized path (``quantize.py``; the int8 convolution kernel on the card),
 its activation scales calibrated on ``--calib_split`` (default ``train``,
 held out from the evaluated split; the evaluated split if that one cannot
@@ -31,9 +34,9 @@ def main(argv=None):
                         default="configs/your_configs.yml")
     parser.add_argument("--model_path", nargs="?", type=str, required=True)
     parser.add_argument("--inference_mode", nargs="?", type=str, default=None,
-                        help="override the architecture's eval mode (activated for "
-                        "the when2com models and MIMOcomWho, argmax_test for "
-                        "LearnWho2Com)")
+                        help="override the config's eval mode (model.eval_inference, "
+                        "else activated for the when2com models and MIMOcomWho, "
+                        "argmax_test for LearnWho2Com; topk for MIMOcom alone)")
     parser.add_argument("--device", nargs="?", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--int8", action="store_true",

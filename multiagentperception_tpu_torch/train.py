@@ -5,16 +5,16 @@ train.py:34-232).
         [--device cpu] [--run_time N]
 
 Takes any of the ten reference YAMLs under ``configs/multi-request-multi-support/``
-and ``configs/single-request-multiple-support/`` unchanged (all seven
-architectures; ``configs/extensions/mrms_when2com_topk.yml`` is refused by
-name) and trains on the card (``--device cpu`` for the CPU; without a card
+and ``configs/single-request-multiple-support/`` and
+``configs/extensions/mrms_when2com_topk.yml`` unchanged (all seven
+architectures, every backbone) and trains on the card (``--device cpu`` for the CPU; without a card
 and without it, the run stops with an error). Each run writes to
 ``runs/<config name>/<timestamp>``: the config, ``train.log`` and the
 ``.pkl`` checkpoints ``<arch>_<dataset>_best_model.pkl``. After training it
-loads the best checkpoint and evaluates the test split in the
-architecture's eval mode (``activated`` for the when2com models and
-MIMOcomWho, ``argmax_test`` for LearnWho2Com, none for the baselines), as
-the reference does.
+loads the best checkpoint and evaluates the test split in the config's
+eval mode (``model.eval_inference``, e.g. ``topk``; else ``activated`` for
+the when2com models and MIMOcomWho, ``argmax_test`` for LearnWho2Com, none
+for the baselines), as the reference does.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ de-normalization (inverting airsim_loader.py:515-540), side-by-side
 prediction panels, an N x N communication-graph heatmap and
 ``draw_bounding``, which the reference's test.py:14 imports but never
 ships. ``save_eval_gallery`` runs the port's ``Evaluator``: the class map
-comes from K1 ``upsample_argmax``, as in its evaluation.
+comes from K1 ``upsample_argmax`` (``class_map``), as in its evaluation.
 
 Everything but ``save_eval_gallery``'s forward is numpy on arrays already
 on the host; PNGs are written with cv2.
@@ -136,7 +136,7 @@ def save_eval_gallery(evaluator, loader, out_dir: str, max_batches: int = 1,
     import cv2
     import torch
 
-    from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+    from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 
     os.makedirs(out_dir, exist_ok=True)
     inference = inference_mode or evaluator.eval_default
@@ -152,7 +152,7 @@ def save_eval_gallery(evaluator, loader, out_dir: str, max_batches: int = 1,
             out = evaluator.model(x, full_res=False,
                                   **evaluator._forward_kwargs(inference, "eval"))
             pre = out[0] if isinstance(out, tuple) else out
-            pred = upsample_argmax(pre, x.shape[-3], x.shape[-2]).cpu().numpy()
+            pred = class_map(pre, x.shape[-3], x.shape[-2]).cpu().numpy()
         gt = evaluator._labels(data[1]).astype(np.int32)
 
         b, n = images.shape[:2]

@@ -362,13 +362,13 @@ def test_eval_step_of_every_arch_launches_k1(cuda, arch, monkeypatch):
     ev = evaluate.Evaluator(cfg, device=cuda)
     init_weights(ev.model, 0)
     devices = []
-    wrapper = evaluate.upsample_argmax
+    wrapper = evaluate.class_map  # K1's wrapper where the decoder has pre-upsample logits
 
     def spy(x, out_h, out_w):
         devices.append(x.device.type)
         return wrapper(x, out_h, out_w)
 
-    monkeypatch.setattr(evaluate, "upsample_argmax", spy)
+    monkeypatch.setattr(evaluate, "class_map", spy)
     rng = np.random.default_rng(0)
     images = (rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32)
     labels = rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32)
@@ -545,7 +545,9 @@ K4_CONVS = {
     "multi_stem": (3, 64, 256, 7, 2, 3, False, 4, "s2d"),
     "multi_halo128_cout96": (128, 96, 64, 3, 1, 1, True, 5, "halo"),
     "multi_halo256_cout200": (64, 200, 64, 3, 1, 1, False, 5, "halo"),
-    "multi_halo256_side8": (256, 256, 8, 3, 1, 1, True, 140, "halo")}
+    "multi_halo256_side8": (256, 256, 8, 3, 1, 1, True, 140, "halo"),
+    # the flagship's 3x3 stride-4 squeezer (model.feat_squeezer 4) at 512x512
+    "squeezer_3x3s4": (512, 512, 16, 3, 4, 1, True, 12, "gather16")}
 
 
 @pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
@@ -732,3 +734,105 @@ def test_cpu_artifact_moved_to_the_card_launches_the_kernels(cuda):
     assert torch.equal(cls, want[0])
     torch.testing.assert_close(prob, want[1], rtol=0, atol=1e-6)
     assert torch.equal(nc, want[2])
+
+
+# ------------------------------------------------------------------ the rest of the model surface
+
+def test_comm_fusion_kernel_at_the_squeezed_value_maps(cuda):
+    """K2 at (2, 6, 512, 8, 8) and (2, 6, 512, 4, 4), the flagship's value
+    maps with ``feat_squeezer`` 2 and 4, in every mode (the check that
+    chip_smoke.py's phase 12 runs)."""
+    before = k2.comm_fusion.launches
+    errs = checks.check_comm_fusion_squeezed(torch.Generator().manual_seed(12), cuda)
+    assert set(errs) == {"8x8", "4x4"}
+    assert k2.comm_fusion.launches == before + 3 * 2
+
+
+LAG_TIMEOUT_S = 120  # the launches alone; a deadlocked mbarrier wait traps after ~9 s
+
+
+@pytest.mark.parametrize("name", ["multi_gather128", "multi_halo64"],
+                         ids=["one_stage_1x1s2_gather16_nb128", "3x3s1_halo"])
+def test_int8_conv_with_a_lagging_warp(cuda, name):
+    """K4's debug build ``int8_conv_lag`` (``_build.VARIANTS``: warp 1 of
+    each consumer warpgroup spins ~200k cycles after every epilogue, so its
+    warpgroup's other warps run a tile ahead) at the one-stage geometry
+    (64 -> 128, 1x1 stride 2, gather16, NB 128, several tiles a CTA) and at
+    3x3 stride 1 (halo): the turn barriers hold the ring's order, so the
+    launches finish, within a timeout of their own (in a subprocess), and
+    every output is bit-exact against the plain version."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from multiagentperception_tpu_torch.ops.kernels import _build
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+
+    cin, cout, side, k, stride, pad, bias, n, route = K4_CONVS[name]
+    geometry = k4.plan(n, cin, side, side, cout, k, k, stride, pad)
+    assert geometry.route == route and (name != "multi_gather128" or geometry.nb == 128)
+    _build.build(("int8_conv_lag",))  # nvcc, outside the launches' timeout
+    code = f"""
+import torch
+from multiagentperception_tpu_torch.ops.kernels import checks
+from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+k4.LIBRARY = "int8_conv_lag"
+gen = torch.Generator().manual_seed({cin + cout + side})
+x = torch.randn({n}, {cin}, {side}, {side}, generator=gen).to("cuda")
+w = (torch.randn({cout}, {cin}, {k}, {k}, generator=gen) / {(cin * k * k) ** 0.5}).to("cuda")
+b = torch.randn({cout}, generator=gen).to("cuda") if {bias} else None
+for dtype in (torch.float32, torch.bfloat16):
+    checks.check_int8_conv(x.to(dtype), w, b, {stride}, {pad}, None, dtype)
+torch.cuda.synchronize()
+assert k4.int8_conv.launches == 4, k4.int8_conv.launches
+print("lagging warp ok")
+"""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=LAG_TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "lagging warp ok" in out.stdout
+
+
+@pytest.mark.parametrize("override,k1_launches,k2_launches", [
+    ({"enc_backbone": "n_segnet_encoder", "dec_backbone": "n_segnet_decoder"}, 0, 1),
+    ({"dec_backbone": "FCN_decoder"}, 1, 1), ({"feat_squeezer": 2}, 1, 1),
+    ({"feat_squeezer": 4}, 1, 1), ({"query": False}, 1, 1),
+    ({"multiple_output": False}, 1, 0), ({"eval_inference": "topk"}, 1, 0)],
+    ids=["segnet", "fcn", "squeezer2", "squeezer4", "no_query", "one_output", "topk"])
+def test_model_options_eval_step_on_the_card(cuda, override, k1_launches, k2_launches,
+                                             monkeypatch):
+    """A small MIMOcom with each option the port builds beyond the
+    reference YAMLs: one eval step in the config's mode on the card, K1 and
+    K2 counted (the SegNet decoder has no pre-upsample logits: no K1; the
+    single-query graph and ``topk`` take the plain selections: no K2), and
+    the class map, graph and bandwidth against the CPU's from the same
+    weights, TF32 off as chip_smoke.py's card-vs-CPU checks run (actions
+    and bandwidth equal, class maps on 99.9% of pixels)."""
+    import numpy as np
+
+    from multiagentperception_tpu_torch.config import normalize_config
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+
+    cfg = normalize_config({
+        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+                  "multiple_output": True, **override},
+        "data": {"img_rows": 128, "img_cols": 128}})
+    state = init_weights(get_model(cfg, 11), 0).state_dict()
+    images = (np.random.default_rng(9).standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(
+        np.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ev = Evaluator(cfg, device=dev)
+        ev.model.load_state_dict(state)
+        k1.upsample_argmax.launches = k2.comm_fusion.launches = 0
+        out[dev] = [t.cpu() for t in ev.predict(images)]
+        if dev == "cuda":
+            assert (k1.upsample_argmax.launches, k2.comm_fusion.launches) == \
+                (k1_launches, k2_launches)
+    (g_cls, g_act, g_nc), (c_cls, c_act, c_nc) = out["cuda"], out["cpu"]
+    assert torch.equal(g_act, c_act) and float(g_nc) == float(c_nc)
+    assert (g_cls == c_cls).float().mean().item() >= 0.999

@@ -138,7 +138,9 @@ def test_unported_configs_raise_not_implemented():
     from multiagentperception_tpu_torch.config import load_config
     from multiagentperception_tpu_torch.models import get_model
 
+    # the topk YAML builds (tests/test_torch_topk.py); float16 is not ported yet
     cfg = load_config(str(ROOT / "configs" / "extensions" / "mrms_when2com_topk.yml"))
+    cfg["model"]["dtype"] = "float16"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, 11)
 

@@ -336,5 +336,7 @@ def test_per_frame_links_matches_jax(mode):
 
 
 def test_per_frame_links_refuses_topk():
-    with pytest.raises(NotImplementedError, match="topk"):
-        per_frame_links(torch.rand(2, 3, 3), "topk", 3)
+    """``topk`` is ported (tests/test_torch_topk.py); a budget beyond the
+    keys, which JAX's ``lax.top_k`` cannot take either, is refused by name."""
+    with pytest.raises(ValueError, match="topk"):
+        per_frame_links(torch.rand(2, 3, 3), "topk", 3, topk_k=4)

@@ -2,10 +2,13 @@
 and refuses what it does not carry by name; image sides that are not
 multiples of 128 run and match JAX.
 
-- Each of the ten YAMLs but the ``topk`` extension builds a port model,
-  and the weight bridge's output for the JAX model of that YAML (shapes
-  from ``jax.eval_shape``, so nothing runs at 512x512) loads into it with
-  ``strict=True``.
+- Each of the ten YAMLs builds a port model, and the weight bridge's
+  output for the JAX model of that YAML (shapes from ``jax.eval_shape``,
+  so nothing runs at 512x512) loads into it with ``strict=True``; so do
+  the model keys the port refused before it carried them (the ``topk``
+  extension YAML: tests/test_torch_topk.py). What it still does not
+  carry is refused naming its key; an unknown backbone is a KeyError, as
+  in JAX.
 - 192x320 inputs (policy map 2x3, where ``256*(H/128)*(W/128)`` would be
   wrong) through MIMOcom and LearnWhen2Com against the JAX forward, with
   the tolerances of tests/test_torch_zoo.py.
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from multiagentperception_tpu.config import load_config as jax_load_config
+from multiagentperception_tpu.config import normalize_config as jax_normalize_config
 from multiagentperception_tpu.models import get_model as jax_get_model
 from multiagentperception_tpu_torch.config import load_config, normalize_config
 from multiagentperception_tpu_torch.convert import state_dict_from_flax
@@ -48,11 +52,8 @@ def test_the_ten_reference_yamls():
     assert len(YAMLS) == 10
 
 
-@pytest.mark.parametrize("yml", YAMLS, ids=lambda p: p.stem)
-def test_yaml_builds_and_loads_bridged_weights(yml):
-    cfg = load_config(str(yml))
+def _builds_and_loads_bridged_weights(cfg: dict, jcfg: dict) -> None:
     model = get_model(cfg, 11)
-    jcfg = jax_load_config(str(yml))
     m, d = jcfg["model"], jcfg["data"]
     n = m["agent_num"]
     shape = (1, n, d["img_rows"], d["img_cols"], 3)
@@ -66,20 +67,51 @@ def test_yaml_builds_and_loads_bridged_weights(yml):
     model.load_state_dict(state_dict_from_flax(cfg, variables), strict=True)
 
 
-def test_topk_extension_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="topk"):
-        get_model(load_config(str(TOPK)), 11)
+@pytest.mark.parametrize("yml", YAMLS, ids=lambda p: p.stem)
+def test_yaml_builds_and_loads_bridged_weights(yml):
+    _builds_and_loads_bridged_weights(load_config(str(yml)), jax_load_config(str(yml)))
+
+
+def test_topk_extension_is_refused_by_name(caplog):
+    """The topk YAML builds (tests/test_torch_topk.py); on another
+    architecture its keys are refused by name, as in JAX: ``topk_k`` is
+    ignored with a warning naming it, and ``topk`` is an incorrect
+    inference mode."""
+    cfg = load_config(str(TOPK))
+    cfg["model"]["arch"] = "MIMOcomWho"
+    cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = 64
+    model = get_model(cfg, 11).eval()
+    assert "model.topk_k is a MIMOcom extension" in caplog.text
+    with pytest.raises(ValueError, match="Incorrect inference mode 'topk'"), torch.no_grad():
+        model(torch.zeros(1, 6, 64, 64, 3), inference="topk")
+
+
+@pytest.mark.parametrize("arch,key,value", [
+    ("MIMOcom", "agent_parallel_train", True), ("MIMOcomWho", "dtype", "float16"),
+    ("Single_agent", "agent_parallel", True), ("All_agents", "dtype", "float16"),
+    ("MIMO_All_agents", "dtype", "float16"), ("LearnWho2Com", "agent_parallel", True)])
+def test_unported_model_keys_are_refused(arch, key, value):
+    cfg = normalize_config(raw_cfg(arch, **{key: value}))
+    with pytest.raises(NotImplementedError, match=key):
+        get_model(cfg, 11)
 
 
 @pytest.mark.parametrize("arch,key,value", [
     ("LearnWhen2Com", "sparse", True), ("MIMOcomWho", "feat_squeezer", 128),
     ("Single_agent", "enc_backbone", "n_segnet_encoder"),
-    ("All_agents", "dec_backbone", "fcn_decoder"), ("MIMO_All_agents", "dtype", "float16"),
-    ("LearnWho2Com", "agent_parallel", True)])
-def test_unported_model_keys_are_refused(arch, key, value):
-    cfg = normalize_config(raw_cfg(arch, **{key: value}))
-    with pytest.raises(NotImplementedError, match=key):
-        get_model(cfg, 11)
+    ("All_agents", "dec_backbone", "FCN_decoder")])
+def test_keys_once_refused_build_and_load_bridged_weights(arch, key, value):
+    """What the port refused before it carried it: ``feat_squeezer`` 128,
+    neither 2 nor 4, keeps the squeezer at stride 1, as in JAX."""
+    raw = raw_cfg(arch, img=(128, 128), **{key: value})
+    _builds_and_loads_bridged_weights(normalize_config(raw), jax_normalize_config(raw))
+
+
+@pytest.mark.parametrize("key,value", [("enc_backbone", "vgg_encoder"),
+                                       ("dec_backbone", "fcn_decoder")])
+def test_unknown_backbones_raise_key_error(key, value):
+    with pytest.raises(KeyError, match=f"{value} not available"):
+        get_model(normalize_config(raw_cfg("All_agents", **{key: value})), 11)
 
 
 def test_mimocom_extension_keys_on_another_arch_warn(caplog):

@@ -30,6 +30,17 @@ A mixed-precision model (``model.dtype: bfloat16`` or
 convolution casts them) and hands the kernel bf16 pre-upsample logits,
 which it upcasts, as the JAX evaluation hands its Pallas kernel.
 
+On the card, ``evaluate`` and the trainer's validation run each batch as
+a CUDA graph (``graphs.GraphCache``), the counterpart of JAX's one jitted
+dispatch a step: keyed by the inference mode, ``with_loss``, the active
+int8 swap, the model's dtype, the inputs' shapes and the TF32 settings,
+the first batch of a key runs eagerly, the second is captured, the rest
+replay; the frames, labels, ``commun_label`` and the draws are copied into
+the graph's static buffers, and its outputs copied out, at each replay. A
+batch of another size than the loader's first (a ragged tail) runs
+eagerly. ``Evaluator(..., graphs=False)`` keeps the eager step for every
+batch; the CPU is always eager.
+
 ``evaluate(..., int8=True)`` runs the post-training-quantized path
 (``quantize.py``, JAX trainer.py:457-471, :546-610): activation scales
 are calibrated first (``_calibrate_int8``), then every eligible
@@ -50,12 +61,13 @@ import numpy as np
 import torch
 
 from multiagentperception_tpu_torch.device import resolve_device
+from multiagentperception_tpu_torch.graphs import GraphCache
 from multiagentperception_tpu_torch.metrics import runningScore
-from multiagentperception_tpu_torch.models import get_model
+from multiagentperception_tpu_torch.models import compute_dtype, get_model
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
 from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
-from multiagentperception_tpu_torch.quantize import Int8Convs, calibrate_activations
+from multiagentperception_tpu_torch.quantize import Int8Convs, active_swap, calibrate_activations
 
 N_CLASSES = 11  # hard-coded in every reference trainer (trainer.py:44, ...)
 PIPELINE_DEPTH = 2  # batches in flight before the oldest is read back
@@ -71,10 +83,12 @@ DRAW_STREAMS = {"train": 2, "eval": 3}
 class Evaluator:
     """Evaluates the model of ``cfg`` on ``device`` (default ``cuda``;
     raises without a card unless ``device='cpu'`` is asked for). ``seed``
-    (default ``training.seed``) seeds the selection baselines' draws."""
+    (default ``training.seed``) seeds the selection baselines' draws.
+    ``graphs=False`` keeps the eager eval step on the card (module
+    docstring)."""
 
     def __init__(self, cfg, device: str | torch.device | None = None, loss_fn=None,
-                 seed: int | None = None):
+                 seed: int | None = None, graphs: bool = True):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
@@ -96,6 +110,9 @@ class Evaluator:
         self.trainloader = None  # the trainer's: int8 calibration frames come from it
         self.int8_convs: Int8Convs | None = None  # the int8 swap of the last int8 evaluate
         self.logger = logging.getLogger("multiagentperception_tpu_torch")
+        self.graphs = graphs and self.device.type == "cuda"
+        self.compute_dtype = compute_dtype(cfg)
+        self._eval_graphs: GraphCache | None = None
 
     def load_weight(self, model_path: str) -> None:
         """Load a reference-format ``.pkl`` (``{'model_state': state_dict}``,
@@ -117,7 +134,7 @@ class Evaluator:
             state = {k: v for k, v in state.items() if k not in set(unused)}
         self.model.load_state_dict(state, strict=True)
         if self.int8_convs is not None:
-            self.int8_convs.clear()
+            self.int8_convs.clear()  # its graphs' key changes with it
 
     # ------------------------------------------------------------------
     # per-architecture plumbing
@@ -153,11 +170,16 @@ class Evaluator:
     def _forward_kwargs(self, inference: str | None, stream: str) -> dict:
         """The forward's arguments (JAX ``_apply_kwargs``): comm models take
         the inference mode, the selection baselines the drawn partners."""
+        ids = self.draw_ids(stream).to(self.device) if self._takes_ids() else None
+        return self._mode_kwargs(inference, ids)
+
+    def _takes_ids(self) -> bool:
+        return self.arch not in COMM_ARCHS and self.draws_ids
+
+    def _mode_kwargs(self, inference: str | None, ids: torch.Tensor | None = None) -> dict:
         if self.arch in COMM_ARCHS:
             return {"inference": inference or "softmax"}
-        if self.draws_ids:
-            return {"rand_ids": self.draw_ids(stream).to(self.device)}
-        return {}
+        return {} if ids is None else {"rand_ids": ids}
 
     @staticmethod
     def _outputs(out) -> tuple:
@@ -196,9 +218,9 @@ class Evaluator:
             x, full_res=False, **self._forward_kwargs(inference or self.eval_default, "eval")))
         return class_map(pre, x.shape[-3], x.shape[-2]), action, num_connect
 
-    def _flags(self, commun_label) -> torch.Tensor:
-        """Per prediction, whether its frame is a normal one (JAX :529-541)."""
-        cl = torch.as_tensor(np.asarray(commun_label), device=self.device)
+    def _normal(self, cl: torch.Tensor) -> torch.Tensor:
+        """Per prediction, whether its frame is a normal one (JAX :529-541),
+        from the ``commun_label`` on the device."""
         if self.if_commun_label == "mimo":
             normal = cl[:, 0, :] == 0  # (B, N)
             return normal.reshape(-1) if self.mo_flag and self.arch != "All_agents" \
@@ -206,30 +228,73 @@ class Evaluator:
         return cl == -1  # when2com: (B,)
 
     @torch.inference_mode()
-    def eval_step(self, images, labels, commun_label=None,
-                  inference: str | None = None, with_loss: bool = False) -> dict:
-        """One batch on the device; returns device tensors (not read back).
-        ``with_loss`` runs ``inference`` (default ``softmax``) at full
-        resolution and adds the loss, as the JAX validation step does."""
-        y = self._put(self._labels(labels))
+    def eval_step(self, images, labels, commun_label=None, inference: str | None = None,
+                  with_loss: bool = False, keep_pred: bool = False) -> dict:
+        """One batch on the device, eagerly; returns device tensors (not read
+        back). ``with_loss`` runs ``inference`` (default ``softmax``) at full
+        resolution and adds the loss, as the JAX validation step does;
+        ``keep_pred`` adds the class map (``pred``)."""
+        t = {"x": self._put(self._model_inputs(images)), "y": self._put(self._labels(labels))}
+        if commun_label is not None:
+            t["cl"] = torch.as_tensor(np.asarray(commun_label), device=self.device)
+        if self._takes_ids():
+            t["ids"] = self.draw_ids("eval").to(self.device)
+        return self._eval_body(t, inference, with_loss, keep_pred)
+
+    def _eval_body(self, t: dict, inference: str | None, with_loss: bool,
+                   keep_pred: bool = False) -> dict:
+        """The eval step on device inputs ``t``: ``x`` (the model's input as
+        the loader gives it), ``y`` (uint8 target), and where the batch has
+        them ``cl`` (``commun_label``) and ``ids`` (the drawn partners)."""
+        x, y = t["x"], t["y"]
+        if self.normalize_on_device:
+            x = normalize_images(x)
         if with_loss:
             logits, action, num_connect = self._outputs(self.model(
-                self._images(images), **self._forward_kwargs(inference, "eval")))
+                x, **self._mode_kwargs(inference, t.get("ids"))))
             pred = logits.argmax(1)
         else:
-            pred, action, num_connect = self.predict(images, inference)
+            pre, action, num_connect = self._outputs(self.model(
+                x, full_res=False,
+                **self._mode_kwargs(inference or self.eval_default, t.get("ids"))))
+            pred = class_map(pre, x.shape[-3], x.shape[-2])
         res = {"hist": confusion_matrix(y, pred, self.n_classes)}
+        if keep_pred:
+            res["pred"] = pred
         if action is not None:
             res["action"] = action
         if num_connect is not None:
             res["num_connect"] = num_connect
         if with_loss:
             res["loss"] = self.loss_fn(input=logits, target=y)
-        if commun_label is not None:
-            normal = self._flags(commun_label)
+        if "cl" in t:
+            normal = self._normal(t["cl"])
             res["hist_pos"] = confusion_matrix(y, pred, self.n_classes, normal)
             res["hist_neg"] = confusion_matrix(y, pred, self.n_classes, ~normal)
         return res
+
+    @torch.inference_mode()
+    def graph_eval_step(self, images, labels, commun_label=None, inference: str | None = None,
+                        with_loss: bool = False, keep_pred: bool = False) -> dict:
+        """``eval_step`` through the batch's CUDA graph (module docstring);
+        the results are equal, bit for bit."""
+        host = {"x": torch.as_tensor(np.asarray(self._model_inputs(images))),
+                "y": torch.as_tensor(np.asarray(self._labels(labels)))}
+        if commun_label is not None:
+            host["cl"] = torch.as_tensor(np.asarray(commun_label))
+        if self._takes_ids():
+            host["ids"] = self.draw_ids("eval")
+        swap = active_swap(self.model)
+        key = ("eval", inference, with_loss, keep_pred, None if swap is None else swap.serial,
+               self.compute_dtype, torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(host.items())))
+        if self._eval_graphs is None:
+            self._eval_graphs = GraphCache(self.device)
+        return self._eval_graphs.run(
+            key, host, lambda t: self._eval_body(t, inference, with_loss, keep_pred),
+            extra_counters=() if swap is None else (swap,),
+            keep=() if swap is None else (swap,))
 
     def _pipelined(self, loader, **step_kw):
         """Yield ``(eval_step result, commun_label)`` per batch, with up to
@@ -237,10 +302,14 @@ class Evaluator:
         draw stream restarts here, so each pass over a loader draws alike."""
         self._draws["eval"].manual_seed(self.seed + DRAW_STREAMS["eval"])
         pending: deque = deque()
+        first = None  # the loader's batch size: another one (a ragged tail) runs eagerly
         for data_list in loader:
             commun_label = data_list[2] if self.if_commun_label != "None" else None
-            pending.append((self.eval_step(data_list[0], data_list[1], commun_label,
-                                           **step_kw), commun_label))
+            size = len(data_list[0])
+            first = size if first is None else first
+            step = self.graph_eval_step if self.graphs and size == first else self.eval_step
+            pending.append((step(data_list[0], data_list[1], commun_label, **step_kw),
+                            commun_label))
             if len(pending) > PIPELINE_DEPTH:
                 yield pending.popleft()
         while pending:

@@ -345,7 +345,7 @@ class LearnWhen2Com(_SRMSComm):
             pred = self.decoder(fused, full_res)
             if self.training:
                 return pred, prob, action
-            return pred, prob, action, torch.tensor(float(n - 1), device=x.device)
+            return pred, prob, action, torch.full((), float(n - 1), device=x.device)
         prob = self.attention_net.graph(query, keys).transpose(1, 2)  # (B, 1, N)
         if inference == "argmax_test":
             action = torch.argmax(prob, dim=2)
@@ -410,7 +410,9 @@ class _MIMOComm(nn.Module):
         records gradients, checkpointed (JAX ``nn.remat``, agents.py:406-411)."""
         if not (self.remat and self.training and torch.is_grad_enabled()):
             return tower(flat)
-        return checkpoint(tower, flat, use_reentrant=False,
+        # the towers draw nothing at random: no RNG state to keep, and its
+        # save would read the generator on the host, which a CUDA graph refuses
+        return checkpoint(tower, flat, use_reentrant=False, preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               _running_stats_kept(tower)))
 
@@ -471,7 +473,7 @@ class MIMOcom(_MIMOComm):
             pred = self.decoder(_fold(feat), full_res)
             if mo:
                 prob = prob + DIAG_BIAS * torch.eye(n, dtype=prob.dtype, device=prob.device)
-            num_connect = torch.tensor(float(n - 1), device=x.device)
+            num_connect = torch.full((), float(n - 1), device=x.device)
             return pred, prob, torch.argmax(prob, dim=1), num_connect
 
         if mo and inference != "topk":
@@ -517,7 +519,7 @@ class MIMOcomWho(_MIMOComm):
         val_mat, keys, query = self._towers(x)
         if inference == "softmax":
             feat, prob = self.attention_net(query, keys, val_mat)
-            num_connect = torch.tensor(float(n - 1), device=x.device)
+            num_connect = torch.full((), float(n - 1), device=x.device)
         else:
             prob = self.attention_net.graph(query, keys)
             select = argmax_select if inference == "argmax_test" else activated_select

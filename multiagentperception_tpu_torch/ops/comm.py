@@ -111,16 +111,25 @@ def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
     Same accounting as the reference's ``_fast_hist`` (metrics.py:99-106):
     pixels whose true label lies outside [0, C) (the ignore index 250) are
     dropped. ``sample_mask`` (one flag per leading-dim element) gives the
-    normal/noise split. Dropped pixels land in an overflow bin, so the
-    count needs no data-dependent shape and no host sync.
+    normal/noise split. Dropped pixels land in an overflow bin, and the
+    bins are a scatter-add of ones: no data-dependent shape and no host
+    sync (``torch.bincount`` reads its input's range back on CUDA), so a
+    CUDA graph can capture it. Each image row adds into C*C + 1 int32 bins
+    of its own, summed at the end: 122 shared bins would serialize the
+    card's atomics.
     """
     t = label_true.reshape(label_true.shape[0], -1).to(torch.int64)
     p = label_pred.reshape(label_pred.shape[0], -1).to(torch.int64)
     valid = (t >= 0) & (t < n_classes)
     if sample_mask is not None:
         valid = valid & sample_mask.reshape(-1, 1).to(torch.bool)
+    bins = n_classes * n_classes + 1
     idx = t * n_classes + p.clamp(0, n_classes - 1)
-    idx = torch.where(valid, idx, torch.full_like(idx, n_classes * n_classes))
-    counts = torch.bincount(idx.reshape(-1), minlength=n_classes * n_classes + 1)
-    return counts[: n_classes * n_classes].reshape(n_classes, n_classes)
-
+    idx = torch.where(valid, idx, torch.full_like(idx, bins - 1))
+    rows = idx.reshape(-1, label_true.shape[-1])
+    slots = rows + (torch.arange(rows.shape[0], device=rows.device) * bins).unsqueeze(1)
+    counts = torch.zeros(rows.shape[0] * bins, dtype=torch.int32, device=rows.device)
+    ones = torch.ones((), dtype=torch.int32, device=rows.device).expand(slots.numel())
+    counts.scatter_add_(0, slots.reshape(-1), ones)
+    hist = counts.view(rows.shape[0], bins).sum(0, dtype=torch.int64)
+    return hist[: n_classes * n_classes].reshape(n_classes, n_classes)

@@ -106,8 +106,9 @@ QUANTIZE_S2D = {torch.float32: "int8_quantize_s2d_f32", torch.bfloat16: "int8_qu
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     """a / b rounded once: a divisor that is a Python number is a product
     with its reciprocal in PyTorch's CUDA kernels, one ulp away from the
-    CPU's (and from JAX's eager) division, so it travels as a tensor."""
-    return a / a.new_tensor(b)
+    CPU's (and from JAX's eager) division, so it travels as a tensor, made
+    by a fill on ``a``'s device (no host copy: a CUDA graph may capture it)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def quantize_weight(kernel: torch.Tensor, eps: float = EPS):

@@ -76,11 +76,14 @@ def shared_spans(src: int, dst: int) -> bool:
     return bool((idx == idx[:, :1]).all())
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_taps(h: int, out_h: int, w: int, out_w: int, device: torch.device):
-    """(row idx, row wt, col idx, col wt) on ``device``, built once per shape."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (*_taps(h, out_h), *_taps(w, out_w)))
+    """(row idx, row wt, col idx, col wt) on ``device``, built once per shape
+    and never evicted: a CUDA graph that captured a launch reads them where
+    they lie."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in (*_taps(h, out_h), *_taps(w, out_w)))
 
 
 def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

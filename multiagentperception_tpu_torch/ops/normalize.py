@@ -7,6 +7,8 @@ reference transform (airsim_loader.py:515-540).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # ImageNet-ish BGR mean, the reference's airsim constant (airsim_loader.py:191)
@@ -17,7 +19,15 @@ def normalize_images(images: torch.Tensor, img_norm: bool = True,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 RGB (..., H, W, 3) -> normalized BGR float, channels last."""
     x = images.to(dtype).flip(-1)  # RGB -> BGR
-    x = x - torch.tensor(MEAN_RGB, dtype=dtype, device=x.device)
+    x = x - _mean(dtype, x.device)
     if img_norm:
         x = x / 255.0
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _mean(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``MEAN_RGB`` on ``device``, copied there once (a CUDA graph reads it
+    where it lies, and a copy from the host could not be captured)."""
+    with torch.inference_mode(False):
+        return torch.tensor(MEAN_RGB, dtype=dtype, device=device)

@@ -44,6 +44,18 @@ def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int,
     h, w = x.shape[-2:]
     if (h, w) == (out_h, out_w):
         return x
-    wy = torch.from_numpy(_weight_matrix(h, out_h, align_corners).copy()).to(x)
-    wx = torch.from_numpy(_weight_matrix(w, out_w, align_corners).copy()).to(x)
+    wy = _device_weights(h, out_h, align_corners, x.dtype, x.device)
+    wx = _device_weights(w, out_w, align_corners, x.dtype, x.device)
     return torch.matmul(torch.matmul(wy, x), wx.T)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_weights(src: int, dst: int, align_corners: bool, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``_weight_matrix`` on ``device`` in ``dtype``, copied there once and
+    never evicted: a CUDA graph reads it where it lies, and a copy from the
+    host could not be captured. Made outside inference mode, so autograd
+    may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_weight_matrix(src, dst, align_corners).copy()).to(
+            device=device, dtype=dtype)

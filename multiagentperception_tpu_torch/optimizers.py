@@ -18,6 +18,15 @@ written out here:
 
 Every optimizer reads its lr from ``param_groups[i]['lr']``; the trainer
 writes the schedule's value there before each update (``set_lr``).
+
+Under a CUDA graph (``training.steps_per_call`` on the card) nothing may
+be read back to the host or baked in as a Python number: ``make_capturable``
+puts one lr tensor in every group (the captured step fills it on the
+device), runs the ``torch.optim`` rules with ``capturable=True`` (their step
+counts on the device) and keeps ASGD's count on the device; ``SGD`` steps
+a device lr without reading it back. A tensor lr gives the updates of the
+same float lr (``lr_tensor``: float64 on the CPU, where the rules read it as
+a number).
 """
 
 from __future__ import annotations
@@ -27,9 +36,38 @@ from typing import Callable, Iterable, Mapping
 import torch
 
 
+class SGD(torch.optim.SGD):
+    """``torch.optim.SGD``, which reads a tensor lr back to the host
+    (``alpha=-lr``); with an lr tensor on the card this step multiplies by
+    it on the device instead. Its momentum buffer must exist (one eager
+    update made it) before a capture."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if not any(isinstance(g["lr"], torch.Tensor) and g["lr"].device.type != "cpu"
+                   for g in self.param_groups):
+            return super().step(closure)
+        for group in self.param_groups:
+            lr, momentum, wd = group["lr"], group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad if not wd else p.grad.add(p, alpha=wd)
+                if momentum:
+                    st = self.state[p]
+                    buf = st.get("momentum_buffer")
+                    if buf is None:
+                        buf = st["momentum_buffer"] = g.detach().clone()
+                    else:
+                        buf.mul_(momentum).add_(g, alpha=1 - group["dampening"])
+                    g = g.add(buf, alpha=momentum) if group["nesterov"] else buf
+                p.addcmul_(g, lr, value=-1)
+        return None
+
+
 def _sgd(params, lr, momentum=0.0, weight_decay=0.0, nesterov=False, **_):
-    return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
-                           nesterov=bool(nesterov and momentum))
+    return SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
+               nesterov=bool(nesterov and momentum))
 
 
 def _adam(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **_):
@@ -118,7 +156,10 @@ class ASGD(torch.optim.Optimizer):
                 if group["weight_decay"]:
                     g = g + group["weight_decay"] * p
                 p.sub_(lambd * eta * p + eta * g)
-            group["step"] = t + 1
+            if isinstance(t, torch.Tensor):  # the count on the device (make_capturable)
+                t.add_(1)
+            else:
+                group["step"] = t + 1
 
 
 KEY2OPT: dict[str, Callable[..., torch.optim.Optimizer]] = {
@@ -139,7 +180,7 @@ def get_optimizer(cfg: Mapping, params: Iterable[torch.nn.Parameter],
     ``learning_rate`` overrides the config's lr (the schedule's first value)."""
     opt_cfg = cfg["training"].get("optimizer")
     if opt_cfg is None:
-        return torch.optim.SGD(params, lr=learning_rate if learning_rate is not None else 0.01)
+        return SGD(params, lr=learning_rate if learning_rate is not None else 0.01)
     name = opt_cfg["name"]
     if name not in KEY2OPT:
         raise NotImplementedError(f"Optimizer {name} not implemented")
@@ -149,6 +190,66 @@ def get_optimizer(cfg: Mapping, params: Iterable[torch.nn.Parameter],
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """The lr of the next update, in every param group."""
+    """The lr of the next update, in every param group: a Python float, or,
+    where the group holds an lr tensor (``make_capturable``), filled into
+    it on its device (no host sync)."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def lr_tensor(lr: float, device: torch.device) -> torch.Tensor:
+    """A 0-dim lr tensor on ``device``: float32 on the card, as the
+    capturable rules compute with their step counts, and float64 on the
+    CPU, where the rules read it as the number ``lr`` itself."""
+    dtype = torch.float64 if torch.device(device).type == "cpu" else torch.float32
+    return torch.full((), float(lr), dtype=dtype, device=device)
+
+
+def make_capturable(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> None:
+    """Ready ``optimizer`` for a CUDA graph of its step (module docstring):
+    every group reads ``lr``; ``torch.optim`` rules step with
+    ``capturable=True``, their step counts on the parameters' device; ASGD
+    counts on ``lr``'s device. Call it after one eager update made the
+    optimizer's state."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+        if "capturable" in group:
+            group["capturable"] = True
+        if isinstance(optimizer, ASGD) and not isinstance(group["step"], torch.Tensor):
+            group["step"] = torch.full((), float(group["step"]), dtype=lr.dtype,
+                                       device=lr.device)
+    for p, st in optimizer.state.items():
+        if isinstance(st.get("step"), torch.Tensor):
+            st["step"] = st["step"].to(p.device)
+
+
+def make_eager(optimizer: torch.optim.Optimizer) -> None:
+    """Undo ``make_capturable`` (a checkpoint of a graph run loaded into any
+    run): float lrs, ``capturable=False`` with the step counts on the host,
+    ASGD's count an int."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(group["lr"])
+        if group.get("capturable"):
+            group["capturable"] = False
+        if isinstance(optimizer, ASGD) and isinstance(group["step"], torch.Tensor):
+            group["step"] = int(group["step"])
+    for st in optimizer.state.values():
+        if isinstance(st.get("step"), torch.Tensor):
+            st["step"] = st["step"].detach().to("cpu", torch.float32)
+
+
+def optimizer_tensors(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """Every tensor an update writes: the parameters, their state, and
+    ASGD's count (what ``nan_guard`` puts back after a rejected update)."""
+    out = []
+    for group in optimizer.param_groups:
+        out += [p for p in group["params"]]
+        if isinstance(group.get("step"), torch.Tensor):
+            out.append(group["step"])
+    for st in optimizer.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out

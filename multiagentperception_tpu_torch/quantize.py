@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
+import weakref
 from typing import Callable
 
 import torch
@@ -67,6 +69,13 @@ __all__ = ["quantize_weight", "quantize_activation", "default_skip", "eligible_c
            "bake_int8"]
 
 Skip = Callable[[nn.Module], bool]
+_SERIALS = itertools.count()  # names a swap's quantized weights (a graph key)
+_ACTIVE: "weakref.WeakKeyDictionary[nn.Module, Int8Convs]" = weakref.WeakKeyDictionary()
+
+
+def active_swap(model: nn.Module) -> "Int8Convs | None":
+    """The ``Int8Convs`` active on ``model``, if any."""
+    return _ACTIVE.get(model)
 
 
 def quantize_activation(x: torch.Tensor, eps: float = EPS):
@@ -92,7 +101,10 @@ class Int8Convs:
     (``{name: scale}``) gives static activation scales; a conv without one
     scales dynamically. ``calls`` counts the swapped conv calls. Weights
     are quantized at a conv's first call and kept until ``clear``: clear
-    after the model's weights change."""
+    after the model's weights change. ``serial`` is new at construction
+    and at each ``clear``: a CUDA graph captured under the swap is keyed by
+    it (and holds the swap), since it reads the quantized weights where
+    they lie."""
 
     def __init__(self, model: nn.Module, act_scales: dict | None = None,
                  skip: Skip | None = default_skip):
@@ -100,6 +112,7 @@ class Int8Convs:
         self.act_scales = act_scales
         self.convs = eligible_convs(model, skip)
         self.calls = 0
+        self.serial = next(_SERIALS)
         self._weights: dict[str, object] = {}
         self._scales: dict[str, torch.Tensor] = {}
 
@@ -107,6 +120,7 @@ class Int8Convs:
         """Drop the quantized weights and the scales on the device."""
         self._weights.clear()
         self._scales.clear()
+        self.serial = next(_SERIALS)
 
     def _forward(self, name: str, mod: Conv2d, x: torch.Tensor) -> torch.Tensor:
         w = self._weights.get(name)
@@ -116,8 +130,8 @@ class Int8Convs:
         if self.act_scales is not None and name in self.act_scales:
             s_x = self._scales.get(name)
             if s_x is None:
-                s_x = self._scales[name] = torch.tensor(
-                    float(self.act_scales[name]), dtype=torch.float32, device=x.device)
+                s_x = self._scales[name] = torch.full(
+                    (), float(self.act_scales[name]), dtype=torch.float32, device=x.device)
         self.calls += 1
         bias = None if mod.bias is None else mod.bias.detach()
         return int8_conv(x, w, s_x, bias, mod.stride, mod.padding, mod.dilation, mod.groups,
@@ -126,11 +140,13 @@ class Int8Convs:
     def __enter__(self) -> "Int8Convs":
         for name, mod in self.convs:
             mod.forward = functools.partial(self._forward, name, mod)
+        _ACTIVE[self.model] = self
         return self
 
     def __exit__(self, *exc) -> None:
         for _, mod in self.convs:
             del mod.forward  # the instance attribute: Conv2d.forward again
+        _ACTIVE.pop(self.model, None)
 
 
 def calibrate_activations(model: nn.Module, batches, skip: Skip | None = default_skip,

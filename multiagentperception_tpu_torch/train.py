@@ -10,11 +10,18 @@ and ``configs/single-request-multiple-support/`` and
 architectures, every backbone) and trains on the card (``--device cpu`` for the CPU; without a card
 and without it, the run stops with an error). Each run writes to
 ``runs/<config name>/<timestamp>``: the config, ``train.log`` and the
-``.pkl`` checkpoints ``<arch>_<dataset>_best_model.pkl``. After training it
+``.pkl`` checkpoints ``<arch>_<dataset>_best_model.pkl``, and the TensorBoard
+event files where ``torch.utils.tensorboard`` imports (else one logged line
+and no writer, as the JAX CLI without ``tensorboardX``). After training it
 loads the best checkpoint and evaluates the test split in the config's
 eval mode (``model.eval_inference``, e.g. ``topk``; else ``activated`` for
 the when2com models and MIMOcomWho, ``argmax_test`` for LearnWho2Com, none
 for the baselines), as the reference does.
+
+``training.rss_limit_gb``'s restart (``utils.reexec_self``) comes back
+through here: a process started with ``MAP_REEXEC_RESUME`` rejoins the run
+directory of ``MAP_REEXEC_LOGDIR`` (run ``MAP_REEXEC_RUN_IDX``) and resumes
+from that checkpoint (JAX train.py:80-117).
 """
 
 from __future__ import annotations
@@ -27,6 +34,17 @@ import random
 import shutil
 
 import numpy as np
+
+
+def _writer(logdir: str, logger: logging.Logger):
+    """A TensorBoard ``SummaryWriter`` on ``logdir``, or None (logged) where
+    ``torch.utils.tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as err:
+        logger.info("no TensorBoard writer (%s): metrics go to stdout and the log", err)
+        return None
+    return SummaryWriter(log_dir=logdir)
 
 
 def _logger(logdir: str) -> logging.Logger:
@@ -63,16 +81,34 @@ def main(argv=None):
     cfg = load_config(args.config)
     device = resolve_device(args.device)  # raises first if no card
     results = []
-    for run_idx in range(args.run_time):
+    reexec_resume = os.environ.pop("MAP_REEXEC_RESUME", None)
+    reexec_logdir = os.environ.get("MAP_REEXEC_LOGDIR")
+    reexec_run_idx = int(os.environ.get("MAP_REEXEC_RUN_IDX", "0") or 0)
+    if reexec_resume and reexec_run_idx > 0:
+        print(f"resumed after re-exec: aggregate will cover runs "
+              f"{reexec_run_idx}..{args.run_time - 1} only")
+    orig_resume = cfg["training"].get("resume")
+    for run_idx in range(reexec_run_idx if reexec_resume else 0, args.run_time):
         run_id = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
         if args.run_time > 1:  # fast repeats can share a timestamp second
             run_id = f"{run_id}-r{run_idx}"
-        logdir = os.path.join("runs", os.path.basename(args.config)[:-4], run_id)
+        if reexec_resume and run_idx == reexec_run_idx and reexec_logdir:
+            logdir = reexec_logdir  # rejoin the run directory of the re-exec'd process
+            cfg["training"]["resume"] = reexec_resume
+        else:
+            logdir = os.path.join("runs", os.path.basename(args.config)[:-4], run_id)
+            cfg["training"]["resume"] = orig_resume
+        # exported so a later rss_limit_gb re-exec rejoins this run
+        os.environ["MAP_REEXEC_LOGDIR"] = logdir
+        os.environ["MAP_REEXEC_RUN_IDX"] = str(run_idx)
         os.makedirs(logdir, exist_ok=True)
         print(f"RUNDIR: {logdir}")
-        shutil.copy(args.config, logdir)
+        if os.path.abspath(args.config) != os.path.abspath(
+                os.path.join(logdir, os.path.basename(args.config))):
+            shutil.copy(args.config, logdir)
         logger = _logger(logdir)
         logger.info("Begin")
+        writer = _writer(logdir, logger)
 
         # a seed per repeat, so --run_time N gives N different runs
         seed = int(cfg["training"].get("seed", 1337)) + run_idx
@@ -96,7 +132,8 @@ def main(argv=None):
 
         schedule = get_scheduler(t_cfg.get("lr_schedule"), t_cfg["optimizer"]["lr"])
         trainer = Trainer(cfg, logger, get_loss_function(cfg), trainloader, valloader,
-                          schedule=schedule, device=device, logdir=logdir, seed=seed)
+                          schedule=schedule, device=device, logdir=logdir, seed=seed,
+                          writer=writer)
         init_weights(trainer.model, seed)
         save_path = trainer.train()
 
@@ -106,6 +143,8 @@ def main(argv=None):
         if save_path is not None:
             trainer.load_weight(save_path)
         results.append(trainer.evaluate(testloader))
+        if writer is not None:
+            writer.close()
 
     if args.run_time > 1:
         print(f"=== Aggregate over {args.run_time} runs (mean ± std) ===")

@@ -10,6 +10,11 @@ runs on a machine without it:
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +25,9 @@ from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 
 pytestmark = pytest.mark.cuda
+# cuBLAS picks the same kernels on every stream with a fixed workspace: the
+# graph-against-eager training test runs deterministic (set before cuBLAS starts)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -836,3 +844,314 @@ def test_model_options_eval_step_on_the_card(cuda, override, k1_launches, k2_lau
     (g_cls, g_act, g_nc), (c_cls, c_act, c_nc) = out["cuda"], out["cpu"]
     assert torch.equal(g_act, c_act) and float(g_nc) == float(c_nc)
     assert (g_cls == c_cls).float().mean().item() >= 0.999
+
+
+# ------------------------------------------------------------------ CUDA graphs
+
+def _graph_cfg(arch="MIMOcom", dtype=None, **model):
+    from multiagentperception_tpu_torch.config import normalize_config
+
+    mrms = arch in MRMS
+    m = {"arch": arch, "agent_num": 3, "query_size": 8, "key_size": 64,
+         "multiple_output": mrms, **ZOO.get(arch, {}), **model}
+    if dtype:
+        m["dtype"] = dtype
+    return normalize_config({
+        "model": m, "data": {"img_rows": 128, "img_cols": 128,
+                             "commun_label": "mimo" if mrms else "when2com"},
+        "training": {"batch_size": 2, "optimizer": {"name": "adam", "lr": 1e-4},
+                     "loss": {"name": "cross_entropy", "size_average": True}}})
+
+
+def _graph_batches(cfg, count, b=2, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, size = cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    out = []
+    for _ in range(count):
+        images = (rng.standard_normal((b, n, size, size, 3)) * 0.5).astype(np.float32)
+        labels = rng.integers(0, 11, (b, n, size, size)).astype(np.int32)
+        labels[rng.random(labels.shape) < 0.02] = 250
+        if cfg["data"]["commun_label"] == "mimo":
+            cl = np.stack([rng.integers(0, 2, (b, n)), rng.integers(0, n, (b, n))], axis=1)
+        else:
+            cl = rng.integers(-1, n - 1, (b,))
+        out.append((images, labels, cl))
+    return out
+
+
+def _counters():
+    return (k1.upsample_argmax.launches, dict(k1.upsample_argmax.route_launches),
+            k2.comm_fusion.launches, dict(k2.comm_fusion.route_launches))
+
+
+def _graph_vs_eager(cfg, batches, state, swap_scales=None, loss_fn=None, **step_kw):
+    """Each batch's eval results through graphs and eagerly, on the host,
+    with the launch counts each way."""
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
+    from multiagentperception_tpu_torch.quantize import Int8Convs
+
+    out = {}
+    for graphs in (True, False):
+        ev = Evaluator(cfg, device="cuda", graphs=graphs, loss_fn=loss_fn)
+        ev.model.load_state_dict(state)
+        k1.upsample_argmax.launches = k2.comm_fusion.launches = k4.int8_conv.launches = 0
+        swap = Int8Convs(ev.model, swap_scales) if swap_scales is not None else None
+        with swap if swap is not None else contextlib.nullcontext():
+            res = [{k: v.cpu() for k, v in r.items()}
+                   for r, _ in ev._pipelined(batches, **step_kw)]
+        torch.cuda.synchronize()
+        out[graphs] = {"res": res, "k1": k1.upsample_argmax.launches,
+                       "k2": k2.comm_fusion.launches, "k4": k4.int8_conv.launches,
+                       "calls": None if swap is None else swap.calls, "ev": ev}
+    return out
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "with_loss"])
+def test_graph_eval_equals_eager(cuda, kind):
+    """The eval step as a CUDA graph against the eager step at 128x128,
+    bit for bit: class maps, the three confusion matrices, actions,
+    bandwidth (and the loss, with_loss), per batch over 4 batches and a
+    ragged tail of 1 (eager in both). K1, K2 and K4 count exactly their
+    per-batch launches under replay; the Int8Convs swap's calls too."""
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+
+    cfg = _graph_cfg(dtype="bfloat16" if kind == "bfloat16" else None)
+    state = init_weights(get_model(cfg, 11), 0).state_dict()
+    batches = _graph_batches(cfg, 4) + _graph_batches(cfg, 1, b=1, seed=1)
+    scales, kw = None, {"keep_pred": True}
+    if kind == "int8":
+        ev = Evaluator(cfg, device=cuda, graphs=False)
+        ev.model.load_state_dict(state)
+        scales = ev._calibrate_int8(batches, "activated", calib_loader=batches[:1])
+    if kind == "with_loss":
+        kw["with_loss"] = True
+    runs = _graph_vs_eager(cfg, batches, state, scales, get_loss_function(cfg), **kw)
+    graph, eager = runs[True], runs[False]
+    for g, e in zip(graph["res"], eager["res"]):
+        assert set(g) == set(e) and "pred" in g and ("loss" in g) == (kind == "with_loss")
+        for key in e:
+            assert torch.equal(g[key], e[key]), key
+    want = 0 if kind == "with_loss" else len(batches)  # the softmax forward runs neither
+    assert (graph["k1"], graph["k2"]) == (eager["k1"], eager["k2"]) == (want, want)
+    if kind == "int8":
+        assert graph["k4"] == eager["k4"] == 48 * len(batches)
+        assert graph["calls"] == eager["calls"] == 48 * len(batches)
+    entries = graph["ev"]._eval_graphs.entries
+    assert sum(1 for v in entries.values() if hasattr(v, "replay")) == 1
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_graph_eval_of_every_arch(cuda, arch):
+    """Every architecture's eval step in its default mode captures, and its
+    graph gives the eager step's results bit for bit (the selection
+    baselines' draws go in as a static input)."""
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+
+    cfg = _graph_cfg(arch)
+    state = init_weights(get_model(cfg, 11), 0).state_dict()
+    runs = _graph_vs_eager(cfg, _graph_batches(cfg, 3), state)
+    for g, e in zip(runs[True]["res"], runs[False]["res"]):
+        for key in e:
+            assert torch.equal(g[key], e[key]), key
+    assert runs[True]["k1"] == runs[False]["k1"] == 3
+
+
+def test_a_host_sync_inside_a_capture_raises(cuda, monkeypatch):
+    """A host sync in the captured step raises ``CaptureError`` naming the
+    key; the evaluator does not fall back to the eager step, and the card
+    keeps working."""
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.graphs import CaptureError
+    from multiagentperception_tpu_torch.models import init_weights
+
+    cfg = _graph_cfg()
+    ev = Evaluator(cfg, device=cuda)
+    init_weights(ev.model, 0)
+    forward = ev.model.forward
+
+    def syncing(x, **kw):
+        float(x.sum())  # a readback: a host sync
+        return forward(x, **kw)
+
+    monkeypatch.setattr(ev.model, "forward", syncing)
+    batches = _graph_batches(cfg, 2)
+    ev.graph_eval_step(*batches[0])  # the warm-up is eager: the sync is legal there
+    with pytest.raises(CaptureError, match="'eval'"):
+        ev.graph_eval_step(*batches[1])
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
+
+
+def _graph_trainer(cfg, batches, graphs, loss_fn=None, **training):
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    cfg = copy.deepcopy(cfg)
+    cfg["training"].update(print_interval=1, val_interval=1000, watchdog_secs=0, **training)
+    tr = Trainer(cfg, None, loss_fn or get_loss_function(cfg), batches, batches[:1],
+                 device="cuda", graphs=graphs)
+    return tr
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode,
+    TF32 off; restored after."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved[:4]
+        torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
+
+
+@pytest.mark.parametrize("variant", ["plain", "remat", "nan_guard", "selection"])
+def test_graph_train_steps_match_eager(cuda, variant, monkeypatch, tmp_path):
+    """K = 4 train steps a chunk by graph replays against K eager steps over
+    9 iterations (chunks 4, 4, 1; the first step eager in both), both
+    optimizers capturable from the start (the same arithmetic), in
+    deterministic mode (training on the card is not reproducible without
+    it: backward atomics): losses, parameters, BatchNorm statistics and
+    the optimizer's state equal bit for bit. ``nan_guard``: step 6 (a
+    replay) has a non-finite loss; both runs drop it (the guard's counters
+    equal), and over that replay the parameters did not move. ``remat`` and
+    the selection baseline's draws under the graph."""
+    from multiagentperception_tpu_torch import graphs as graphs_mod
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+    from multiagentperception_tpu_torch.optimizers import lr_tensor, make_capturable
+
+    monkeypatch.chdir(tmp_path)
+    arch = "MIMO_All_agents" if variant == "selection" else "MIMOcom"
+    cfg = _graph_cfg(arch, remat=True) if variant == "remat" else _graph_cfg(arch)
+    state = init_weights(get_model(cfg, 11), 0).state_dict()
+    batches = _graph_batches(cfg, 9, seed=3)
+    loss_fn, keys = None, {}
+    if variant == "nan_guard":
+        base = get_loss_function(cfg)
+        batches[5][1][0, 0, 0, 0] = 249
+
+        def loss_fn(input, target):
+            hit = (target == 249).any()
+            return base(input=input, target=torch.where(target == 249, 250, target)) * \
+                torch.where(hit, torch.inf, 1.0)
+        keys = {"nan_guard": 2}
+    replay = graphs_mod.Graph.replay
+    runs = {}
+    for graphs in (True, False):
+        tr = _graph_trainer(cfg, batches, graphs, loss_fn, train_iters=9, steps_per_call=4,
+                            **keys)
+        tr.model.load_state_dict(state)
+        make_capturable(tr.optimizer, lr_tensor(1e-4, cuda))
+        moved = []
+
+        def watched(self):
+            before = [p.detach().clone() for p in tr.model.parameters()]
+            replay(self)
+            moved.append(any(not torch.equal(a, p) for a, p in
+                             zip(before, tr.model.parameters())))
+
+        with monkeypatch.context() as m, _deterministic():
+            m.setattr(graphs_mod.Graph, "replay", watched)
+            tr.train()
+        runs[graphs] = {"losses": [tr.loss_history[i] for i in range(1, 10)],
+                        "state": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+                        "opt": [t.detach().cpu() for st in tr.optimizer.state.values()
+                                for t in st.values() if isinstance(t, torch.Tensor)],
+                        "graph": tr._train_graph, "applied": tr._applied_count(),
+                        "guard": tr.guard.state_dict() if tr.guard else None, "moved": moved}
+    graph, eager = runs[True], runs[False]
+    assert graph["graph"] is not None and eager["graph"] is None and not eager["moved"]
+    assert graph["losses"] == eager["losses"]
+    for name, value in eager["state"].items():
+        assert torch.equal(graph["state"][name], value), name
+    assert len(graph["opt"]) == len(eager["opt"]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(graph["opt"], eager["opt"]))
+    if variant == "nan_guard":
+        want = {"notfinite_count": 0, "last_finite": True, "total_notfinite": 1}
+        assert graph["guard"] == eager["guard"] == want
+        assert graph["applied"] == eager["applied"] == 8
+        assert not np.isfinite(graph["losses"][5])
+        # replays run steps 2..9; step 6 is the fifth of them
+        assert graph["moved"] == [True, True, True, True, False, True, True, True]
+    else:
+        assert graph["applied"] == eager["applied"] == 9
+        assert graph["moved"] == [True] * 8
+
+
+def test_graph_train_with_chunks_of_one(cuda, monkeypatch, tmp_path):
+    """``steps_per_call: 4`` with ``val_interval: 1``: every chunk is one
+    step; the first runs eagerly, the second is captured and replayed, the
+    third replays, validating after each."""
+    from multiagentperception_tpu_torch.models import get_model, init_weights
+
+    monkeypatch.chdir(tmp_path)
+    cfg = _graph_cfg()
+    batches = _graph_batches(cfg, 3, seed=4)
+    tr = _graph_trainer(cfg, batches, True, train_iters=3, steps_per_call=4)
+    tr.cfg["training"]["val_interval"] = 1
+    tr.model.load_state_dict(init_weights(get_model(cfg, 11), 0).state_dict())
+    tr.train()
+    assert tr._train_graph is not None and tr.step == tr.applied == 3
+    assert sorted(tr.loss_history) == [1, 2, 3]
+    assert all(np.isfinite(v) for v in tr.loss_history.values())
+
+
+@pytest.mark.parametrize("opt_cfg", [
+    {"name": "sgd", "lr": 0.1}, {"name": "sgd", "lr": 0.1, "momentum": 0.9, "nesterov": True,
+                                 "weight_decay": 1e-2},
+    {"name": "adam", "lr": 1e-2}, {"name": "adam", "lr": 1e-2, "weight_decay": 1e-2},
+    {"name": "asgd", "lr": 1e-2, "weight_decay": 1e-3, "lambd": 1e-2},
+    {"name": "adamax", "lr": 1e-2}, {"name": "adadelta", "lr": 1.0},
+    {"name": "adagrad", "lr": 1e-1}, {"name": "rmsprop", "lr": 1e-2, "momentum": 0.9}],
+    ids=lambda c: "-".join(str(v) for v in c.values()))
+def test_every_optimizer_steps_under_capture(cuda, opt_cfg):
+    """Each optimizer, made capturable after one eager update, captured in a
+    CUDA graph and replayed 5 times with new gradients and a new lr each
+    time (filled outside the graph), against the same capturable optimizer
+    stepping eagerly: equal within rtol 1e-6 / atol 1e-7."""
+    from multiagentperception_tpu_torch.optimizers import (
+        get_optimizer,
+        lr_tensor,
+        make_capturable,
+        set_lr,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    start = torch.randn(64, 33, generator=g)
+    grads = [torch.randn(64, 33, generator=g).to(cuda) for _ in range(6)]
+    cfg = {"training": {"optimizer": dict(opt_cfg)}}
+    out = {}
+    for mode in ("graph", "eager"):
+        p = torch.nn.Parameter(start.clone().to(cuda))
+        opt = get_optimizer(cfg, [p], opt_cfg["lr"])
+        p.grad = grads[0].clone()
+        opt.step()  # the eager update that makes the state
+        lr = lr_tensor(opt_cfg["lr"], cuda)
+        make_capturable(opt, lr)
+        static = p.grad
+        if mode == "graph":
+            graph = torch.cuda.CUDAGraph()
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.graph(graph, stream=stream):
+                opt.step()
+        for t, grad in enumerate(grads[1:]):
+            static.copy_(grad)
+            set_lr(opt, opt_cfg["lr"] * 0.9 ** (t + 1))
+            graph.replay() if mode == "graph" else opt.step()
+        torch.cuda.synchronize()
+        out[mode] = p.detach().cpu()
+    torch.testing.assert_close(out["graph"], out["eager"], rtol=1e-6, atol=1e-7)
+    assert not torch.equal(out["graph"], start)

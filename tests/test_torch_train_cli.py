@@ -158,14 +158,9 @@ def test_resume_continues_at_the_saved_iteration(tmp_path):
 
 @pytest.mark.parametrize("section,key,value",
                          [(s, k, v) for s, k, v in (
-                             ("training", "steps_per_call", 2),
-                             ("training", "rss_limit_gb", 8),
-                             ("training", "nan_guard", 3),
                              ("training", "data_backend", "grain"),
                              ("training", "augmentations", {"hflip": 0.5}),
-                             ("training", "profile_dir", "prof"),
                              ("training", "shard_data_by_process", True),
-                             ("training", "device_prefetch", 2),
                              ("data", "cache_decoded", "cache"))],
                          ids=lambda v: str(v))
 def test_unported_keys_are_refused(fixture_root, tmp_path, section, key, value):

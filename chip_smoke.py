@@ -209,6 +209,31 @@ and the script exits non-zero:
    5 alternated pairs of 16-batch windows (frames/s), one traced window
    each (busy share; K1, K2 and K4 inside the replays). Last, the
    capture-safe confusion matrix against its ``torch.bincount`` form.
+14. The loader (``data/``, ``native.py``, ``bench_train_pipeline.py``).
+   Prints whether cv2 imports and whether the native decoder builds (g++
+   and libpng), and the host's CPU count. On a 512x512 ``generate_fixture``
+   (6 agents, 16 train frames) the loader alone in frames decoded/s
+   (``bench_train_pipeline.loader_rates``: cv2 through the thread
+   ``DataLoader``, the native decoder, the cache cold and warm,
+   ``GrainLoader`` with 4 worker processes), then
+   ``bench_train_pipeline.main``'s variants A-F on the flagship geometry in
+   bf16 at batch 2 (frames/s, ratio to A), and the flagship's ``activated``
+   eval at batch 2 over that split read through the thread ``DataLoader``
+   against the same batches in memory (``eval_pace``: which of the loader
+   and the card sets the pace of a 512x512 ``test``). Then ``Trainer`` on the flagship
+   at 128x128 (crops of 160x160 frames) with ``data_backend: grain``, 2
+   worker processes, augmentations (hflip, rcrop, brightness),
+   ``cache_decoded``, ``device_prefetch`` 2 and ``steps_per_call`` 2 (graph
+   replays): 12 iterations in one run, then 6, ``latest`` saved, and a
+   fresh ``Trainer`` resumed to 12; the batches the steps consume
+   (position-weighted sums of images and labels, taken on the card from
+   each chunk) must be equal, and the checkpoint must hold the consumed
+   position mid-epoch (``stream_resume``). Last, the ``test`` CLI on the
+   flagship YAML at 256x256 with ``noisy_type: occlusion`` and the cache,
+   from one seeded ``.pkl``, on the card and on the CPU with TF32 off:
+   class maps on at least 99.9% of pixels, bandwidth equal (and above 0),
+   K1 and K2 launched exactly as ``_expected_launches`` says
+   (``noisy_test_cli``).
 
 ``Evaluator.evaluate`` runs through CUDA graphs on the card by default,
 so phases 2, 3, 5 (its validation), 7, 8 and 12 evaluate through graphs,
@@ -230,7 +255,8 @@ convolutions, with the quantize/GEMM split and ``library_int_mm_ms``;
 K1's, K2's and ``int8_conv``'s records hold their launches on phase 11's
 serving path of their type, ``serving_launches``, and a batch of phase 13's
 eval under replay, ``graph_launches_per_batch`` and
-``graph_traced_launches``), and last
+``graph_traced_launches``; K1's and K2's float32 records their launches in
+phase 14's noisy ``test``, ``phase14_launches``), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2604,6 +2630,273 @@ def run_phase13(records: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+
+LOADER_SIZE = 512  # the flagship's frames
+LOADER_FRAMES = 8  # frames in each of the fixture's 2 train trajectories
+LOADER_WORKERS = 4
+STREAM_FRAME, STREAM_SIZE = 160, 128  # fixture side, and the random crop the model sees
+STREAM_ITERS, STREAM_CUT = 12, 6
+STREAM_AUGS = {"hflip": 0.5, "rcrop": STREAM_SIZE, "brightness": 0.3}
+NOISY_SIZE = 256
+
+
+def decoders() -> dict:
+    """Which PNG decoders this host has, and its CPU count."""
+    from multiagentperception_tpu_torch import native
+
+    out = {"cpu_count": os.cpu_count(), "cpus_usable": len(os.sched_getaffinity(0))}
+    try:
+        import cv2
+
+        out["cv2"] = cv2.__version__
+    except ImportError as err:
+        out["cv2"] = f"does not import: {err}"
+    try:
+        native.load()
+        out["native"] = f"builds and loads: {native.library_path().relative_to(ROOT)}"
+    except native.NativeBuildError as err:
+        out["native"] = f"does not build: {str(err)[-600:]}"
+    except OSError as err:
+        out["native"] = f"builds, does not load: {err}"
+    return out
+
+
+def _fingerprinting_chunks(trainer, prints: list) -> None:
+    """Record, on the device, a fingerprint of each batch the train step
+    consumes (its images and labels, position-weighted int64 sums), taken
+    from the chunk ``_chunk`` is handed, whether it runs eagerly or as
+    graph replays."""
+    chunk = trainer._chunk
+
+    def fingerprinted(xs, ys, k, graph):
+        for j in range(k):
+            x, y = xs[j].reshape(-1).long(), ys[j].reshape(-1).long()
+            wx = torch.arange(x.numel(), device=x.device) % 1009 + 1
+            wy = torch.arange(y.numel(), device=y.device) % 1013 + 1
+            prints.append(torch.stack([(x * wx).sum(), (y * wy).sum()]))
+        return chunk(xs, ys, k, graph)
+
+    trainer._chunk = fingerprinted
+
+
+def _stream_trainer(root: str, logdir: Path, cache: str, train_iters: int,
+                    resume: str | None = None):
+    """The flagship (its widths, ``STREAM_SIZE``²) over a shuffled
+    ``GrainLoader`` with 2 worker processes, augmentations and the cache,
+    ``device_prefetch`` 2, ``steps_per_call`` 2 (graph replays)."""
+    from multiagentperception_tpu_torch.data import AirsimDataset, get_composed_augmentations
+    from multiagentperception_tpu_torch.data.grain_pipeline import GrainLoader
+
+    cfg = load_config(str(FLAGSHIP))
+    cfg["data"].update(img_rows=STREAM_SIZE, img_cols=STREAM_SIZE, path=root,
+                       on_device_normalize=True, cache_decoded=cache)
+    cfg["training"].update(train_iters=train_iters, val_interval=STREAM_ITERS,
+                           save_interval=STREAM_CUT, print_interval=STREAM_ITERS,
+                           device_prefetch=2, steps_per_call=2, data_backend="grain",
+                           grain_workers=2, augmentations=STREAM_AUGS, resume=resume)
+    common = dict(root=root, target_view="6agent", commun_label="mimo", raw_images=True,
+                  cache_decoded=cache, seed=SEED)
+    train = GrainLoader(AirsimDataset(split="train", augmentations=get_composed_augmentations(
+        STREAM_AUGS), **common), 2, shuffle=True, drop_last=True, num_workers=2, seed=SEED)
+    val = GrainLoader(AirsimDataset(split="val", augmentations=get_composed_augmentations(
+        {"ccrop": STREAM_SIZE}), **common), 2)
+    trainer = Trainer(cfg, logging.getLogger("chip_smoke"), get_loss_function(cfg), train, val,
+                      device="cuda", logdir=str(logdir))
+    init_weights(trainer.model, SEED)
+    prints: list = []
+    _fingerprinting_chunks(trainer, prints)
+    return trainer, prints
+
+
+def stream_resume() -> dict:
+    """``Trainer`` with the loader's keys at once: 12 iterations in one run,
+    then 6, ``latest`` saved, and a fresh ``Trainer`` resumed to 12; the
+    batches the steps consume must be equal, and the checkpoint must hold
+    the consumed position."""
+    from multiagentperception_tpu_torch.data.synthetic import generate_fixture
+
+    work = WORK / "stream"
+    shutil.rmtree(work, ignore_errors=True)
+    root = str(work / "data")
+    # 8 train frames: 4 batches an epoch, so the cut falls inside the second
+    generate_fixture(root, target_view="6agent", img_size=STREAM_FRAME, frames_per_traj=4)
+    seconds: dict = {}
+
+    def run(name: str, logdir: Path, iters: int, resume: str | None = None) -> tuple:
+        t0 = time.perf_counter()
+        trainer, prints = _stream_trainer(root, logdir, str(work / "cache"), iters, resume)
+        try:
+            with open(work / f"{name}.log", "w") as log, contextlib.redirect_stdout(log):
+                trainer.train()
+        finally:
+            trainer.trainloader.shutdown()
+        seconds[name] = time.perf_counter() - t0
+        return trainer, [p.tolist() for p in prints]
+
+    _, whole = run("whole", work / "whole", STREAM_ITERS)
+    _, cut = run("cut", work / "cut", STREAM_CUT)
+    (latest,) = (work / "cut").glob("*_latest.pkl")
+    stream = torch.load(latest, map_location="cpu", weights_only=True)["data_stream"]
+    trainer, after = run("resumed", work / "cut", STREAM_ITERS, str(latest))
+    resumed = cut + after
+    batches_an_epoch = len(trainer.trainloader)
+    epoch = (STREAM_CUT - 1) // batches_an_epoch
+    want_stream = {"seed": SEED, "epoch": epoch,
+                   "consumed": STREAM_CUT - epoch * batches_an_epoch}
+    if resumed != whole or len(resumed) != STREAM_ITERS or stream != want_stream:
+        raise AssertionError(f"stream resume: whole {whole}, cut then resumed "
+                             f"{resumed}; checkpointed {stream}, want {want_stream}")
+    shutil.rmtree(work)
+    return {"size": STREAM_SIZE, "iterations": STREAM_ITERS, "cut_at": STREAM_CUT,
+            "batches_an_epoch": batches_an_epoch, "checkpointed_stream": stream,
+            "equal_batches": True, "distinct_batches": len({tuple(p) for p in resumed}),
+            "seconds": seconds}
+
+
+def _capturing_predictions(sink: dict):
+    """A context in which every ``Evaluator._pipelined`` pass also returns
+    its class maps (``keep_pred``): they and the evaluator go to ``sink``."""
+    original = Evaluator._pipelined
+
+    def pipelined(self, loader, **kw):
+        sink["evaluator"] = self
+        for res, cl in original(self, loader, keep_pred=True, **kw):
+            sink.setdefault("preds", []).append(res["pred"].cpu())
+            yield res, cl
+
+    @contextlib.contextmanager
+    def patched():
+        Evaluator._pipelined = pipelined
+        try:
+            yield
+        finally:
+            Evaluator._pipelined = original
+
+    return patched()
+
+
+@_no_tf32()
+def noisy_test_cli() -> dict:
+    """The ``test`` CLI on the flagship YAML at ``NOISY_SIZE``² with
+    ``noisy_type: occlusion`` and the cache, seeded weights from one
+    ``.pkl``, on the card and on the CPU (TF32 off): class maps on at least
+    99.9% of pixels, bandwidth equal, K1 and K2 launched exactly as
+    ``_expected_launches`` says on the card."""
+    import yaml
+
+    from multiagentperception_tpu_torch import test as test_cli
+    from multiagentperception_tpu_torch.data.synthetic import generate_fixture
+
+    work = WORK / "noisy"
+    shutil.rmtree(work, ignore_errors=True)
+    root = str(work / "data")
+    generate_fixture(root, target_view="6agent", img_size=NOISY_SIZE, frames_per_traj=4,
+                     n_train=1, n_val=1, n_test=1)
+    cfg = yaml.safe_load(FLAGSHIP.read_text())
+    cfg["data"].update(path=root, img_rows=NOISY_SIZE, img_cols=NOISY_SIZE,
+                       noisy_type="occlusion", cache_decoded=str(work / "cache"))
+    cfg["training"]["n_workers"] = 2
+    yml = work / "noisy.yml"
+    yml.write_text(yaml.safe_dump(cfg))
+    pkl = work / "seed.pkl"
+    model = init_weights(get_model(load_config(str(yml)), N_CLASSES), SEED + 14)
+    torch.save({"epoch": 0, "model_state": model.state_dict(), "best_iou": 0.0}, pkl)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sink: dict = {}
+        k1.upsample_argmax.launches = k2.comm_fusion.launches = 0
+        with _capturing_predictions(sink), open(work / f"{dev}.log", "w") as log, \
+                contextlib.redirect_stdout(log):
+            metrics = test_cli.main(["--config", str(yml), "--model_path", str(pkl),
+                                     "--device", dev])
+        runs[dev] = {"metrics": metrics, "preds": torch.cat(sink["preds"]),
+                     "batches": len(sink["preds"]),
+                     "evaluator": sink["evaluator"],
+                     "launches": {"upsample_argmax": k1.upsample_argmax.launches,
+                                  "comm_fusion": k2.comm_fusion.launches}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    want = _expected_launches(card["evaluator"], None, card["batches"])
+    agree = (card["preds"] == cpu["preds"]).float().mean().item()
+    bw = card["metrics"].get_avg_bandW(), cpu["metrics"].get_avg_bandW()
+    if card["launches"] != want or agree < 0.999 or bw[0] != bw[1] or \
+            cpu["launches"] != {"upsample_argmax": 0, "comm_fusion": 0}:
+        raise AssertionError(f"noisy test CLI: launches {card['launches']} (want {want}; "
+                             f"CPU {cpu['launches']}), class maps agree on {agree}, "
+                             f"bandwidth card {bw[0]} CPU {bw[1]}")
+    if not card["metrics"].get_avg_bandW() > 0:
+        raise AssertionError("noisy test CLI: no link kept; K2's fusion fused nothing")
+    cached = len(list((work / "cache").iterdir()))
+    shutil.rmtree(work)
+    return {"size": NOISY_SIZE, "batches": card["batches"], "pixel_agreement": agree,
+            "bandwidth": bw[0], "launches": card["launches"], "cached_frames": cached,
+            "tf32": False}
+
+
+def eval_pace(root: str) -> dict:
+    """Who sets the pace of a 512x512 ``test`` at batch 2: the flagship's
+    ``activated`` ``Evaluator.evaluate`` (graphs, seeded weights) over the
+    train split read through the thread ``DataLoader`` (cv2, 4 threads, as
+    the ``test`` CLI reads it), against the same batches already decoded
+    in memory, after a warm-up pass; frames (agent views) per second."""
+    from multiagentperception_tpu_torch.data import AirsimDataset, DataLoader
+
+    cfg = load_config(str(FLAGSHIP))
+    ev = Evaluator(cfg)
+    init_weights(ev.model, SEED)
+    ds = AirsimDataset(root, split="train", target_view="6agent", commun_label="mimo")
+    loader = DataLoader(ds, cfg["training"]["batch_size"], num_workers=LOADER_WORKERS)
+    batches = list(loader)
+    frames = sum(b[0].shape[0] * b[0].shape[1] for b in batches)
+    seconds = {}
+    with open(WORK / "loader" / "eval_pace.log", "w") as log, contextlib.redirect_stdout(log):
+        ev.evaluate(batches)  # warm-up: cuDNN, the allocator, the graph's capture
+        for name, source in (("loader", loader), ("in_memory", batches)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.evaluate(source)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    rates = {k: frames / v for k, v in seconds.items()}
+    return {"frames": frames, "seconds": seconds, "frames_per_s": rates,
+            "loader_over_in_memory": rates["loader"] / rates["in_memory"]}
+
+
+def run_phase14(records: list) -> dict:
+    """Phase 14: the loader (decoders, frames decoded/s, the train pipeline
+    A-F, the checkpointable stream's resume, the noisy ``test`` CLI)."""
+    from multiagentperception_tpu_torch import bench_train_pipeline as pipeline
+    from multiagentperception_tpu_torch.data.synthetic import generate_fixture
+
+    out = {"decoders": decoders()}
+    print("loader_decoders " + json.dumps(out["decoders"]))
+    work = WORK / "loader"
+    shutil.rmtree(work, ignore_errors=True)
+    root = str(work / "data")
+    t0 = time.perf_counter()
+    generate_fixture(root, target_view="6agent", img_size=LOADER_SIZE,
+                     frames_per_traj=LOADER_FRAMES, n_train=2, n_val=0, n_test=0)
+    out["fixture_seconds"] = time.perf_counter() - t0
+    out["loader_frames_per_s"] = pipeline.loader_rates(root, LOADER_SIZE, 2, LOADER_WORKERS,
+                                                       str(work))
+    print("loader_rates " + json.dumps(out["loader_frames_per_s"]))
+    out["eval_pace"] = eval_pace(root)
+    print("eval_pace " + json.dumps(out["eval_pace"]))
+    with open(work / "train_pipeline.log", "w") as log, contextlib.redirect_stdout(log):
+        out["train_pipeline"] = pipeline.main(["--root", root, "--img", str(LOADER_SIZE),
+                                               "--workers", str(LOADER_WORKERS)])["variants"]
+    print("train_pipeline " + json.dumps(out["train_pipeline"]))
+    shutil.rmtree(work)
+    out["stream_resume"] = stream_resume()
+    print("stream_resume " + json.dumps(out["stream_resume"]))
+    out["noisy_test"] = noisy_test_cli()
+    print("noisy_test " + json.dumps(out["noisy_test"]))
+    for rec in records:
+        if rec["name"] in out["noisy_test"]["launches"]:
+            rec["phase14_launches"] = out["noisy_test"]["launches"][rec["name"]]
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8-draws", type=int, default=0, metavar="N",
@@ -2750,6 +3043,8 @@ def main() -> int:
     lap("12_model_surface")
     run_phase13(records)
     lap("13_graphs")
+    run_phase14(records)
+    lap("14_loader")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

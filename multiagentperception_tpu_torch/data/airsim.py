@@ -1,9 +1,11 @@
 """AirSim-MAP multi-view loader (reference: ptsemseg/loader/airsim_loader.py).
 
-The port's own copy of the cv2 decode path of
-``multiagentperception_tpu/data/airsim.py``; keep the two in step. Left out
-until a later slice: the native libpng decoder, the decoded-frame cache,
-online noise (``data.noisy_type``), augmentations and the split plots.
+The port's own copy of ``multiagentperception_tpu/data/airsim.py``; keep the
+two in step. It decodes with cv2 where cv2 imports, else with the port's
+native libpng decoder (``native.py``), memoizes decoded frames
+(``cache_decoded``), degrades the requester's view online (``noisy_type``,
+``data/noise.py``) and augments (``data/augmentations.py``). The split plots
+(JAX's ``plot_splits``) are left out: matplotlib is no part of the port.
 
 Behavioral parity with the reference Dataset:
 
@@ -31,9 +33,13 @@ import glob
 import json
 import os
 import random
+import threading
+import zlib
 from ast import literal_eval as make_tuple
 
 import numpy as np
+
+from multiagentperception_tpu_torch.data.noise import NOISE_TYPES, generate_noise
 
 _META_PATH = os.path.join(os.path.dirname(__file__), "airsim_map_meta.json")
 
@@ -143,6 +149,28 @@ def get_cam_pos(target_view: str):
     return layouts.get(target_view, ["front", "back", "left", "right", "overhead"])
 
 
+def _resolve_decoder(use_native_decoder: bool | None) -> bool:
+    """Whether to decode natively: JAX's choice for None (cv2 where it
+    imports, else native; data/airsim.py:221-230), with no quiet fallback.
+    A decoder that cannot run raises here."""
+    from multiagentperception_tpu_torch import native
+
+    if use_native_decoder is None:
+        try:
+            import cv2  # noqa: F401
+        except ImportError as cv2_err:
+            try:
+                native.load()
+            except (native.NativeBuildError, OSError) as err:
+                raise RuntimeError(f"no PNG decoder: cv2 does not import ({cv2_err}) and the "
+                                   f"native decoder does not build or load ({err})") from err
+            return True
+        return False
+    if use_native_decoder:
+        native.load()  # NativeBuildError with the compiler's stderr, or OSError
+    return bool(use_native_decoder)
+
+
 def read_selection_label(root: str, label_type: str):
     """Parse gt_when_to_communicate.txt / gt_mimo_communicate.txt
     (reference: airsim_loader.py:412-438). Keys are '<traj_dir>/<frame>.png'.
@@ -188,6 +216,27 @@ class AirsimDataset:
     labels (N, H, W) int32[, com_label])`` — the agent axis stacked, NHWC.
     With ``raw_images`` the images stay uint8 RGB and are normalized on the
     device (ops/normalize.py).
+
+    - ``noisy_type`` degrades the requester's view (agent 0) before
+      augmentation and normalization (``data/noise.py``).
+    - ``augmentations``: a ``data.augmentations.Compose`` applied to each
+      view with its mask.
+    - ``use_native_decoder``: None (default) decodes with cv2 where it
+      imports, else with the native decoder; True the native decoder, False
+      cv2. A decoder that cannot run raises when the dataset is made: with
+      neither, an error naming both; with True, the compiler's error.
+    - ``cache_decoded``: a directory; each frame's decoded uint8 block
+      (N, H, W, 4), the mask as a 4th channel, is saved there as
+      ``{split}_{index}_{crc32 of its first scene path:08x}.npy`` on first
+      touch and read by mmap afterwards, the JAX package's names and layout,
+      so either package reads the other's cache.
+
+    A deliberate difference from the JAX copy: the gaussian noise and the
+    augmentations draw from generators derived from (``seed``, epoch,
+    index), not from the global ``random`` module or an unseeded numpy
+    generator, so worker processes and a resumed run reproduce a stream.
+    The epoch is ``set_epoch``'s (the loaders set it); ``load(index,
+    epoch)`` takes it explicitly.
     """
 
     def __init__(
@@ -195,26 +244,37 @@ class AirsimDataset:
         root: str,
         split: str = "train",
         img_size=(512, 512),
+        augmentations=None,
         img_norm: bool = True,
         commun_label: str = "None",
         target_view: str = "target",
         raw_images: bool = False,
         noisy_type: str | None = None,
+        use_native_decoder: bool | None = None,
+        cache_decoded: str | None = None,
+        seed: int = 0,
     ):
-        if noisy_type not in (None, "None"):
-            raise NotImplementedError(
-                "data.noisy_type (online degradation) is not ported yet; "
-                "see ROADMAP.md")
         self.root = root
         self.split = split
         self.raw_images = raw_images
+        self.noisy_type = None if noisy_type in (None, "None") else noisy_type
+        if self.noisy_type is not None and self.noisy_type not in NOISE_TYPES:
+            raise ValueError(f"Unknown noise type {noisy_type}")
+        self.use_native_decoder = _resolve_decoder(use_native_decoder)
+        self.cache_decoded = cache_decoded
+        if cache_decoded:
+            os.makedirs(cache_decoded, exist_ok=True)
         self.img_size = img_size if isinstance(img_size, tuple) else (img_size, img_size)
+        self.augmentations = augmentations
         self.img_norm = img_norm
         self.commun_label = commun_label
         self.n_classes = N_CLASSES
         self.mean = MEAN_RGB
         self.cam_pos = get_cam_pos(target_view)
         self.split_subdirs = generate_split_subdirs()
+        self.seed = int(seed)
+        self.epoch = 0
+        self._geometry: dict[str, tuple[int, int, int]] = {}  # modality -> native (w, h, c)
 
         comm_label = None
         if commun_label != "None":
@@ -261,6 +321,10 @@ class AirsimDataset:
     def __len__(self):
         return len(self.imgs[self.split][self.cam_pos[0]][IMAGE_MODES[0]])
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch the next ``__getitem__`` calls draw their randomness for."""
+        self.epoch = int(epoch)
+
     def _read_pair(self, index, camera):
         import cv2
 
@@ -282,21 +346,106 @@ class AirsimDataset:
             raise ValueError("Segmentation map contained invalid class values")
         return img.astype(np.float32), lbl.astype(np.int32)
 
+    def _native_batch(self, modal: str, index: int) -> np.ndarray:
+        """Every view of one modality in one concurrent native call; the
+        geometry is probed on the split's first decode and held to after."""
+        from multiagentperception_tpu_torch import native
+
+        paths = [self.imgs[self.split][cam][modal][index] for cam in self.cam_pos]
+        if modal not in self._geometry:
+            self._geometry[modal] = native.png_info(paths[0])
+        w, h, c = self._geometry[modal]
+        return native.decode_batch(paths, h, w, c)
+
+    def _read_all_native(self, index):
+        """(N, H, W, 3) scenes and (N, H, W) masks in two native calls."""
+        scenes = self._native_batch("scene", index)[..., :3]
+        masks = self._native_batch("segmentation_decoded", index)
+        # the reference takes cv2's BGR channel 0, blue, RGB channel 2
+        # (airsim_loader.py:498); a one-channel PNG decodes to gray -> RGB
+        masks = masks[..., 2 if masks.shape[-1] >= 3 else 0]
+        return scenes, masks
+
+    def _cache_path(self, index):
+        # stable across processes (Python hash() is salted per run)
+        key = self.imgs[self.split][self.cam_pos[0]]["scene"][index]
+        crc = zlib.crc32(key.encode()) & 0xFFFFFFFF
+        return os.path.join(self.cache_decoded, f"{self.split}_{index}_{crc:08x}.npy")
+
+    def _decode_all(self, index):
+        """(N, H, W, 3) uint8 scenes + (N, H, W) uint8 masks for a frame."""
+        if self.use_native_decoder:
+            scenes, masks = self._read_all_native(index)
+            return np.ascontiguousarray(scenes), np.ascontiguousarray(masks)
+        scenes, masks = [], []
+        for cam in self.cam_pos:
+            img, m = self._read_pair(index, cam)
+            scenes.append(img)
+            masks.append(m)
+        return np.stack(scenes), np.stack(masks)
+
+    def _cached(self, index):
+        """The frame's decoded block from the cache, written on first touch."""
+        cp = self._cache_path(index)
+        if os.path.exists(cp):
+            # one .npy, the mask packed as a 4th channel; mmap serves it
+            # straight from the page cache
+            block = np.load(cp, mmap_mode="r")
+            return block[..., :3], block[..., 3]
+        scenes, masks = self._decode_all(index)
+        block = np.concatenate([scenes, masks[..., None]], axis=-1).astype(np.uint8)
+        # a name of its own per process and thread: worker processes and an
+        # epoch's wrap may decode one frame at once, and with a shared name
+        # the losing writer's os.replace would find no file. The trailing
+        # .npy keeps np.save from appending its own; os.replace is atomic.
+        tmp = f"{cp}.{os.getpid()}.{threading.get_ident()}.tmp.npy"
+        np.save(tmp, block)
+        os.replace(tmp, cp)
+        return scenes, masks
+
     def __getitem__(self, index):
+        return self.load(index, self.epoch)
+
+    def load(self, index: int, epoch: int):
+        """Frame ``index`` with the randomness of ``epoch``."""
+        index = int(index)
+        if self.cache_decoded:
+            scenes, masks = self._cached(index)
+        else:
+            scenes, masks = self._decode_all(index)
+        if self.raw_images and self.augmentations is None and self.noisy_type is None:
+            # fast path: the decoded block is already the output layout
+            images, labels = np.ascontiguousarray(scenes), masks.astype(np.int32)
+        else:
+            images, labels = self._assemble(scenes, masks, index, epoch)
+        if self.commun_label != "None":
+            return images, labels, self.com_label[self.split][index]
+        return images, labels
+
+    def _rngs(self, index: int, epoch: int) -> tuple[np.random.Generator, random.Random]:
+        """The frame's noise generator and augmentation generator."""
+        noise = np.random.default_rng([self.seed, epoch, index, 0])
+        aug = random.Random(int(np.random.SeedSequence([self.seed, epoch, index, 1])
+                                .generate_state(1, np.uint64)[0]))
+        return noise, aug
+
+    def _assemble(self, scenes, masks, index, epoch):
+        """Noise (agent 0), augmentation and transform on a decoded block."""
+        noise_rng, aug_rng = self._rngs(index, epoch)
         imgs, lbls = [], []
-        for camera in self.cam_pos:
-            img, lbl = self._read_pair(index, camera)
+        for k in range(len(self.cam_pos)):
+            img, lbl = scenes[k], masks[k]
+            if k == 0 and self.noisy_type is not None:
+                img = generate_noise(img, self.noisy_type, noise_rng)
+            if self.augmentations is not None:
+                img, lbl = self.augmentations(img, lbl, aug_rng)
             if self.raw_images:
-                lbl = lbl.astype(np.int32)
+                img, lbl = np.asarray(img), lbl.astype(np.int32)
             else:
                 img, lbl = self.transform(img, lbl)
             imgs.append(img)
             lbls.append(lbl)
-        images = np.stack(imgs, axis=0)
-        labels = np.stack(lbls, axis=0)
-        if self.commun_label != "None":
-            return images, labels, self.com_label[self.split][index]
-        return images, labels
+        return np.stack(imgs, axis=0), np.stack(lbls, axis=0)
 
     def decode_segmap(self, temp: np.ndarray) -> np.ndarray:
         """Class map -> RGB in [0, 1] for visualization (airsim_loader.py:542-555)."""

@@ -8,7 +8,9 @@ The decode path (cv2 PNG -> numpy) releases the GIL, so a thread pool gets
 real parallel decode; a small prefetch queue keeps the device fed while the
 current step runs. Batches come out as numpy arrays ready for a single
 host->device transfer: images ``(B, N, H, W, 3)`` float32, labels
-``(B, N, H, W)`` int32, and (optionally) communication labels.
+``(B, N, H, W)`` int32, and (optionally) communication labels. Each pass
+tells a dataset that has ``set_epoch`` its epoch (0, 1, ...), from which
+the port's dataset draws its noise and augmentations.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
 
     def __len__(self):
         n = len(self.dataset)
@@ -63,6 +66,10 @@ class DataLoader:
         return tuple(np.stack(c, axis=0) for c in cols)
 
     def __iter__(self) -> Iterator:
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(self._epoch)
+        self._epoch += 1
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
 

@@ -1,16 +1,20 @@
-"""The learning-proof fixture: the port's own copy of
-``multiagentperception_tpu/data/synthetic.py``'s ``generate_informative_fixture``
-(:89-200), with the occlusion of ``data/noise.py`` (:19-21) inlined.
+"""Synthetic AirSim-MAP-shaped fixtures: the port's own copy of
+``multiagentperception_tpu/data/synthetic.py`` (``generate_fixture`` :27-88,
+``generate_informative_fixture`` :89-200); keep the two in step.
 
-``informative_frames`` builds the frames in memory (numpy only);
-``generate_informative_fixture`` writes them in the AirSim-MAP layout the
-loader indexes (cv2, as the loader reads them), byte for byte what the JAX
-package's function writes for the same arguments.
+``generate_fixture`` writes random scenes and labels in the exact directory
+layout the loader indexes (root/<modality>/<weather>/<traj>/<cam>/<frame>.png)
+with the communication label files; ``informative_frames`` builds the
+learning-proof frames in memory (numpy only), and
+``generate_informative_fixture`` writes them. Both writers use cv2, as the
+JAX package's do, and write byte for byte what its functions write for the
+same arguments.
 """
 
 from __future__ import annotations
 
 import os
+import random
 
 import numpy as np
 
@@ -20,13 +24,54 @@ from multiagentperception_tpu_torch.data.airsim import (
     generate_split_subdirs,
     get_cam_pos,
 )
+from multiagentperception_tpu_torch.data.noise import generate_noise
 
 
-def _occlusion(img: np.ndarray) -> np.ndarray:
-    """Zero the bottom 4/5 rows (reference process_img.py:10-14)."""
-    out = img.copy()
-    out[img.shape[0] // 5:] = 0
-    return out
+def generate_fixture(root: str, target_view: str = "6agent", img_size: int = 128,
+                     frames_per_traj: int = 2, n_train: int = 2, n_val: int = 1,
+                     n_test: int = 1, n_classes: int = 11, seed: int = 0) -> dict:
+    """Create a small on-disk dataset of random frames; returns a manifest
+    dict. The label files hold random communication labels in the formats
+    ``read_selection_label`` parses (airsim_loader.py:412-438)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    pyrng = random.Random(seed)
+    cams = get_cam_pos(target_view)
+    n_agents = len(cams)
+    subdirs = generate_split_subdirs()
+    chosen = subdirs["train"][:n_train] + subdirs["val"][:n_val] + subdirs["test"][:n_test]
+    when_lines, mimo_lines = [], []
+    manifest = {"root": root, "trajs": [], "cams": cams}
+    for traj_glob in chosen:
+        traj = traj_glob.rstrip("*")  # the on-disk directory is the glob's stem
+        manifest["trajs"].append(traj)
+        for frame_idx in range(frames_per_traj):
+            frame = f"{frame_idx:06d}.png"
+            for cam in cams:
+                for modal in IMAGE_MODES:
+                    d = os.path.join(root, modal, WEATHER, traj, cam)
+                    os.makedirs(d, exist_ok=True)
+                    if modal == "scene":
+                        img = rng.integers(0, 256, (img_size, img_size, 3), np.uint8)
+                    else:
+                        lbl = rng.integers(0, n_classes, (img_size, img_size), np.uint8)
+                        img = np.stack([lbl] * 3, axis=-1)
+                    cv2.imwrite(os.path.join(d, frame), img)
+            # the parser takes split('/')[-3] as the trajectory directory and
+            # split('/')[-1] as the frame stem (airsim_loader.py:420-434)
+            label_path = f"scene/{traj}/{cams[0]}/{frame[:-4]}"
+            # when2com: -1 (normal) .. n_agents-2 (the supporter's index)
+            when_lines.append(f"{frame_idx} {pyrng.randint(-1, n_agents - 2)} {label_path}")
+            # mimo: per-agent noise flags, then link targets
+            noise = tuple(pyrng.randint(0, 1) for _ in range(n_agents))
+            link = tuple(pyrng.randrange(n_agents) for _ in range(n_agents))
+            mimo_lines.append(f"{noise} {link} {label_path}")
+    with open(os.path.join(root, "gt_when_to_communicate.txt"), "w") as f:
+        f.write("\n".join(when_lines) + "\n")
+    with open(os.path.join(root, "gt_mimo_communicate.txt"), "w") as f:
+        f.write("\n".join(mimo_lines) + "\n")
+    return manifest
 
 
 def informative_frames(target_view: str = "6agent", img_size: int = 128,
@@ -73,7 +118,7 @@ def informative_frames(target_view: str = "6agent", img_size: int = 128,
                 for a in range(n_agents):
                     lbl = np.repeat(np.repeat(contents[a], cell, 0), cell, 1).astype(np.uint8)
                     img = np.stack([palette[lbl]] * 3, axis=-1)
-                    scenes.append(_occlusion(img) if noise_flags[a] else img)
+                    scenes.append(generate_noise(img, "occlusion") if noise_flags[a] else img)
                     labels.append(lbl)
                 out[split].append((traj, frame_idx, np.stack(scenes), np.stack(labels),
                                    np.array(noise_flags), np.array(link)))

@@ -18,7 +18,9 @@ quantized path (``quantize.py``; the int8 convolution kernel on the card),
 its activation scales calibrated on ``--calib_split`` (default ``train``,
 held out from the evaluated split; the evaluated split if that one cannot
 be loaded, as the repo's test.py does) over ``--calib_batches`` batches
-(default ``training.calib_batches`` or 4).
+(default ``training.calib_batches`` or 4). ``data.noisy_type`` degrades the
+requester's view and ``data.cache_decoded`` memoizes decoded frames on both
+the evaluated and the calibration split (JAX test.py:64-90).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def main(argv=None):
         target_view=data_cfg["target_view"],
         raw_images=bool(data_cfg.get("on_device_normalize")),
         noisy_type=data_cfg.get("noisy_type"),
+        cache_decoded=data_cfg.get("cache_decoded"),
     )
     dataset = loader_cls(split=data_cfg["test_split"], **common)
     loader = DataLoader(dataset, cfg["training"]["batch_size"],

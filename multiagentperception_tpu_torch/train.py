@@ -18,6 +18,14 @@ eval mode (``model.eval_inference``, e.g. ``topk``; else ``activated`` for
 the when2com models and MIMOcomWho, ``argmax_test`` for LearnWho2Com, none
 for the baselines), as the reference does.
 
+The data keys of the JAX CLI (train.py:139-182) run here: ``data.noisy_type``
+and ``data.cache_decoded`` on every split, ``training.augmentations`` on the
+train split alone, and ``training.data_backend: grain``: the train split
+through ``data.grain_pipeline.GrainLoader`` (shuffled, ``drop_last``,
+``training.grain_workers`` worker processes, its stream position saved in
+each checkpoint) and the validation split through an unshuffled one.
+``training.shard_data_by_process`` is refused (``trainer.UNPORTED``).
+
 ``training.rss_limit_gb``'s restart (``utils.reexec_self``) comes back
 through here: a process started with ``MAP_REEXEC_RESUME`` rejoins the run
 directory of ``MAP_REEXEC_LOGDIR`` (run ``MAP_REEXEC_RUN_IDX``) and resumes
@@ -71,7 +79,12 @@ def main(argv=None):
     import torch
 
     from multiagentperception_tpu_torch.config import load_config
-    from multiagentperception_tpu_torch.data import DataLoader, get_loader
+    from multiagentperception_tpu_torch.data import (
+        DataLoader,
+        get_composed_augmentations,
+        get_loader,
+    )
+    from multiagentperception_tpu_torch.data.grain_pipeline import GrainLoader
     from multiagentperception_tpu_torch.device import resolve_device
     from multiagentperception_tpu_torch.loss import get_loss_function
     from multiagentperception_tpu_torch.models import init_weights
@@ -122,20 +135,36 @@ def main(argv=None):
                       commun_label=data_cfg["commun_label"],
                       target_view=data_cfg["target_view"],
                       raw_images=bool(data_cfg.get("on_device_normalize")),
-                      noisy_type=data_cfg.get("noisy_type"))
+                      noisy_type=data_cfg.get("noisy_type"),
+                      cache_decoded=data_cfg.get("cache_decoded"), seed=seed)
         loader_cls = get_loader(data_cfg["dataset"])
         batch, workers = t_cfg["batch_size"], t_cfg["n_workers"]
-        trainloader = DataLoader(loader_cls(split=data_cfg["train_split"], **common), batch,
-                                 shuffle=True, drop_last=True, num_workers=workers, seed=seed)
-        valloader = DataLoader(loader_cls(split=data_cfg["val_split"], **common), batch,
-                               num_workers=workers)
+        t_dataset = loader_cls(split=data_cfg["train_split"],
+                               augmentations=get_composed_augmentations(
+                                   t_cfg.get("augmentations")), **common)
+        v_dataset = loader_cls(split=data_cfg["val_split"], **common)
+        if t_cfg.get("data_backend") == "grain":
+            # the checkpointable stream, decoded in worker processes
+            trainloader = GrainLoader(t_dataset, batch, shuffle=True, drop_last=True,
+                                      num_workers=int(t_cfg.get("grain_workers") or 0),
+                                      seed=seed)
+            valloader = GrainLoader(v_dataset, batch)
+        else:
+            trainloader = DataLoader(t_dataset, batch, shuffle=True, drop_last=True,
+                                     num_workers=workers, seed=seed)
+            valloader = DataLoader(v_dataset, batch, num_workers=workers)
 
         schedule = get_scheduler(t_cfg.get("lr_schedule"), t_cfg["optimizer"]["lr"])
         trainer = Trainer(cfg, logger, get_loss_function(cfg), trainloader, valloader,
                           schedule=schedule, device=device, logdir=logdir, seed=seed,
                           writer=writer)
         init_weights(trainer.model, seed)
-        save_path = trainer.train()
+        try:
+            save_path = trainer.train()
+        finally:
+            for loader in (trainloader, valloader):
+                if isinstance(loader, GrainLoader):
+                    loader.shutdown()  # its worker processes
 
         # post-training test-split evaluation (reference train.py:219-232)
         testloader = DataLoader(loader_cls(split=data_cfg["test_split"], **common), batch,

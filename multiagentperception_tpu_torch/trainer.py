@@ -1,6 +1,6 @@
 """Training of any of the seven architectures (port of multiagentperception_tpu/trainer.py:
 ``chunk_sizes`` :66-80, ``_StallWatchdog`` :90-150, ``_train_step_body``
-:397-455, ``_train_multi_step_fn`` :373-395, the input pipeline :658-794,
+:397-455, ``_train_multi_step_fn`` :373-395, the input pipeline :639-794,
 ``train``/``_train_loop`` :829-1022, ``_validate``/``_log_val_scores``
 :1024-1065 and the checkpoints :1067-1180; ``nan_guard`` is train.py:198-204).
 
@@ -31,6 +31,14 @@ The loop, as JAX's:
   keeps that many chunks on the device ahead of the step. On the card it
   copies from pinned memory on a stream of its own; the step's stream
   waits on the copy's event. A loader error is raised in the loop.
+- A train loader with a checkpointable stream (``data_backend: grain``,
+  ``data.grain_pipeline.GrainLoader``) is read through its
+  ``persistent_iterator``; its position after each chunk's last batch is
+  captured with the chunk in the producer, and the position of the last
+  chunk the loop consumed rides in each checkpoint (``"data_stream"``), so
+  a resumed run, or the ``rss_limit_gb`` re-exec, continues mid-epoch
+  exactly, with or without prefetch and chunks. Any other loader restarts
+  its epochs, as in JAX.
 - ``nan_guard: N`` is ``optax.apply_if_finite(tx, N)`` (``NanGuard``): an
   update whose gradients are not all finite is dropped (parameters and
   optimizer state as they were, the schedule's count too), unless more
@@ -58,10 +66,12 @@ scaling (JAX has none). Checkpoints hold float32 tensors either way.
 Checkpoints are reference-layout ``.pkl`` files
 (``{"epoch", "model_state", "optimizer_state", "best_iou"}``, the layout of
 the reference trainer and of ``compat.save_reference_checkpoint``, plus
-``"nan_guard"`` with the guard on), named
+``"nan_guard"`` with the guard on and ``"data_stream"`` with a
+checkpointable stream), named
 ``<arch>_<dataset>_<best_model|latest>.pkl`` in ``logdir``; the JAX package
 and the port's ``Evaluator`` both load them. ``training.resume`` reads one
-back: model, optimizer, iteration, best mIoU and the guard's counters.
+back: model, optimizer, iteration, best mIoU, the guard's counters and the
+stream's position (a file without it starts the stream at its beginning).
 
 Keys of the JAX loop that this port does not carry yet raise
 ``NotImplementedError`` naming the key (``UNPORTED``).
@@ -102,10 +112,7 @@ def _off(v) -> bool:
 
 # (section, key, whether the port runs the value): anything else is refused
 UNPORTED = (
-    ("training", "data_backend", lambda v: v != "grain"),
-    ("training", "augmentations", _off),
     ("training", "shard_data_by_process", _off),
-    ("data", "cache_decoded", _off),
 )
 
 
@@ -262,6 +269,7 @@ class Trainer(Evaluator):
         self._streams: dict = {}
         self._profiler = None
         self._prefetch_stop = self._prefetch_thread = None
+        self._consumed_stream_state = None  # the train stream's position after the last chunk run
 
     # ------------------------------------------------------------------
     def train_mode(self) -> None:
@@ -410,9 +418,14 @@ class Trainer(Evaluator):
     # the input pipeline
     # ------------------------------------------------------------------
     def _train_batches(self):
-        """Endless train-batch stream, one loader epoch after another."""
-        while True:
-            yield from self.trainloader
+        """Endless train-batch stream: a checkpointable loader's persistent
+        iterator (a resumed run continues mid-epoch), else one loader epoch
+        after another."""
+        if hasattr(self.trainloader, "persistent_iterator"):
+            yield from self.trainloader.persistent_iterator()
+        else:
+            while True:
+                yield from self.trainloader
 
     def _prefetch_depth(self) -> int:
         depth = self.cfg["training"].get("device_prefetch")
@@ -432,10 +445,14 @@ class Trainer(Evaluator):
         return out, done
 
     def _device_train_chunks(self, steps_per_call: int, start_iter: int):
-        """Yield (xs, ys, k): stacked (k, ...) chunks on the device, prefetched
-        ``device_prefetch`` deep. Chunks never cross a validation, save or
-        end boundary (``chunk_sizes``)."""
+        """Yield (xs, ys, k, stream_state): stacked (k, ...) chunks on the
+        device, prefetched ``device_prefetch`` deep, and the train stream's
+        position after the chunk's last batch (None for a loader without
+        one), read in the producer as it pulls the chunk: the live stream
+        runs ahead of the step. Chunks never cross a validation, save or
+        end boundary (``chunk_sizes``), so checkpoints fall at chunk ends."""
         cfg_t = self.cfg["training"]
+        get_state = getattr(self.trainloader, "get_state", None)
 
         def prepared():
             batches = self._train_batches()
@@ -446,19 +463,20 @@ class Trainer(Evaluator):
                     data_list = next(batches)
                     xs.append(self._model_inputs(data_list[0]))
                     ys.append(self._labels(data_list[1]))
+                state = get_state() if get_state is not None else None
                 if k == 1:
                     host = (np.expand_dims(xs[0], 0), np.expand_dims(ys[0], 0))
                 else:
                     host = (np.stack(xs), np.stack(ys))
-                yield (*self._put_chunk(*host), k)
+                yield (*self._put_chunk(*host), k, state)
 
-        for (xs, ys), done, k in self._prefetched(prepared(), self._prefetch_depth()):
+        for (xs, ys), done, k, state in self._prefetched(prepared(), self._prefetch_depth()):
             if done is not None:
                 current = torch.cuda.current_stream(self.device)
                 current.wait_event(done)
                 xs.record_stream(current)
                 ys.record_stream(current)
-            yield xs, ys, k
+            yield xs, ys, k, state
 
     def _prefetched(self, gen, depth: int):
         """Drain ``gen`` in a producer thread, keeping up to ``depth`` items
@@ -556,7 +574,7 @@ class Trainer(Evaluator):
         time_meter, save_path, i = averageMeter(), None, self.step
         per_iter_est = None  # no beat before the first chunk ends (FIRST_GRACE)
         p0, p1 = self.profile_range
-        for xs, ys, k in self._device_train_chunks(steps_per_call, i):
+        for xs, ys, k, stream_state in self._device_train_chunks(steps_per_call, i):
             if watchdog is not None and per_iter_est is not None:
                 watchdog.beat(expected_secs=k * per_iter_est)
             start = time.time()
@@ -564,6 +582,7 @@ class Trainer(Evaluator):
                 self._start_profile()
             with torch.profiler.record_function(f"train_iters {i + 1}-{i + k}"):
                 losses = self._chunk(xs, ys, k, graph)
+            self._consumed_stream_state = stream_state
             if self._profiler is not None and i < p1 <= i + k:
                 self._stop_profile()
             # on print iterations the readback waits for the chunk, so the
@@ -682,13 +701,18 @@ class Trainer(Evaluator):
                 "optimizer_state": self.optimizer.state_dict(), "best_iou": float(best_iou)}
         if self.guard is not None:
             blob["nan_guard"] = {**self.guard.state_dict(), "applied": self._applied_count()}
+        stream = self._consumed_stream_state
+        if stream is None and hasattr(self.trainloader, "get_state"):
+            stream = self.trainloader.get_state()  # a save before any chunk ran
+        if stream is not None:
+            blob["data_stream"] = stream
         torch.save(blob, path + ".tmp")
         os.replace(path + ".tmp", path)
         return path
 
     def _restore_full(self, path: str) -> float:
-        """Model, optimizer, iteration and the guard's counters from a
-        ``.pkl``; returns its best mIoU."""
+        """Model, optimizer, iteration, the guard's counters and the train
+        stream's position from a ``.pkl``; returns its best mIoU."""
         blob = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(blob["model_state"], strict=True)
         self.optimizer.load_state_dict(blob["optimizer_state"])
@@ -697,4 +721,7 @@ class Trainer(Evaluator):
         if self.guard is not None and "nan_guard" in blob:
             self.guard.load_state_dict(blob["nan_guard"])
             self.applied = int(blob["nan_guard"]["applied"])
+        if "data_stream" in blob and hasattr(self.trainloader, "set_state"):
+            self.trainloader.set_state(blob["data_stream"])
+            self._consumed_stream_state = blob["data_stream"]
         return float(blob["best_iou"])

@@ -1,10 +1,14 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor PIL
+or grain (neither is in the contract of the card's machine), its native
+decoder builds inside the package's build directory, and its entry points
+run on the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
 import ast
 import json
+import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "multiagentperception_tpu_torch"
 FLAGSHIP = ROOT / "configs" / "multi-request-multi-support" / "mrms_when2com.yml"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "multiagentperception_tpu"}
+NOT_IN_CONTRACT = {"PIL", "grain"}  # absent from the card's machine's contract
 
 
 def _port_sources():
@@ -38,6 +43,11 @@ def test_importing_the_port_loads_no_jax_module():
         "import multiagentperception_tpu_torch.bench\n"
         "import multiagentperception_tpu_torch.quantize, multiagentperception_tpu_torch.export\n"
         "import multiagentperception_tpu_torch.ops.kernels.int8_conv\n"
+        "import multiagentperception_tpu_torch.data.grain_pipeline\n"
+        "import multiagentperception_tpu_torch.data.augmentations\n"
+        "import multiagentperception_tpu_torch.native\n"
+        "import multiagentperception_tpu_torch.bench_train_pipeline\n"
+        "import multiagentperception_tpu_torch.validate_dataset\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -47,8 +57,48 @@ def test_importing_the_port_loads_no_jax_module():
     assert "multiagentperception_tpu_torch.trainer" in loaded
     assert "multiagentperception_tpu_torch.bench" in loaded
     assert "multiagentperception_tpu_torch.quantize" in loaded
-    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS | NOT_IN_CONTRACT]
     assert not bad, f"the port pulled in {bad}"
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_pil_or_grain(path):
+    assert not _imported_roots(path) & NOT_IN_CONTRACT, path
+
+
+def test_native_build_writes_only_under_the_build_dir(tmp_path):
+    """A copy of ``native.py`` and ``csrc/decoder.cpp`` in a fresh package
+    tree, built from another directory with its own TMPDIR: every new file
+    lies under the copy's ``build/`` (the compiler's temporaries too), and the
+    library it leaves there loads and decodes."""
+    pkg = tmp_path / "pkg"
+    (pkg / "csrc").mkdir(parents=True)
+    shutil.copy(PORT / "native.py", pkg / "native.py")
+    shutil.copy(PORT / "csrc" / "decoder.cpp", pkg / "csrc" / "decoder.cpp")
+    cwd, tmp = tmp_path / "cwd", tmp_path / "tmp"
+    cwd.mkdir()
+    tmp.mkdir()
+    before = {p for p in tmp_path.rglob("*")}
+    code = (f"import sys; sys.path.insert(0, {str(pkg)!r}); import native; "
+            "print(native.build()); print(native.available())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "TMPDIR": str(tmp),
+                                           "PYTHONDONTWRITEBYTECODE": "1"})
+    assert out.returncode == 0, out.stderr
+    lib, ok = out.stdout.split()
+    assert ok == "True" and Path(lib).parent == pkg / "build" / "native"
+    new = {p for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert new == {Path(lib)}, new
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

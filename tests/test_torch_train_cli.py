@@ -12,7 +12,8 @@ AirSim fixture (128x128, 6 agents):
 - ``model.remat: true`` trains through the CLI, and its checkpoint equals
   that of the same run without remat (the recompute is bit-identical on
   the CPU, tests/test_torch_remat.py);
-- the keys the port does not carry yet are refused, naming the key.
+- the keys the port does not carry yet are refused, naming the key
+  (``shard_data_by_process`` alone since the loader's port).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import Evaluator
 from multiagentperception_tpu_torch.loss import get_loss_function
 from multiagentperception_tpu_torch.models import init_weights
-from multiagentperception_tpu_torch.trainer import UNPORTED, Trainer
+from multiagentperception_tpu_torch.trainer import UNPORTED, Trainer, refuse_unported
 from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
 
 IMG = 128
@@ -164,9 +165,16 @@ def test_resume_continues_at_the_saved_iteration(tmp_path):
                              ("data", "cache_decoded", "cache"))],
                          ids=lambda v: str(v))
 def test_unported_keys_are_refused(fixture_root, tmp_path, section, key, value):
-    assert (section, key) in {(s, k) for s, k, _ in UNPORTED}
+    """Only ``shard_data_by_process`` is still refused, naming the key; the
+    loader's keys, refused until the loader was ported, now pass the
+    check (tests/test_torch_train_stream.py runs them)."""
     cfg = _cfg(fixture_root)
     cfg[section][key] = value
+    if key != "shard_data_by_process":
+        assert (section, key) not in {(s, k) for s, k, _ in UNPORTED}
+        refuse_unported(load_config(_write(tmp_path / "x.yml", cfg)))
+        return
+    assert [(s, k) for s, k, _ in UNPORTED] == [(section, key)]
     with pytest.raises(NotImplementedError, match=f"{section}.{key}="):
         port_train.main(["--config", _write(tmp_path / "x.yml", cfg), "--device", "cpu"])
 

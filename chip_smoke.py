@@ -234,6 +234,36 @@ and the script exits non-zero:
    class maps on at least 99.9% of pixels, bandwidth equal (and above 0),
    K1 and K2 launched exactly as ``_expected_launches`` says
    (``noisy_test_cli``).
+15. Data parallel and the agent ring (``parallel/``), on this one card:
+   two ``MAP_COORDINATOR`` ranks share it under gloo (each rank
+   ``chip_smoke.py --phase15-rank``, its own timeout; a failing rank fails
+   the phase). The flagship at full width from seeded weights (the graph's
+   projection scaled by P15_SHARPEN so ``activated`` keeps links), in
+   deterministic mode. (a) Training: ``shard_data_by_process``, each rank
+   a process-sharded ``GrainLoader`` stream of batch 1, 3 ``Trainer.train``
+   steps with validation and rank 0's checkpoint, against one process at
+   batch 2 on the same frames: losses within relative 3e-2, the first
+   step's gradients summed over the ranks within relative L2 3e-2 / cosine
+   0.9995 per tensor (those 0 in exact arithmetic below 1e-4), parameters
+   within 2 x 3 x lr, BatchNorm statistics after the first step within
+   relative L2 3e-2 / cosine 0.9995; the updates after 3 steps against one
+   process's are printed. (b) The ``activated`` eval over 2
+   ranks with a tail batch (2, 2, 1) against one process: class maps on
+   at least 99.99% of pixels, confusion matrices within what the moved
+   pixels explain, bandwidth and selection equal, K1 and K2 per rank
+   exactly as ``_expected_launches`` says. (c) A ring of 2 (3 agents a
+   rank) in ``softmax``, ``argmax_test`` and ``activated`` against the
+   dense eval: graphs within 1e-6, class maps 99.99%, actions and bandwidth
+   equal. (d) ``agent_parallel_train``: one train step through the ring
+   against the dense step, gradients within relative L2 3e-2 / cosine
+   0.9995. (e) NCCL with a world of one (``init_distributed``, backend
+   ``nccl``): 8 iterations in ``steps_per_call`` 4 chunks, each captured
+   with its gradient all-reduce, equal bit for bit to the run with no
+   layout. (f) ``phase15_info``: the bytes one train step moves through
+   the host under gloo (data parallel, and the ring's
+   ``agent_parallel_train`` step alone), ms a step for 2 ranks sharing the
+   card and for one process
+   (no speed claim), the card's name and power limit.
 
 ``Evaluator.evaluate`` runs through CUDA graphs on the card by default,
 so phases 2, 3, 5 (its validation), 7, 8 and 12 evaluate through graphs,
@@ -256,7 +286,8 @@ K1's, K2's and ``int8_conv``'s records hold their launches on phase 11's
 serving path of their type, ``serving_launches``, and a batch of phase 13's
 eval under replay, ``graph_launches_per_batch`` and
 ``graph_traced_launches``; K1's and K2's float32 records their launches in
-phase 14's noisy ``test``, ``phase14_launches``), and last
+phase 14's noisy ``test``, ``phase14_launches``, and per rank in phase 15's
+2-rank eval, ``phase15_launches``), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2897,15 +2928,445 @@ def run_phase14(records: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+
+P15_SIZE = 512  # the flagship's frames
+P15_FRAMES = 4  # the grain stream's frames: 2 a rank
+P15_STEPS = 3
+P15_RANK_TIMEOUT_S = 300
+P15_EVAL_SIZES = (2, 2, 1)  # the last batch, a tail, does not divide over 2 ranks
+P15_RING_MODES = ("softmax", "argmax_test", "activated")
+P15_GRAPH_K, P15_GRAPH_ITERS = 4, 8
+P15_AGREEMENT = 0.9999
+P15_GRAPH_ATOL = 1e-6
+P15_SHARPEN = 8.0  # the graph's projection scaled: seeded weights' activated graph keeps no link
+P15_REL, P15_COS = 3e-2, 0.9995  # phase 6's bounds on gradients, losses, BatchNorm
+# statistics; parameters after K Adam steps: atol 2 * K * lr (phase 6's 2 * lr a step)
+P15_ZERO_GRAD = 1e-4  # the norm of a gradient that is 0 in exact arithmetic (phase 6)
+
+
+class SeededFrames:
+    """The flagship's frames (6 agents at 512x512) as the AirSim loader
+    yields them, frame ``i`` from its own seed: a dataset ``GrainLoader``
+    reads by index on any rank."""
+
+    def __init__(self, count: int, seed: int):
+        self.count, self.seed = count, seed
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __getitem__(self, i: int):
+        images, labels, cl = seeded_batches(1, 1, 6, P15_SIZE, self.seed + int(i))[0]
+        return images[0], labels[0], cl[0]
+
+
+def _p15_cfg(**training) -> dict:
+    cfg = load_config(str(FLAGSHIP))
+    cfg["training"].update({"train_iters": P15_STEPS, "val_interval": P15_STEPS,
+                            "print_interval": 1, "watchdog_secs": 0, **training})
+    return cfg
+
+
+def _p15_weights(work: Path) -> dict:
+    return torch.load(work / "weights.pkl", map_location="cpu", weights_only=True)["model_state"]
+
+
+def _p15_streams() -> list:
+    """Per rank, the slice of the frames its process-sharded grain stream
+    reads (2 of 4), as one process reads them."""
+    from multiagentperception_tpu_torch.data.grain_pipeline import GrainLoader
+
+    return [GrainLoader(SeededFrames(P15_FRAMES, SEED + 150), 1, shuffle=True, drop_last=True,
+                        seed=SEED, shard_options=(r, 2)) for r in range(2)]
+
+
+P15_STATS = ("running_mean", "running_var")
+
+
+def _p15_train(cfg, stream, work: Path, name: str, layout=None) -> Trainer:
+    """``Trainer.train`` from the phase's weights, in deterministic mode;
+    validation on one global batch of 2. ``first_stats`` and
+    ``first_grads``: the BatchNorm statistics and the gradients (summed over
+    the ranks) of the first step (phase 6 compares those: later steps follow
+    parameters Adam moved by ~lr on noise-sized gradients)."""
+    val = seeded_batches(1, 2, 6, P15_SIZE, SEED + 155)
+    tr = Trainer(cfg, logging.getLogger("chip_smoke"), get_loss_function(cfg), stream, val,
+                 logdir=str(work / name), layout=layout)
+    tr.model.load_state_dict(_p15_weights(work), strict=True)
+    tr.first_stats, tr.first_grads = {}, {}
+    eager_step = tr.train_step
+
+    def step(*args, **kwargs):
+        loss = eager_step(*args, **kwargs)
+        if not tr.first_stats:
+            tr.first_stats = {k: v.detach().cpu().clone()
+                              for k, v in tr.model.state_dict().items() if k.endswith(P15_STATS)}
+            tr.first_grads = {n: p.grad.detach().cpu().clone()
+                              for n, p in tr.model.named_parameters()}
+        return loss
+
+    tr.train_step = step
+    with _deterministic():
+        tr.train()
+    return tr
+
+
+def _p15_eval(ev: Evaluator) -> dict:
+    """The ``activated`` eval over P15_EVAL_SIZES, eagerly, with the class
+    maps and K1's and K2's launches (counted from 0)."""
+    from multiagentperception_tpu_torch.metrics import runningScore
+
+    batches = [seeded_batches(1, b, 6, P15_SIZE, SEED + 156 + i)[0]
+               for i, b in enumerate(P15_EVAL_SIZES)]
+    metrics, maps = runningScore(N_CLASSES), []
+    k1.upsample_argmax.launches = k2.comm_fusion.launches = 0
+    with _no_tf32():
+        for res, cl in ev._pipelined(batches, inference="activated", keep_pred=True):
+            maps.append(torch.from_numpy(ev._record(metrics, res, cl)["pred"].astype(np.uint8)))
+    return {"maps": maps, "hist": metrics.confusion_matrix, "bandwidth": metrics.get_avg_bandW(),
+            "selection": metrics.get_selection_accuracy(),
+            "launches": {"upsample_argmax": k1.upsample_argmax.launches,
+                         "comm_fusion": k2.comm_fusion.launches},
+            "expected": _expected_launches(ev, "activated", len(batches))}
+
+
+def _p15_ring_eval(ev: Evaluator) -> dict:
+    """The ring's (or the dense model's) graphs, class maps and bandwidth in
+    each of P15_RING_MODES on one seeded batch of 2."""
+    images = seeded_batches(1, 2, 6, P15_SIZE, SEED + 155)[0][0]
+    out = {}
+    with _deterministic(), torch.inference_mode():
+        x = ev._images(images)
+        for mode in P15_RING_MODES:
+            pre, prob, action, num_connect = ev.model(x, full_res=False, inference=mode)
+            maps = k1.class_map(pre, x.shape[-3], x.shape[-2])
+            out[mode] = {"prob": prob.cpu(), "action": action.cpu(),
+                         "num_connect": float(num_connect), "maps": maps.to(torch.uint8).cpu()}
+    return out
+
+
+def _p15_train_step(tr: Trainer, work: Path) -> dict:
+    """One train step on a seeded batch of 2 from the phase's weights: the
+    loss (this rank's share) and the gradients (summed over a ring)."""
+    images, labels, _ = seeded_batches(1, 2, 6, P15_SIZE, SEED + 155)[0]
+    tr.model.load_state_dict(_p15_weights(work), strict=True)
+    with _deterministic():
+        loss = float(tr.train_step(*tr._batch(images, labels)))
+    return {"loss": loss, "grads": {n: p.grad.detach().cpu()
+                                    for n, p in tr.model.named_parameters()}}
+
+
+def phase15_rank(kind: str, work: Path) -> int:
+    """One rank of a phase-15 launch (``MAP_*`` environment): ``dp`` runs
+    (a) and (b), ``ring`` runs (c) and (d); the results go to
+    ``work/<kind>_rank<r>.pt``."""
+    from multiagentperception_tpu_torch.parallel import from_environment
+
+    from multiagentperception_tpu_torch.data.grain_pipeline import GrainLoader
+
+    layout = from_environment("cuda", agent=2 if kind == "ring" else 1)
+    try:
+        if kind == "dp":
+            cfg = _p15_cfg(batch_size=1, shard_data_by_process=True)
+            stream = GrainLoader(SeededFrames(P15_FRAMES, SEED + 150), 1, shuffle=True,
+                                 drop_last=True, seed=SEED, shard_by_process=True)
+            tr = _p15_train(cfg, stream, work, "dp_run", layout)
+            out = {"losses": [tr.loss_history[i] for i in range(1, P15_STEPS + 1)],
+                   "iter_ms": [1e3 * s for s in tr.iter_seconds], "first_stats": tr.first_stats,
+                   "first_grads": tr.first_grads,
+                   "state": {k: v.cpu() for k, v in tr.model.state_dict().items()}}
+            # one more step, its bytes through the host counted alone
+            images, labels, _ = SeededFrames(P15_FRAMES, SEED + 150)[layout.rank]
+            before = layout.world_group.staged_bytes
+            tr.train_step(*tr._batch(images[None], labels[None]))
+            out["staged_bytes_per_step"] = layout.world_group.staged_bytes - before
+            ev = Evaluator(load_config(str(FLAGSHIP)), layout=layout, graphs=False)
+            ev.load_weight(str(work / "weights.pkl"))
+            out["eval"] = _p15_eval(ev)
+        else:
+            ev = Evaluator(load_config(str(FLAGSHIP)), layout=layout, graphs=False)
+            ev.load_weight(str(work / "weights.pkl"))
+            out = {"eval": _p15_ring_eval(ev)}
+            cfg = load_config(str(FLAGSHIP))
+            cfg["model"]["agent_parallel_train"] = True
+            tr = Trainer(cfg, None, get_loss_function(cfg), None, None, layout=layout)
+            before = layout.agent_group.staged_bytes  # (c)'s evals staged bytes too
+            out["train"] = _p15_train_step(tr, work)
+            out["staged_bytes_train_step"] = layout.agent_group.staged_bytes - before
+        out["backend"] = layout.backend
+        torch.save(out, work / f"{kind}_rank{layout.rank}.pt")
+    finally:
+        layout.close()
+    return 0
+
+
+def _p15_launch(kind: str, work: Path) -> list:
+    """Two ``MAP_*`` ranks on this card (gloo), each with its own timeout;
+    a rank that fails fails the phase with its output's end."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "MAP_COORDINATOR": f"localhost:{port}", "MAP_NUM_PROCESSES": "2"}
+    procs, logs = [], []
+    for rank in range(2):
+        log = open(work / f"{kind}_rank{rank}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase15-rank", kind,
+             "--phase15-dir", str(work)], env={**env, "MAP_PROCESS_ID": str(rank)},
+            stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=P15_RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 15 {kind} rank {rank}: no exit after "
+                                     f"{P15_RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        text = (work / f"{kind}_rank{rank}.log").read_text()
+        if p.returncode != 0:
+            raise AssertionError(f"phase 15 {kind} rank {rank} failed (exit code "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+        if rank == 0:
+            print(f"phase15 {kind} rank 0: " + next(
+                line for line in text.splitlines() if line.startswith("parallel:")))
+    return [torch.load(work / f"{kind}_rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _p15_close(got: dict, want: dict, skip=()) -> dict:
+    """Per float tensor, relative L2 and cosine within phase 6's bounds; the
+    worst of each."""
+    worst_rel, worst_cos = 0.0, 1.0
+    for k, w in want.items():
+        if k in skip or not w.is_floating_point():
+            continue
+        g = got[k]
+        rel = _rel(g, w)
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.double().flatten(), w.double().flatten(), dim=0)) if w.norm() > 0 else 1.0
+        if rel > P15_REL or cos < P15_COS:
+            raise AssertionError(f"{k}: relative L2 {rel:.2e}, cosine {cos:.6f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    return {"worst_rel_l2": worst_rel, "worst_cosine": worst_cos}
+
+
+def _p15_zero(names) -> set:
+    """The gradients that are 0 in exact arithmetic (phase 6): a conv bias
+    before a training-mode BatchNorm, and ``key_net``'s last bias."""
+    return {"key_net.fc.4.bias"} | {k for k in names if k.endswith("cbr_unit.0.bias")}
+
+
+def _p15_grads(got: dict, want: dict) -> dict:
+    """Gradients within phase 6's bounds, those that are 0 in exact
+    arithmetic below P15_ZERO_GRAD on both sides."""
+    zero = _p15_zero(want)
+    for k in zero:
+        if max(float(got[k].norm()), float(want[k].norm())) >= P15_ZERO_GRAD:
+            raise AssertionError(f"{k}: gradient of an invariant not ~0")
+    return _p15_close(got, want, zero)
+
+
+def _p15_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a == b).double().mean())
+
+
+def p15_data_parallel(ranks: list, work: Path) -> dict:
+    """(a) the 2-rank training against one process at batch 2 on the same
+    frames; (b) the 2-rank eval against one process."""
+    out = {"backend": ranks[0]["backend"]}
+    streams = [iter(s.persistent_iterator()) for s in _p15_streams()]
+    batches = []
+    for _ in range(P15_STEPS):  # the global batch: rank 0's row, then rank 1's
+        rows = [next(s) for s in streams]
+        batches.append(tuple(np.concatenate([r[f] for r in rows]) for f in range(3)))
+    ref = _p15_train(_p15_cfg(batch_size=2), batches, work, "dp_ref")
+    want_losses = [ref.loss_history[i] for i in range(1, P15_STEPS + 1)]
+    got_losses = [ranks[0]["losses"][i] + ranks[1]["losses"][i] for i in range(P15_STEPS)]
+    for g, w in zip(got_losses, want_losses):
+        if abs(g - w) > P15_REL * abs(w):
+            raise AssertionError(f"2-rank loss {g} against one process {w}")
+    state = {k: v.cpu() for k, v in ref.model.state_dict().items()}
+    if any(not torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in state):
+        raise AssertionError("the ranks' parameters differ")
+    stats = {k for k in state if k.endswith(P15_STATS)}
+    grads = _p15_grads(ranks[0]["first_grads"], ref.first_grads)
+    start, zero = _p15_weights(work), _p15_zero(ref.first_grads)
+    moved = {k: state[k] - start[k] for k in state if k not in stats | zero and
+             state[k].is_floating_point() and float((state[k] - start[k]).norm()) > 0}
+    lr = float(load_config(str(FLAGSHIP))["training"]["optimizer"]["lr"])
+    gap = max(float((ranks[0]["state"][k] - v).abs().max()) for k, v in state.items()
+              if k not in stats and v.is_floating_point())
+    if gap > 2 * P15_STEPS * lr:
+        raise AssertionError(f"2-rank parameters {gap} from one process's (> 2 x "
+                             f"{P15_STEPS} x lr)")
+    out["train"] = {
+        "losses_2_ranks": got_losses, "losses_1_process": want_losses,
+        "parameters_max_abs": gap, "parameters_bound": 2 * P15_STEPS * lr,
+        "gradients_first_step": grads,
+        "bn_statistics_first_step": _p15_close(ranks[0]["first_stats"], ref.first_stats),
+        "bn_statistics_last_step_rel_l2_worst": max(_rel(ranks[0]["state"][k], state[k])
+                                                    for k in stats),
+        "updates_rel_l2_worst": max(_rel(ranks[0]["state"][k] - start[k], d)
+                                    for k, d in moved.items()),
+        "updates_cosine_worst": min(float(torch.nn.functional.cosine_similarity(
+            (ranks[0]["state"][k] - start[k]).double().flatten(), d.double().flatten(), dim=0))
+            for k, d in moved.items()),
+        "ms_per_step_2_ranks": ranks[0]["iter_ms"][1:], "ms_per_step_1_process":
+            [1e3 * s for s in ref.iter_seconds[1:]],
+        "staged_bytes_per_step": ranks[0]["staged_bytes_per_step"]}
+    del ref
+    torch.cuda.empty_cache()
+    ev = Evaluator(load_config(str(FLAGSHIP)), graphs=False)
+    ev.load_weight(str(work / "weights.pkl"))
+    want = _p15_eval(ev)
+    maps = [torch.cat([ranks[0]["eval"]["maps"][i], ranks[1]["eval"]["maps"][i]])
+            if size % 2 == 0 else ranks[0]["eval"]["maps"][i]
+            for i, size in enumerate(P15_EVAL_SIZES)]
+    got_maps, want_maps = torch.cat(maps), torch.cat(want["maps"])
+    agreement = _p15_agreement(got_maps, want_maps)
+    moved_px = int((got_maps != want_maps).sum())
+    hist_l1 = [float(np.abs(r["eval"]["hist"] - want["hist"]).sum()) for r in ranks]
+    if agreement < P15_AGREEMENT or max(hist_l1) > 2 * moved_px:
+        raise AssertionError(f"2-rank eval: class maps {agreement}, confusion L1 {hist_l1}, "
+                             f"{moved_px} pixels moved")
+    for r in ranks:
+        if r["eval"]["bandwidth"] != want["bandwidth"] or \
+                r["eval"]["selection"] != want["selection"]:
+            raise AssertionError(f"2-rank bandwidth/selection {r['eval']['bandwidth']} "
+                                 f"{r['eval']['selection']} against {want['bandwidth']} "
+                                 f"{want['selection']}")
+        if r["eval"]["launches"] != r["eval"]["expected"]:
+            raise AssertionError(f"rank launches {r['eval']['launches']}, expected "
+                                 f"{r['eval']['expected']}")
+    out["eval"] = {"batches": list(P15_EVAL_SIZES), "class_map_agreement": agreement,
+                   "confusion_equal": max(hist_l1) == 0.0, "bandwidth": want["bandwidth"],
+                   "launches_per_rank": [r["eval"]["launches"] for r in ranks]}
+    return out
+
+
+def p15_ring(ranks: list, work: Path) -> dict:
+    """(c) the ring's eval in P15_RING_MODES and (d) its train step, each
+    against the dense model."""
+    ev = Evaluator(load_config(str(FLAGSHIP)), graphs=False)
+    ev.load_weight(str(work / "weights.pkl"))
+    dense = _p15_ring_eval(ev)
+    out = {"backend": ranks[0]["backend"], "eval": {}}
+    for mode in P15_RING_MODES:
+        want = dense[mode]
+        maps = torch.cat([r["eval"][mode]["maps"].reshape(2, 3, P15_SIZE, P15_SIZE)
+                          for r in ranks], dim=1)
+        agreement = _p15_agreement(maps.reshape(-1, P15_SIZE, P15_SIZE), want["maps"])
+        gap = max(float((r["eval"][mode]["prob"] - want["prob"]).abs().max()) for r in ranks)
+        if gap > P15_GRAPH_ATOL or agreement < P15_AGREEMENT or any(
+                r["eval"][mode]["num_connect"] != want["num_connect"]
+                or not torch.equal(r["eval"][mode]["action"], want["action"]) for r in ranks):
+            raise AssertionError(f"ring {mode}: graph gap {gap}, class maps {agreement}, "
+                                 f"bandwidth {[r['eval'][mode]['num_connect'] for r in ranks]}"
+                                 f" against {want['num_connect']}")
+        out["eval"][mode] = {"graph_max_abs": gap, "class_map_agreement": agreement,
+                             "bandwidth": want["num_connect"]}
+    del ev
+    cfg = load_config(str(FLAGSHIP))
+    want = _p15_train_step(Trainer(cfg, None, get_loss_function(cfg), None, None), work)
+    loss = ranks[0]["train"]["loss"] + ranks[1]["train"]["loss"]
+    if abs(loss - want["loss"]) > P15_REL * abs(want["loss"]):
+        raise AssertionError(f"ring train loss {loss} against dense {want['loss']}")
+    out["train"] = {"loss_ring": loss, "loss_dense": want["loss"],
+                    "gradients": _p15_grads(ranks[0]["train"]["grads"], want["grads"]),
+                    "staged_bytes_train_step": ranks[0]["staged_bytes_train_step"]}
+    return out
+
+
+def p15_nccl_graph(work: Path) -> dict:
+    """(e) NCCL with a world of one: P15_GRAPH_ITERS iterations in chunks of
+    P15_GRAPH_K captured with the gradient all-reduce, against the same run
+    with no layout, bit for bit in deterministic mode."""
+    from multiagentperception_tpu_torch.parallel import init_distributed
+
+    layout = init_distributed(rank=0, world=1, init_method=f"file://{work / 'nccl_rdv'}",
+                              device="cuda", backend="nccl")
+    try:
+        cfg = _p15_cfg(train_iters=P15_GRAPH_ITERS, val_interval=P15_GRAPH_ITERS,
+                       steps_per_call=P15_GRAPH_K, device_prefetch=2)
+        batches = seeded_batches(P15_GRAPH_ITERS, 2, 6, P15_SIZE, SEED + 160)
+        runs = {}
+        for name, lay in (("grouped", layout), ("ungrouped", None)):
+            tr = _p15_train(cfg, batches, work, f"nccl_{name}", lay)
+            runs[name] = ({k: v.cpu() for k, v in tr.model.state_dict().items()},
+                          tr._train_graph is not None, tr.graphs)
+            del tr
+        grouped, ungrouped = runs["grouped"][0], runs["ungrouped"][0]
+        equal = all(torch.equal(grouped[k], ungrouped[k]) for k in grouped)
+        if not (equal and runs["grouped"][1] and runs["ungrouped"][1]):
+            raise AssertionError(f"NCCL grouped chunk against ungrouped: equal {equal}, "
+                                 f"captured {runs['grouped'][1]} / {runs['ungrouped'][1]}")
+        return {"backend": layout.backend, "steps_per_call": P15_GRAPH_K,
+                "iterations": P15_GRAPH_ITERS, "captured": True, "bit_equal": equal,
+                "eval_graphs": runs["grouped"][2]}
+    finally:
+        layout.close()
+
+
+def run_phase15(records: list) -> dict:
+    """Phase 15: data parallel and the agent ring on this card (module
+    docstring)."""
+    work = WORK / "phase15"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model = init_weights(get_model(load_config(str(FLAGSHIP)), N_CLASSES), SEED + 15)
+    with torch.no_grad():
+        model.attention_net.linear.weight.mul_(P15_SHARPEN)
+    torch.save({"epoch": 0, "model_state": model.state_dict(), "best_iou": 0.0},
+               work / "weights.pkl")
+    del model
+    torch.cuda.empty_cache()
+    out = {"data_parallel": p15_data_parallel(_p15_launch("dp", work), work)}
+    print("phase15_data_parallel " + json.dumps(out["data_parallel"]))
+    torch.cuda.empty_cache()
+    out["ring"] = p15_ring(_p15_launch("ring", work), work)
+    print("phase15_ring " + json.dumps(out["ring"]))
+    torch.cuda.empty_cache()
+    out["nccl_graph"] = p15_nccl_graph(work)
+    print("phase15_nccl " + json.dumps(out["nccl_graph"]))
+    train = out["data_parallel"]["train"]
+    print("phase15_info " + json.dumps({
+        "staged_bytes_per_step_dp": train["staged_bytes_per_step"],
+        "staged_bytes_ring_train_step": out["ring"]["train"]["staged_bytes_train_step"],
+        "ms_per_step_2_ranks_one_card": train["ms_per_step_2_ranks"],
+        "ms_per_step_1_process": train["ms_per_step_1_process"],
+        "note": "2 ranks share one card under gloo: no speed claim",
+        "card": bench._card_line()}))
+    launches = out["data_parallel"]["eval"]["launches_per_rank"]
+    for rec in records:
+        if rec["name"] in launches[0]:
+            rec["phase15_launches"] = [r[rec["name"]] for r in launches]
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8-draws", type=int, default=0, metavar="N",
                         help="run only phase 10's trained int8 check, over N trainings")
+    parser.add_argument("--phase15-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase15-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    if args.phase15_rank:
+        return phase15_rank(args.phase15_rank, Path(args.phase15_dir))
     if args.int8_draws:
         return int8_draws(args.int8_draws)
     eval_kernels = (k1.upsample_argmax, k2.comm_fusion)
@@ -3045,6 +3506,8 @@ def main() -> int:
     lap("13_graphs")
     run_phase14(records)
     lap("14_loader")
+    run_phase15(records)
+    lap("15_parallel")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

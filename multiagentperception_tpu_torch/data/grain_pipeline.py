@@ -24,8 +24,14 @@ The port's counterpart of ``multiagentperception_tpu/data/grain_pipeline.py``
   decoding the ones before it, in this loader or a fresh one.
 
 Batches are tuples of stacked numpy arrays, as ``data.pipeline.DataLoader``
-yields them. ``shard_by_process`` / ``shard_options`` (multi-host data
-parallel) are not ported yet and raise.
+yields them. ``shard_by_process=True`` (``training.shard_data_by_process``)
+gives each rank of the ``torch.distributed`` world a disjoint slice of the
+frames, JAX's ``ShardByJaxProcess(drop_remainder=True)``: rank ``i`` of
+``P`` takes frames ``[i * (n // P), (i + 1) * (n // P))`` (grain's
+``even_split``; the remainder is dropped), and its epochs visit them in
+``default_rng(seed + epoch)``'s permutation of the slice; each rank's
+stream has its own position. ``shard_options=(index, count)`` gives the
+slice explicitly.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import multiprocessing
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.data
 
 
@@ -103,9 +110,9 @@ class GrainLoader:
                  drop_last: bool = False, num_workers: int = 0, seed: int = 0,
                  num_epochs: int | None = None, shard_options=None,
                  shard_by_process: bool = False):
-        if shard_by_process or shard_options is not None:
-            raise NotImplementedError("training.shard_data_by_process (multi-host data "
-                                      "parallel) is not ported yet (ROADMAP.md)")
+        if shard_options is None and shard_by_process and dist.is_initialized():
+            shard_options = (dist.get_rank(), dist.get_world_size())
+        self.shard = None if shard_options is None else tuple(int(v) for v in shard_options)
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.drop_last = drop_last
@@ -117,18 +124,27 @@ class GrainLoader:
         self._it: _Stream | None = None
         self._loaders: dict[str, tuple[torch.utils.data.DataLoader, _Keys]] = {}
 
-    def __len__(self):
+    def _frames(self) -> np.ndarray:
+        """The frames this loader reads: all, or its rank's slice."""
         n = len(self.dataset)
+        if self.shard is None:
+            return np.arange(n)
+        index, count = self.shard
+        per = n // count
+        return np.arange(index * per, (index + 1) * per)
+
+    def __len__(self):
+        n = len(self._frames())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def order(self, epoch: int) -> np.ndarray:
         """The frames of ``epoch`` in the order they are visited."""
-        n = len(self.dataset)
+        frames = self._frames()
         if not self.shuffle:
-            return np.arange(n)
-        return np.random.default_rng(self.seed + int(epoch)).permutation(n)
+            return frames
+        return frames[np.random.default_rng(self.seed + int(epoch)).permutation(len(frames))]
 
     def _key_batches(self, epoch: int, start: int) -> list:
         order = self.order(epoch)

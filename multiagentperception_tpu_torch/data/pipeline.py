@@ -11,6 +11,15 @@ host->device transfer: images ``(B, N, H, W, 3)`` float32, labels
 ``(B, N, H, W)`` int32, and (optionally) communication labels. Each pass
 tells a dataset that has ``set_epoch`` its epoch (0, 1, ...), from which
 the port's dataset draws its noise and augmentations.
+
+With ``shard=(index, count)`` (a data-parallel rank's place among
+``count`` ranks) the loader decodes only rows ``[index * b/count, (index +
+1) * b/count)`` of every global batch of ``b`` frames, in the order of the
+seed and the epoch, and yields them as a ``ShardBatch``, which knows the
+global batch's size; a batch that does not divide over ``count`` ranks (a
+tail) comes whole on every rank, as JAX replicates it. The noise and
+augmentation draws are generators of (seed, epoch, frame), the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -23,8 +32,25 @@ from typing import Iterator
 import numpy as np
 
 
+class ShardBatch(tuple):
+    """A batch's tuple of arrays holding one rank's rows of a global batch
+    of ``global_size`` frames (all of them where it did not divide)."""
+
+    global_size: int
+
+    def __new__(cls, fields, global_size: int):
+        out = super().__new__(cls, fields)
+        out.global_size = int(global_size)
+        return out
+
+    @property
+    def whole(self) -> bool:
+        return len(self[0]) == self.global_size
+
+
 class DataLoader:
-    """Minimal shuffling batch loader over an indexable dataset."""
+    """Minimal shuffling batch loader over an indexable dataset;
+    ``shard=(index, count)`` yields one rank's rows (module docstring)."""
 
     def __init__(
         self,
@@ -35,6 +61,7 @@ class DataLoader:
         num_workers: int = 4,
         prefetch: int = 2,
         seed: int = 0,
+        shard: tuple[int, int] | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -44,6 +71,7 @@ class DataLoader:
         self.prefetch = prefetch
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+        self.shard = shard
 
     def __len__(self):
         n = len(self.dataset)
@@ -61,6 +89,17 @@ class DataLoader:
             if len(chunk):
                 yield chunk
 
+    def _rows(self, chunk: np.ndarray) -> np.ndarray:
+        """This rank's frames of a global batch (all of a tail that does not
+        divide over the ranks)."""
+        if self.shard is None:
+            return chunk
+        index, count = self.shard
+        if len(chunk) % count:
+            return chunk
+        share = len(chunk) // count
+        return chunk[index * share:(index + 1) * share]
+
     def _collate(self, samples):
         cols = list(zip(*samples))
         return tuple(np.stack(c, axis=0) for c in cols)
@@ -76,8 +115,9 @@ class DataLoader:
         def produce():
             with ThreadPoolExecutor(self.num_workers) as pool:
                 for chunk in self._batches():
-                    samples = list(pool.map(self.dataset.__getitem__, chunk))
-                    q.put(self._collate(samples))
+                    rows = self._rows(chunk)
+                    batch = self._collate(list(pool.map(self.dataset.__getitem__, rows)))
+                    q.put(batch if self.shard is None else ShardBatch(batch, len(chunk)))
             q.put(sentinel)
 
         t = threading.Thread(target=produce, daemon=True)

@@ -48,6 +48,27 @@ convolution of the towers and the decoder runs as an int8 convolution
 (K4 on the card) under ``int8_convs``, an ``quantize.Int8Convs`` kept on
 the evaluator; its weights are quantized once and dropped by
 ``load_weight``. The step still ends in K2 and K1.
+
+With a ``parallel.Layout`` (``layout=``; data parallel, the agent ring or
+both) each rank evaluates its block of every batch, and the scores equal
+the single-process scores:
+
+- Rows: over D data ranks each rank takes its rows of a global batch (a
+  ``data.pipeline.ShardBatch`` from a sharded loader holds them already);
+  a batch that does not divide over D (a tail) runs whole on every rank,
+  as JAX replicates it.
+- Agents: MIMOcom's ring (``model.agent_parallel``) predicts the rank's
+  agents; the labels and the normal/noise flags follow.
+- Per batch the confusion matrices (int64) and a validation loss are summed
+  over the ranks whose blocks split the batch (the loss is each rank's
+  share of the global mean, ``loss.py``'s ``group``); over the data ranks
+  the actions and ``commun_label`` are gathered and the bandwidth is taken
+  from every rank's ``num_connect`` and batch share exactly
+  (``_bandwidth``), so every rank records the same numbers, and only rank 0
+  prints them. K1 (and K2 where the mode runs it) launch on every rank's
+  path; the ring does not run K2.
+- CUDA graphs hold the collectives under NCCL; under gloo (ranks sharing a
+  card) every step is eager: no graph holds a gloo collective.
 """
 
 from __future__ import annotations
@@ -60,6 +81,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from multiagentperception_tpu_torch.data.pipeline import ShardBatch
 from multiagentperception_tpu_torch.device import resolve_device
 from multiagentperception_tpu_torch.graphs import GraphCache
 from multiagentperception_tpu_torch.metrics import runningScore
@@ -67,6 +89,7 @@ from multiagentperception_tpu_torch.models import compute_dtype, get_model
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
 from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
+from multiagentperception_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from multiagentperception_tpu_torch.quantize import Int8Convs, active_swap, calibrate_activations
 
 N_CLASSES = 11  # hard-coded in every reference trainer (trainer.py:44, ...)
@@ -80,20 +103,36 @@ EVAL_DEFAULT = {"LearnWhen2Com": "activated", "LearnWho2Com": "argmax_test",
 DRAW_STREAMS = {"train": 2, "eval": 3}
 
 
+def _bandwidth(parts: np.ndarray, agent_num: int) -> np.float32:
+    """The bandwidth of a batch split over data ranks, from each rank's
+    ``(num_connect, rows)``: each ``num_connect`` is a link count over
+    ``agent_num * rows`` (or over ``rows``) rounded once to float32, so
+    ``round(num_connect * agent_num * rows)`` is an integer count, exact
+    below ~8M links; the counts are summed and divided once in float64, and
+    the quotient rounded once, as one process's (``ops.comm.num_connect_offdiag``)."""
+    scale = max(agent_num, 1)
+    links = sum(round(float(value) * scale * int(n)) for value, n in parts)
+    rows = sum(int(n) for _, n in parts)
+    return np.float32(links / (scale * rows))
+
+
 class Evaluator:
     """Evaluates the model of ``cfg`` on ``device`` (default ``cuda``;
     raises without a card unless ``device='cpu'`` is asked for). ``seed``
     (default ``training.seed``) seeds the selection baselines' draws.
     ``graphs=False`` keeps the eager eval step on the card (module
-    docstring)."""
+    docstring). ``layout`` (a ``parallel.Layout``) evaluates this rank's
+    share on the layout's device (module docstring)."""
 
     def __init__(self, cfg, device: str | torch.device | None = None, loss_fn=None,
-                 seed: int | None = None, graphs: bool = True):
+                 seed: int | None = None, graphs: bool = True, layout=None):
         self.cfg = cfg
         self.loss_fn = loss_fn
-        self.device = resolve_device(device)
+        self.layout = layout
+        self.primary = layout is None or layout.primary
+        self.device = resolve_device(layout.device if layout is not None else device)
         self.n_classes = N_CLASSES
-        self.model = get_model(cfg, N_CLASSES).to(self.device).eval()
+        self.model = get_model(cfg, N_CLASSES, layout).to(self.device).eval()
         m = cfg["model"]
         self.arch = m["arch"]
         self.mo_flag = bool(m.get("multiple_output"))
@@ -110,7 +149,8 @@ class Evaluator:
         self.trainloader = None  # the trainer's: int8 calibration frames come from it
         self.int8_convs: Int8Convs | None = None  # the int8 swap of the last int8 evaluate
         self.logger = logging.getLogger("multiagentperception_tpu_torch")
-        self.graphs = graphs and self.device.type == "cuda"
+        self.graphs = graphs and self.device.type == "cuda" and (
+            layout is None or layout.backend == "nccl")
         self.compute_dtype = compute_dtype(cfg)
         self._eval_graphs: GraphCache | None = None
 
@@ -227,37 +267,85 @@ class Evaluator:
                 else normal[:, 0]
         return cl == -1  # when2com: (B,)
 
+    # ------------------------------------------------------------------
+    # a rank's share of a batch (module docstring)
+    # ------------------------------------------------------------------
+    def _shard_rows(self, data_list) -> tuple[tuple, bool]:
+        """(this rank's rows of a host batch, whether they are a share of
+        it): a ``ShardBatch`` holds them already, a global batch that
+        divides over the data ranks is cut, anything else is whole."""
+        lay = self.layout
+        if lay is None or lay.data == 1:
+            return data_list, False
+        if isinstance(data_list, ShardBatch):
+            return data_list, not data_list.whole
+        size = len(data_list[0])
+        if size % lay.data:
+            return data_list, False
+        share = size // lay.data
+        rows = slice(lay.data_index * share, (lay.data_index + 1) * share)
+        return tuple(np.asarray(a)[rows] for a in data_list), True
+
+    def _agents(self, inference: str | None) -> slice | None:
+        """The agents this rank's forward in ``inference`` predicts, where
+        the ring splits them."""
+        rings = getattr(self.model, "rings", None)
+        if rings is None or not rings(inference or "softmax"):
+            return None
+        return self.model.local_agents(self.agent_num)
+
+    def _reduce_group(self, rows: bool, agents: bool):
+        """The group whose ranks' blocks split the batch, or None."""
+        lay = self.layout
+        if lay is None or not (rows or agents):
+            return None
+        if rows and agents:
+            return lay.world_group
+        return lay.data_group if rows else lay.agent_group
+
+    def _agent_block(self, t: torch.Tensor, agents: slice | None) -> torch.Tensor:
+        """A batch-major per-prediction tensor ``(B*N, ...)`` cut to the
+        agents ``agents`` of each sample."""
+        if agents is None:
+            return t
+        per_sample = t.reshape((-1, self.agent_num) + tuple(t.shape[1:]))
+        return per_sample[:, agents].reshape((-1,) + tuple(t.shape[1:]))
+
     @torch.inference_mode()
     def eval_step(self, images, labels, commun_label=None, inference: str | None = None,
-                  with_loss: bool = False, keep_pred: bool = False) -> dict:
+                  with_loss: bool = False, keep_pred: bool = False, rows: bool = False) -> dict:
         """One batch on the device, eagerly; returns device tensors (not read
         back). ``with_loss`` runs ``inference`` (default ``softmax``) at full
         resolution and adds the loss, as the JAX validation step does;
-        ``keep_pred`` adds the class map (``pred``)."""
+        ``keep_pred`` adds the class map (``pred``; the rank's block).
+        ``rows``: the batch is this rank's share of the data ranks' batch."""
         t = {"x": self._put(self._model_inputs(images)), "y": self._put(self._labels(labels))}
         if commun_label is not None:
             t["cl"] = torch.as_tensor(np.asarray(commun_label), device=self.device)
         if self._takes_ids():
             t["ids"] = self.draw_ids("eval").to(self.device)
-        return self._eval_body(t, inference, with_loss, keep_pred)
+        return self._eval_body(t, inference, with_loss, keep_pred, rows)
 
     def _eval_body(self, t: dict, inference: str | None, with_loss: bool,
-                   keep_pred: bool = False) -> dict:
+                   keep_pred: bool = False, rows: bool = False) -> dict:
         """The eval step on device inputs ``t``: ``x`` (the model's input as
         the loader gives it), ``y`` (uint8 target), and where the batch has
         them ``cl`` (``commun_label``) and ``ids`` (the drawn partners)."""
         x, y = t["x"], t["y"]
         if self.normalize_on_device:
             x = normalize_images(x)
+        mode = inference if with_loss else inference or self.eval_default
+        agents = self._agents(mode)
+        group = self._reduce_group(rows, agents is not None)
         if with_loss:
             logits, action, num_connect = self._outputs(self.model(
-                x, **self._mode_kwargs(inference, t.get("ids"))))
+                x, **self._mode_kwargs(mode, t.get("ids"))))
             pred = logits.argmax(1)
         else:
             pre, action, num_connect = self._outputs(self.model(
-                x, full_res=False,
-                **self._mode_kwargs(inference or self.eval_default, t.get("ids"))))
+                x, full_res=False, **self._mode_kwargs(mode, t.get("ids"))))
             pred = class_map(pre, x.shape[-3], x.shape[-2])
+        y = self._agent_block(y, agents)
         res = {"hist": confusion_matrix(y, pred, self.n_classes)}
         if keep_pred:
             res["pred"] = pred
@@ -266,16 +354,33 @@ class Evaluator:
         if num_connect is not None:
             res["num_connect"] = num_connect
         if with_loss:
-            res["loss"] = self.loss_fn(input=logits, target=y)
+            kw = {} if group is None else {"group": group}
+            res["loss"] = self.loss_fn(input=logits, target=y, **kw)
         if "cl" in t:
-            normal = self._normal(t["cl"])
+            normal = self._agent_block(self._normal(t["cl"]), agents)
             res["hist_pos"] = confusion_matrix(y, pred, self.n_classes, normal)
             res["hist_neg"] = confusion_matrix(y, pred, self.n_classes, ~normal)
+        if group is not None:
+            for key in ("hist", "hist_pos", "hist_neg", "loss"):
+                if key in res:
+                    res[key] = all_reduce_sum(res[key], group)
+        if rows:
+            data = self.layout.data_group
+            if "action" in res:
+                res["action"] = all_gather_cat(res["action"], data)
+            if "num_connect" in res:
+                share = torch.stack([res["num_connect"].double(), torch.full(
+                    (), float(x.shape[0]), dtype=torch.float64, device=x.device)])
+                res["num_connect_parts"] = all_gather_cat(share[None], data)
+                del res["num_connect"]
+            if "cl" in t:
+                res["commun_label"] = all_gather_cat(t["cl"], data)
         return res
 
     @torch.inference_mode()
     def graph_eval_step(self, images, labels, commun_label=None, inference: str | None = None,
-                        with_loss: bool = False, keep_pred: bool = False) -> dict:
+                        with_loss: bool = False, keep_pred: bool = False,
+                        rows: bool = False) -> dict:
         """``eval_step`` through the batch's CUDA graph (module docstring);
         the results are equal, bit for bit."""
         host = {"x": torch.as_tensor(np.asarray(self._model_inputs(images))),
@@ -285,14 +390,15 @@ class Evaluator:
         if self._takes_ids():
             host["ids"] = self.draw_ids("eval")
         swap = active_swap(self.model)
-        key = ("eval", inference, with_loss, keep_pred, None if swap is None else swap.serial,
+        key = ("eval", inference, with_loss, keep_pred, rows,
+               None if swap is None else swap.serial,
                self.compute_dtype, torch.backends.cudnn.allow_tf32,
                torch.backends.cuda.matmul.allow_tf32,
                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(host.items())))
         if self._eval_graphs is None:
             self._eval_graphs = GraphCache(self.device)
         return self._eval_graphs.run(
-            key, host, lambda t: self._eval_body(t, inference, with_loss, keep_pred),
+            key, host, lambda t: self._eval_body(t, inference, with_loss, keep_pred, rows),
             extra_counters=() if swap is None else (swap,),
             keep=() if swap is None else (swap,))
 
@@ -304,12 +410,13 @@ class Evaluator:
         pending: deque = deque()
         first = None  # the loader's batch size: another one (a ragged tail) runs eagerly
         for data_list in loader:
+            data_list, rows = self._shard_rows(data_list)
             commun_label = data_list[2] if self.if_commun_label != "None" else None
             size = len(data_list[0])
             first = size if first is None else first
             step = self.graph_eval_step if self.graphs and size == first else self.eval_step
-            pending.append((step(data_list[0], data_list[1], commun_label, **step_kw),
-                            commun_label))
+            pending.append((step(data_list[0], data_list[1], commun_label, rows=rows,
+                                 **step_kw), commun_label))
             if len(pending) > PIPELINE_DEPTH:
                 yield pending.popleft()
         while pending:
@@ -321,6 +428,9 @@ class Evaluator:
         # float32 (the same values)
         host = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
                 for k, v in res.items()}
+        if "num_connect_parts" in host:  # the batch's rows split over data ranks
+            host["num_connect"] = _bandwidth(host.pop("num_connect_parts"), self.agent_num)
+        commun_label = host.pop("commun_label", commun_label)
         metrics.update_hist(host["hist"], host.get("hist_pos"), host.get("hist_neg"))
         if bandwidth and "num_connect" in host:
             metrics.update_bandW(float(host["num_connect"]))
@@ -332,6 +442,8 @@ class Evaluator:
         return host
 
     def _print_scores(self, metrics: runningScore, bandwidth: bool = True) -> None:
+        if not self.primary:
+            return
         if self.if_commun_label != "None" and metrics.total_agent > 0:
             when_acc, who_acc = metrics.get_selection_accuracy()
             print(f"Validation when2com accuracy:{when_acc}")
@@ -396,6 +508,9 @@ class Evaluator:
         self.model.eval()
         metrics = runningScore(self.n_classes)
         swap = contextlib.nullcontext()
+        if int8 and self.layout is not None and self.layout.agent > 1:
+            raise NotImplementedError("int8 eval with the agent ring (model.agent_parallel): "
+                                      "each rank would calibrate on its own agents alone")
         if int8:
             scales = self._calibrate_int8(loader, inference_mode, calib_loader)
             swap = self.int8_convs = Int8Convs(self.model, scales)

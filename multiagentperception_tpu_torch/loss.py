@@ -14,6 +14,16 @@ Logits are NCHW ``(B, C, H, W)``; targets ``(B, H, W)`` of any integer type
 
 bf16 logits (mixed precision) are resized in bf16 and then upcast: the
 log-softmax and the mean run in float32, as in JAX (loss.py:44, 94).
+
+Under data parallel (and the agent ring's training) each rank holds a
+share of the pixels JAX's jit averages over; ``group`` (a
+``parallel.Group``) makes each loss the rank's share of the global mean:
+``cross_entropy2d`` divides its sum by the group's count of kept pixels
+(all-reduced), ``bootstrapped_cross_entropy2d`` by the group's count of
+images. Summed over the group's ranks — the gradients' all-reduce sums
+them — that is the single-process loss on the global batch, also when the
+ranks hold different numbers of ignored pixels. Without a group, or with
+one that moves nothing, nothing changes.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from multiagentperception_tpu_torch.ops.resize import bilinear_resize
+from multiagentperception_tpu_torch.parallel.collectives import Group, all_reduce_sum
 
 IGNORE_INDEX = 250
 
@@ -45,36 +56,45 @@ def _pixel_nll(logits: torch.Tensor, target: torch.Tensor, weight=None):
     return nll, w[torch.where(valid, tgt, 0)] * valid
 
 
+def _global(count: torch.Tensor, group: Group | None) -> torch.Tensor:
+    """``count`` summed over ``group``'s ranks (as it is without one)."""
+    return count if group is None else all_reduce_sum(count, group)
+
+
 def cross_entropy2d(input: torch.Tensor, target: torch.Tensor, weight=None,
-                    size_average: bool = True) -> torch.Tensor:
+                    size_average: bool = True, group: Group | None = None) -> torch.Tensor:
     """Pixelwise cross-entropy (reference: loss/loss.py:5-19)."""
     logits = bilinear_resize(input, *target.shape[-2:], align_corners=True)
     nll, denom = _pixel_nll(logits, target, weight)
     if size_average:
-        return nll.sum() / denom.sum().clamp(min=1.0)
+        return nll.sum() / _global(denom.sum().detach(), group).clamp(min=1.0)
     return nll.sum()
 
 
 def multi_scale_cross_entropy2d(input, target, weight=None, size_average=True,
-                                scale_weight=None):
+                                scale_weight=None, group: Group | None = None):
     """Aux-head weighted sum (reference: loss/loss.py:22-37)."""
     if not isinstance(input, (tuple, list)):
-        return cross_entropy2d(input, target, weight, size_average)
+        return cross_entropy2d(input, target, weight, size_average, group)
     if scale_weight is None:
         scale_weight = [0.4 ** i for i in range(len(input))]
     loss = 0.0
     for w, inp in zip(scale_weight, input):
-        loss = loss + w * cross_entropy2d(inp, target, weight, size_average)
+        loss = loss + w * cross_entropy2d(inp, target, weight, size_average, group)
     return loss
 
 
 def bootstrapped_cross_entropy2d(input, target, K: int, weight=None,
-                                 size_average=True):
+                                 size_average=True, group: Group | None = None):
     """Per-image top-K hardest-pixel loss (reference: loss/loss.py:40-68);
     the logits must already have the labels' size."""
     nll, _ = _pixel_nll(input, target)
     topk = nll.reshape(nll.shape[0], -1).topk(K, dim=1).values
-    return (topk.sum(1) / K).mean()
+    per_image = topk.sum(1) / K
+    if group is None:
+        return per_image.mean()
+    images = _global(per_image.new_full((), per_image.shape[0]), group)
+    return per_image.sum() / images
 
 
 KEY2LOSS: dict[str, Callable] = {

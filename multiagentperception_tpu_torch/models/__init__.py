@@ -9,8 +9,14 @@ attentions), MIMOcom's ``query: false`` / ``multiple_output: false`` and its
 or the ``training.mixed_precision`` shorthand, computing in bf16 with
 float32 parameters and BatchNorm statistics (``compute_dtype``). What the
 port does not carry yet raises ``NotImplementedError`` naming the key and
-ROADMAP.md, never a silent substitute: ``model.dtype: float16`` and
-``agent_parallel*``.
+ROADMAP.md, never a silent substitute: ``model.dtype: float16``.
+With a ``parallel.Layout`` whose rings hold more than one rank
+(``model.agent_parallel``), MIMOcom's full-graph eval modes run the
+communication step as a ring over its agent group (``parallel.ring``), and
+with ``model.agent_parallel_train`` its training forward too, its
+BatchNorms then taking their statistics over the ring
+(``parallel.sync_bn``); ``get_model`` raises where the JAX one does
+(models/__init__.py:102-127).
 ``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
 modes always run the fused comm step where it applies (models/agents.py).
 ``model.remat`` checkpoints MIMOcom's two towers in its training forward
@@ -37,6 +43,7 @@ from multiagentperception_tpu_torch.models.agents import (
     MIMOcomWho,
     SingleAgent,
 )
+from multiagentperception_tpu_torch.parallel import sync_bn
 
 MODELS = {
     "Single_agent": SingleAgent,
@@ -70,8 +77,10 @@ def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype | None:
     raise KeyError(f"model.dtype={name!r}: bfloat16, float32 or None")
 
 
-def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
-    """Build the model of a reference-schema config dict."""
+def get_model(cfg: Mapping[str, Any], n_classes: int, layout=None) -> nn.Module:
+    """Build the model of a reference-schema config dict; ``layout`` (a
+    ``parallel.Layout``) gives MIMOcom its ring when its agent groups hold
+    more than one rank."""
     m = cfg["model"]
     name = m["arch"]
     if name not in MODELS:
@@ -83,9 +92,9 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
                 logging.getLogger("multiagentperception_tpu_torch").warning(
                     "config: model.%s is a MIMOcom extension and is ignored for arch %s",
                     k, name)
-    for key in ("agent_parallel", "agent_parallel_train"):
-        if m.get(key):
-            _refuse(key, m[key])
+    ring = layout.agent_group if layout is not None and layout.agent > 1 else None
+    if ring is not None and name != "MIMOcom":
+        raise ValueError(f"agent-axis parallelism is a MIMOcom feature (arch {name!r})")
 
     backbones = Backbones(m.get("enc_backbone") or "resnet_encoder",
                           m.get("dec_backbone") or "simple_decoder",
@@ -107,7 +116,20 @@ def get_model(cfg: Mapping[str, Any], n_classes: int) -> nn.Module:
     if name == "MIMOcom":
         # the sparse flag is accepted and ignored by the MIMO attention, as in JAX
         topk = {} if m.get("topk_k") is None else {"topk_k": int(m["topk_k"])}
-        return MIMOcom(remat=bool(m.get("remat")), mo_flag=mo_flag, **topk, **comm)
+        ring_train = bool(m.get("agent_parallel_train"))
+        if ring is not None and m.get("pallas_comm"):
+            raise ValueError(
+                "model.pallas_comm and agent-axis parallelism are mutually exclusive: the "
+                "agent ring fuses the comm step itself, so the comm kernel would be "
+                "silently bypassed. Drop model.pallas_comm or model.agent_parallel.")
+        if ring is None and ring_train:
+            raise ValueError("model.agent_parallel_train requires model.agent_parallel (no "
+                             "agent ring was built — training would silently run dense)")
+        model = MIMOcom(remat=bool(m.get("remat")), mo_flag=mo_flag, ring=ring,
+                        ring_train=ring_train, **topk, **comm)
+        if ring_train:
+            sync_bn.attach(model, ring)
+        return model
     if name == "MIMOcomWho":
         return MIMOcomWho(mo_flag=mo_flag, **comm)
     return MODELS[name](attention=m["attention"], sparse=bool(m.get("sparse")),

@@ -84,6 +84,8 @@ from multiagentperception_tpu_torch.ops.comm import (
     topk_select,
 )
 from multiagentperception_tpu_torch.ops.kernels.comm_fusion import comm_fusion
+from multiagentperception_tpu_torch.parallel.collectives import all_gather_cat
+from multiagentperception_tpu_torch.parallel.ring import sharded_comm_step
 
 INFERENCE_MODES = ("softmax", "argmax_test", "activated")
 MIMOCOM_MODES = INFERENCE_MODES + ("topk",)  # topk: MIMOcom alone, as in JAX
@@ -447,23 +449,52 @@ class MIMOcom(_MIMOComm):
     ``argmax_test`` and ``activated`` on the full graph run the fused comm
     step (``comm_fusion``: K2 on the card); ``topk`` and the single-query
     graph take the plain selections, as the JAX model's Pallas branch
-    leaves them to XLA (agents.py:471-485)."""
+    leaves them to XLA (agents.py:471-485).
+
+    ``ring`` (the agent group of a ``parallel.Layout``, ``model.agent_parallel``)
+    runs the full-graph eval modes ``softmax``, ``argmax_test`` and
+    ``activated``, and with ``ring_train`` the training forward, as a ring
+    (JAX agents.py:442-467): each rank runs both towers on its own N/A
+    agents (``local_agents``), projects its queries, gathers the keys,
+    fuses its queries' maps as the value shards rotate
+    (``parallel.ring.sharded_comm_step``) and decodes them. The prediction
+    is the rank's agents' alone, ``(B * N/A, ...)``; the graph, the action
+    and ``num_connect`` come back whole on every rank of the ring."""
 
     def __init__(self, n_classes: int = 11, feat_channel: int = 512,
                  agent_num: int = 6, key_size: int = 1024, query_size: int = 32,
                  img_size: tuple[int, int] = (512, 512), dtype: torch.dtype | None = None,
                  remat: bool = False, has_query: bool = True, mo_flag: bool = True,
-                 topk_k: int = 2, backbones: Backbones = Backbones()):
+                 topk_k: int = 2, backbones: Backbones = Backbones(), ring=None,
+                 ring_train: bool = False):
         super().__init__(n_classes, feat_channel, agent_num, key_size, query_size, img_size,
                          has_query=has_query, mo_flag=mo_flag,
                          attention=MIMOGeneralDotAttention, dec_width=1, dtype=dtype,
                          backbones=backbones)
         self.remat = remat
         self.topk_k = topk_k
+        self.ring = ring
+        self.ring_train = ring_train
+
+    def rings(self, inference: str) -> bool:
+        """Whether a forward in ``inference`` (and the module's mode) runs
+        the ring."""
+        if self.ring is None or not self.mo_flag:
+            return False
+        if self.training:
+            return self.ring_train and inference == "softmax"
+        return inference in INFERENCE_MODES
+
+    def local_agents(self, n: int) -> slice:
+        """The agents of ``n`` this rank's ring share covers."""
+        share = n // self.ring.size
+        return slice(self.ring.rank * share, (self.ring.rank + 1) * share)
 
     def forward(self, x: torch.Tensor, inference: str = "softmax",
                 full_res: bool = True):
         _check_mode(self, inference, MIMOCOM_MODES)
+        if self.rings(inference):
+            return self._ring_forward(x, inference, full_res)
         n = x.shape[1]
         val_mat, keys, query = self._towers(x)
         mo = query.shape[1] == n
@@ -491,6 +522,24 @@ class MIMOcom(_MIMOComm):
             feat, coef, num_connect = select(val_mat, prob, n)
         pred = self.decoder(_fold(feat), full_res)
         return pred, prob, torch.argmax(coef, dim=1), num_connect
+
+    def _ring_forward(self, x: torch.Tensor, inference: str, full_res: bool):
+        n = x.shape[1]
+        if n % self.ring.size:
+            raise ValueError(f"{n} agents do not divide over a ring of {self.ring.size}")
+        val_mat, keys, query = self._towers(x[:, self.local_agents(n)])
+        mode = {"softmax": "softmax", "argmax_test": "argmax",
+                "activated": "activated"}[inference]
+        feat, coef, soft = sharded_comm_step(self.attention_net.project(query), keys,
+                                             val_mat, self.ring, mode=mode,
+                                             diag_bias=DIAG_BIAS, thres=THRES)
+        pred = self.decoder(_fold(feat), full_res)
+        coef, soft = all_gather_cat(coef, self.ring, 2), all_gather_cat(soft, self.ring, 2)
+        if inference == "softmax":
+            num_connect = torch.full((), float(n - 1), device=x.device)
+        else:
+            num_connect = num_connect_offdiag(coef, n)
+        return pred, soft, torch.argmax(coef, dim=1), num_connect
 
 
 class MIMOcomWho(_MIMOComm):

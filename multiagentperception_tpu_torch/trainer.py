@@ -73,8 +73,37 @@ and the port's ``Evaluator`` both load them. ``training.resume`` reads one
 back: model, optimizer, iteration, best mIoU, the guard's counters and the
 stream's position (a file without it starts the stream at its beginning).
 
-Keys of the JAX loop that this port does not carry yet raise
-``NotImplementedError`` naming the key (``UNPORTED``).
+With a ``parallel.Layout`` (``layout=``) the trainer is one rank of a
+data-parallel world (JAX's SPMD step over a ('data',) mesh) or of an agent
+ring (``model.agent_parallel_train``); the ring owns its ranks and takes no
+data parallel in training, as in JAX (train.py:195-201). The step equals
+the single-process step on the global batch:
+
+- Each rank takes its rows of every global batch; with
+  ``training.shard_data_by_process`` each rank's loader reads its own
+  slice and ``batch_size`` is per rank, so the global batch is P x
+  ``batch_size`` (JAX trainer.py:322-362).
+- BatchNorm's training statistics are the group's (``parallel.sync_bn``),
+  the loss is the rank's share of the global mean (``loss.py``'s
+  ``group``), and the gradients are summed over the group once a step, as
+  one flat bucket; ``nan_guard`` decides on the summed gradients, so every
+  rank drops the same step.
+- Ranks start from rank 0's parameters, buffers, optimizer state and
+  counts (broadcast when ``train`` starts).
+- An agent ring without ``agent_parallel_train`` trains dense: every rank
+  of the ring runs the whole step, as each device runs JAX's replicated
+  program. The card's arithmetic is not reproducible from run to run, so
+  each step the replicas average their gradients (one flat bucket) and
+  take the ring's first rank's BatchNorm statistics, and stay equal.
+- ``steps_per_call`` > 1 on the card captures the chunk with its
+  all-reduce in the CUDA graph under NCCL; under gloo, which no graph can
+  hold, it raises.
+- Only rank 0 writes the ``.pkl``, the others wait for it; every rank
+  resumes from it. With ``shard_data_by_process`` ``"data_stream"`` holds
+  one position per rank, indexed by rank (JAX checkpoint.py:100-154).
+- ``rss_limit_gb`` is disabled, with JAX's warning, when the world is larger
+  than 1 (trainer.py:891-898); logs, prints and TensorBoard are rank 0's.
+- Validation runs as the evaluator's sharded eval (``evaluate.py``).
 """
 
 from __future__ import annotations
@@ -102,32 +131,30 @@ from multiagentperception_tpu_torch.optimizers import (
     optimizer_tensors,
     set_lr,
 )
+from multiagentperception_tpu_torch.parallel import sync_bn
+from multiagentperception_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    barrier,
+    broadcast,
+    gather_ints,
+)
 from multiagentperception_tpu_torch.schedulers import constant_lr
 from multiagentperception_tpu_torch.utils import host_rss_gb, reexec_self
 
 
-def _off(v) -> bool:
-    return not v
-
-
-# (section, key, whether the port runs the value): anything else is refused
-UNPORTED = (
-    ("training", "shard_data_by_process", _off),
-)
+# (section, key, whether the port runs the value): every key of the JAX loop
+# runs today; a key the port cannot run yet would be listed here and refused
+UNPORTED: tuple = ()
 
 
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config key the JAX training loop
-    honours and this port does not (ROADMAP.md lists them), or for a
-    multi-process launch."""
+    honours and this port does not (``UNPORTED``; ROADMAP.md lists them)."""
     for section, key, ported in UNPORTED:
         value = cfg.get(section, {}).get(key)
         if not ported(value):
             raise NotImplementedError(f"{section}.{key}={value!r} is not ported to "
                                       "the PyTorch trainer yet (ROADMAP.md)")
-    if os.environ.get("MAP_COORDINATOR"):
-        raise NotImplementedError("multi-process training (MAP_COORDINATOR) is not "
-                                  "ported to the PyTorch trainer yet (ROADMAP.md)")
 
 
 def chunk_sizes(start_iter: int, total: int, steps_per_call: int, *boundaries):
@@ -234,7 +261,8 @@ class Trainer(Evaluator):
     update's index to its lr (default: the config's constant lr); ``seed``
     (default ``training.seed``) seeds the selection baselines' draws;
     ``writer`` takes the TensorBoard scalars; ``graphs=False`` keeps every
-    step eager on the card."""
+    step eager on the card; ``layout`` makes it one rank of a data-parallel
+    world or an agent ring (module docstring)."""
 
     # the rss_limit_gb restart (tests substitute a recorder)
     _reexec_fn = staticmethod(reexec_self)
@@ -242,9 +270,10 @@ class Trainer(Evaluator):
     def __init__(self, cfg, logger: logging.Logger | None, loss_fn, trainloader, valloader,
                  schedule=None, device: str | torch.device | None = None,
                  logdir: str | None = None, seed: int | None = None, writer=None,
-                 graphs: bool = True):
+                 graphs: bool = True, layout=None):
         refuse_unported(cfg)
-        super().__init__(cfg, device, loss_fn=loss_fn, seed=seed, graphs=graphs)
+        super().__init__(cfg, device, loss_fn=loss_fn, seed=seed, graphs=graphs, layout=layout)
+        self._graphs_asked = graphs
         self.logger = logger or logging.getLogger("multiagentperception_tpu_torch")
         self.trainloader = trainloader
         self.valloader = valloader
@@ -270,6 +299,22 @@ class Trainer(Evaluator):
         self._profiler = None
         self._prefetch_stop = self._prefetch_thread = None
         self._consumed_stream_state = None  # the train stream's position after the last chunk run
+        # the group whose ranks split each step's work, or whose ranks each run
+        # the whole step and average it (module docstring)
+        self.train_group = self.replica_group = None
+        self.local_stream = False
+        if layout is not None:
+            if layout.agent > 1 and layout.data > 1:
+                raise ValueError("the agent ring owns its ranks in training: a layout of "
+                                 f"data {layout.data} x agent {layout.agent} trains nothing")
+            if layout.agent == 1:
+                self.train_group = layout.data_group
+                sync_bn.attach(self.model, self.train_group)
+                self.local_stream = layout.world > 1 and bool(cfg_t.get("shard_data_by_process"))
+            elif self.model.ring_train:
+                self.train_group = layout.agent_group
+            else:
+                self.replica_group = layout.agent_group
 
     # ------------------------------------------------------------------
     def train_mode(self) -> None:
@@ -298,13 +343,81 @@ class Trainer(Evaluator):
         return [p.grad for p in self.model.parameters() if p.grad is not None]
 
     def _loss(self, x: torch.Tensor, labels: torch.Tensor, ids) -> torch.Tensor:
-        """The training forward and its loss."""
+        """The training forward and its loss (with a train group, the
+        rank's share of the group's loss)."""
         self.train_mode()
         if self.normalize_on_device:
             x = normalize_images(x)
         out = self.model(x, **self._mode_kwargs("softmax", ids))
         pred = out[0] if isinstance(out, tuple) else out
-        return self.loss_fn(input=pred, target=labels)
+        labels = self._agent_block(labels, self._agents("softmax"))
+        kw = {} if self.train_group is None else {"group": self.train_group}
+        return self.loss_fn(input=pred, target=labels, **kw)
+
+    @staticmethod
+    def _reduce_flat(tensors: list[torch.Tensor], group, how: str) -> None:
+        """``tensors`` summed (``"sum"``), averaged (``"mean"``) or taken from
+        the group's first rank (``"first"``) over ``group``, in place, as one
+        flat bucket."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        if how == "first":
+            flat = broadcast(flat, group)
+        else:
+            flat = all_reduce_sum(flat, group)
+            if how == "mean":
+                flat = flat / group.size
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the train group, or average them over the
+        replicas (module docstring)."""
+        grads = self._grads()
+        if grads and self.train_group is not None:
+            self._reduce_flat(grads, self.train_group, "sum")
+        elif grads and self.replica_group is not None:
+            self._reduce_flat(grads, self.replica_group, "mean")
+
+    def _sync_replicas(self) -> None:
+        """The ring's first rank's BatchNorm statistics on every replica
+        after a step (exact: equal statistics stay as they are)."""
+        if self.replica_group is not None:
+            with torch.no_grad():
+                self._reduce_flat([b for b in self.model.buffers() if b.is_floating_point()],
+                                  self.replica_group, "first")
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, buffers, optimizer state and counts on every
+        rank."""
+        group = self.layout.world_group
+        with torch.no_grad():
+            tensors = list(self.model.state_dict().values())
+            for p in self.model.parameters():
+                tensors += [v for v in self.optimizer.state.get(p, {}).values()
+                            if isinstance(v, torch.Tensor)]
+            if self.guard is not None:
+                tensors += [self.guard.notfinite_count, self.guard.last_finite,
+                            self.guard.total_notfinite]
+            for t in tensors:
+                if t.device == group.device:
+                    broadcast(t, group)
+                else:  # Adam's step counts live on the host
+                    t.copy_(broadcast(t.to(group.device), group))
+            counts = broadcast(torch.tensor([self.step, self.applied], device=group.device),
+                               group)
+        self.step, self.applied = (int(v) for v in counts.cpu())
+
+    def _train_rows(self, data_list):
+        """This rank's rows of a train batch (module docstring)."""
+        if self.layout is None or self.layout.data == 1 or self.local_stream:
+            return data_list
+        rows, sharded = self._shard_rows(data_list)
+        if not sharded:
+            raise ValueError(f"a train batch of {len(data_list[0])} does not divide over "
+                             f"{self.layout.data} data ranks")
+        return rows
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor,
                    ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -319,9 +432,11 @@ class Trainer(Evaluator):
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(images, labels, ids)
         loss.backward()
+        self._reduce_grads()
         if self.guard is None or bool(self.guard.decide(self._grads())):
             self.optimizer.step()
             self.applied = applied + 1
+        self._sync_replicas()
         self.step += 1
         return loss.detach()
 
@@ -338,6 +453,7 @@ class Trainer(Evaluator):
         st["lr"].copy_(table.index_select(0, index).reshape(()))
         loss = self._loss(static["x"], static["y"], static.get("ids"))
         loss.backward()
+        self._reduce_grads()
         if self.guard is None:
             self.optimizer.step()
             st["applied"].add_(1)
@@ -350,6 +466,7 @@ class Trainer(Evaluator):
                 for t, s in zip(tensors, saved):
                     t.copy_(torch.where(apply, t, s))
             st["applied"].add_(apply.to(torch.int64))
+        self._sync_replicas()
         return {"loss": loss.detach()}
 
     def _capture_train_step(self, static: dict) -> None:
@@ -460,7 +577,7 @@ class Trainer(Evaluator):
                                  cfg_t["val_interval"], cfg_t.get("save_interval")):
                 xs, ys = [], []
                 for _ in range(k):
-                    data_list = next(batches)
+                    data_list = self._train_rows(next(batches))
                     xs.append(self._model_inputs(data_list[0]))
                     ys.append(self._labels(data_list[1]))
                 state = get_state() if get_state is not None else None
@@ -536,8 +653,16 @@ class Trainer(Evaluator):
         """The training loop; returns the best checkpoint's path (None if no
         validation ran)."""
         cfg_t = self.cfg["training"]
-        if self.writer is None:
+        if self.writer is None and self.primary:
             self.logger.info("no TensorBoard writer: metrics go to stdout and the log")
+        steps_per_call = max(1, int(cfg_t.get("steps_per_call") or 1))
+        if (self.layout is not None and self.layout.backend == "gloo" and steps_per_call > 1
+                and self._graphs_asked and self.device.type == "cuda"):
+            raise RuntimeError(
+                f"training.steps_per_call={steps_per_call} on the card captures each chunk "
+                "with its all-reduce in a CUDA graph, and no graph holds a collective of "
+                "backend gloo (ranks sharing a card): use steps_per_call 1, or one card "
+                "per rank (nccl)")
         best_iou = -100.0
         resume = cfg_t.get("resume")
         if resume is not None and os.path.isfile(str(resume)):
@@ -546,6 +671,8 @@ class Trainer(Evaluator):
             print(f"Loaded checkpoint '{resume}' (iter {self.step})")
         elif resume is not None:
             self.logger.info("No checkpoint found at '%s'", resume)
+        if self.layout is not None:
+            self._broadcast_state()
         if self.step >= int(cfg_t["train_iters"]):
             return None
         watchdog_secs = cfg_t.get("watchdog_secs")
@@ -563,6 +690,11 @@ class Trainer(Evaluator):
         total, print_interval = int(cfg_t["train_iters"]), int(cfg_t["print_interval"])
         val_interval, save_interval = int(cfg_t["val_interval"]), cfg_t.get("save_interval")
         rss_limit, rss_baseline_logged = float(cfg_t.get("rss_limit_gb") or 0.0), False
+        if rss_limit and self.layout is not None and self.layout.world > 1:
+            # re-exec'ing one rank would leave the others waiting in a collective
+            self.logger.warning("training.rss_limit_gb is single-process only; disabling "
+                                "(process_count=%d)", self.layout.world)
+            rss_limit = 0.0
         steps_per_call = max(1, int(cfg_t.get("steps_per_call") or 1))
         if steps_per_call > 1:
             for name in ("val_interval", "save_interval"):
@@ -598,7 +730,7 @@ class Trainer(Evaluator):
                 time_meter.update(per_iter)
                 if loss_host is not None:
                     self.loss_history[i] = float(loss_host[j])
-                if (i + 1) % print_interval == 0:
+                if (i + 1) % print_interval == 0 and self.primary:
                     loss_val = float(loss_host[j])
                     line = (f"Iter [{i + 1:d}/{total:d}]  Loss: {loss_val:.4f}  "
                             f"Time/Image: {time_meter.avg / cfg_t['batch_size']:.4f}")
@@ -687,27 +819,38 @@ class Trainer(Evaluator):
                 w.add_scalar(f"val_metrics/{key.strip()}", value, i)
             for key, value in class_iou.items():
                 w.add_scalar(f"val_metrics/cls_{key}", value, i)
-        self.logger.info("Iter %d Loss: %.4f", i, self._val_loss_avg)
+        if self.primary:
+            self.logger.info("Iter %d Loss: %.4f", i, self._val_loss_avg)
         self._print_scores(rm, bandwidth=False)
 
     # ------------------------------------------------------------------
     def _save_ckpt(self, name: str, i: int, best_iou: float) -> str:
         """Write the reference-layout ``.pkl``; a crash mid-write leaves the
-        previous file whole (write aside, then rename)."""
+        previous file whole (write aside, then rename). Every rank calls it;
+        rank 0 writes, the others wait for the file."""
         path = os.path.join(self.logdir, f"{self.cfg['model']['arch']}_"
                                          f"{self.cfg['data']['dataset']}_{name}.pkl")
+        stream = self._consumed_stream_state
+        if stream is None and hasattr(self.trainloader, "get_state"):
+            stream = self.trainloader.get_state()  # a save before any chunk ran
+        if stream is not None and self.local_stream:  # one position per rank
+            keys = ("seed", "epoch", "consumed")
+            stream = [dict(zip(keys, v)) for v in gather_ints(
+                [int(stream[k]) for k in keys], self.layout.world_group)]
+        if not self.primary:
+            barrier(self.layout.world_group)
+            return path
         os.makedirs(self.logdir, exist_ok=True)
         blob = {"epoch": i, "model_state": self.model.state_dict(),
                 "optimizer_state": self.optimizer.state_dict(), "best_iou": float(best_iou)}
         if self.guard is not None:
             blob["nan_guard"] = {**self.guard.state_dict(), "applied": self._applied_count()}
-        stream = self._consumed_stream_state
-        if stream is None and hasattr(self.trainloader, "get_state"):
-            stream = self.trainloader.get_state()  # a save before any chunk ran
         if stream is not None:
             blob["data_stream"] = stream
         torch.save(blob, path + ".tmp")
         os.replace(path + ".tmp", path)
+        if self.layout is not None:
+            barrier(self.layout.world_group)
         return path
 
     def _restore_full(self, path: str) -> float:
@@ -721,7 +864,17 @@ class Trainer(Evaluator):
         if self.guard is not None and "nan_guard" in blob:
             self.guard.load_state_dict(blob["nan_guard"])
             self.applied = int(blob["nan_guard"]["applied"])
-        if "data_stream" in blob and hasattr(self.trainloader, "set_state"):
-            self.trainloader.set_state(blob["data_stream"])
-            self._consumed_stream_state = blob["data_stream"]
+        stream = blob.get("data_stream")
+        if isinstance(stream, list):  # one position per rank
+            world = 1 if self.layout is None else self.layout.world
+            if len(stream) != world:
+                self.logger.warning("%s holds the stream positions of %d ranks, not %d: "
+                                    "the stream restarts at its beginning", path,
+                                    len(stream), world)
+                stream = None
+            else:
+                stream = stream[self.layout.rank]
+        if stream is not None and hasattr(self.trainloader, "set_state"):
+            self.trainloader.set_state(stream)
+            self._consumed_stream_state = stream
         return float(blob["best_iou"])

@@ -352,8 +352,14 @@ def test_grain_worker_error_reaches_the_consumer(fixture_root):
 
 
 def test_grain_sharding_is_refused(fixture_root):
-    with pytest.raises(NotImplementedError, match="shard_data_by_process"):
-        GrainLoader(_port(fixture_root), 2, shard_by_process=True)
+    """No longer refused: in one process ``shard_by_process`` reads every
+    frame (JAX's one process); an explicit slice reads its frames alone
+    (the slices over ranks are tests/test_torch_parallel_train.py's)."""
+    whole = GrainLoader(_port(fixture_root), 2, shard_by_process=True)
+    assert whole.shard is None and len(whole) == len(GrainLoader(_port(fixture_root), 2))
+    half = GrainLoader(_port(fixture_root), 1, shard_options=(1, 2))
+    n = len(_port(fixture_root))
+    assert list(half.order(0)) == list(range(n // 2, 2 * (n // 2)))
 
 
 # ------------------------------------------------------------------ fixture and validation

@@ -165,18 +165,14 @@ def test_resume_continues_at_the_saved_iteration(tmp_path):
                              ("data", "cache_decoded", "cache"))],
                          ids=lambda v: str(v))
 def test_unported_keys_are_refused(fixture_root, tmp_path, section, key, value):
-    """Only ``shard_data_by_process`` is still refused, naming the key; the
-    loader's keys, refused until the loader was ported, now pass the
-    check (tests/test_torch_train_stream.py runs them)."""
+    """No key of the JAX loop is refused any more: the loader's keys since
+    the loader was ported, ``shard_data_by_process`` since data parallel
+    was (one process reads the whole stream, as JAX's single process;
+    tests/test_torch_parallel_train.py runs it over ranks)."""
     cfg = _cfg(fixture_root)
     cfg[section][key] = value
-    if key != "shard_data_by_process":
-        assert (section, key) not in {(s, k) for s, k, _ in UNPORTED}
-        refuse_unported(load_config(_write(tmp_path / "x.yml", cfg)))
-        return
-    assert [(s, k) for s, k, _ in UNPORTED] == [(section, key)]
-    with pytest.raises(NotImplementedError, match=f"{section}.{key}="):
-        port_train.main(["--config", _write(tmp_path / "x.yml", cfg), "--device", "cpu"])
+    assert UNPORTED == ()
+    refuse_unported(load_config(_write(tmp_path / "x.yml", cfg)))
 
 
 def _cli_checkpoint(tmp_path, monkeypatch, name: str, cfg: dict) -> dict:

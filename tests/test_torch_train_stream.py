@@ -177,8 +177,9 @@ def test_a_pkl_without_the_stream_starts_it_fresh(fixture_root, tmp_path, uninte
 
 
 def test_shard_data_by_process_is_still_refused(fixture_root):
-    with pytest.raises(NotImplementedError, match="training.shard_data_by_process=True"):
-        refuse_unported(_cfg(fixture_root, shard_data_by_process=True))
+    """No longer refused: data parallel is ported (its stream over ranks is
+    tests/test_torch_parallel_train.py's)."""
+    refuse_unported(_cfg(fixture_root, shard_data_by_process=True))
     refuse_unported(_cfg(fixture_root, data_backend="grain", grain_workers=2,
                          augmentations=AUGS))
 

@@ -48,7 +48,8 @@ and the script exits non-zero:
    ``activated`` mode over seeded in-memory batches of the loader's
    shapes. K1's and K2's launch counts are zeroed just before and read
    just after; each must have launched its float32 route once per batch
-   and its bf16 route never. Prints eval frames/s (a frame is
+   (``_expected_launches``) and its 16-bit routes never, and the logits of
+   one batch must be finite. Prints eval frames/s (a frame is
    one agent's view) over the timed window, then traces the same batches
    again under ``torch.profiler``: the device's busy share is the traced
    device time over the untraced window's wall time, and the ``Memcpy
@@ -264,6 +265,39 @@ and the script exits non-zero:
    ``agent_parallel_train`` step alone), ms a step for 2 ranks sharing the
    card and for one process
    (no speed claim), the card's name and power limit.
+16. float16 (``model.dtype: float16``) at the flagship's full width. (a)
+   K1's, K2's and K4's float16 routes (``upsample_argmax_f16``,
+   ``comm_fusion_f16``, ``int8_conv_f16``) against their plain versions and
+   timed as phases 1 and 10 time the other types (``checks``: K1's near-tie
+   rule; K2's graphs within 1e-6, fused within one float16 ulp + 1e-5 of
+   the plain version and of float64; K4's scratch and sums equal, its
+   float16 output to the bit and within one float16 ulp of the plain float32
+   rescale; K4's yardstick cuDNN's float16 convolution). (b) The
+   ``activated`` eval as phase 2 runs it, at the YAML's batch 2 x 6 and at
+   the bench's 20 x 6: K1 and K2 once a batch on the f16 route, as
+   ``_expected_launches`` says, never on another, and finite logits. (c)
+   Card against CPU in float16 at 256x256 (``mixed_card_vs_cpu``, phase 8's
+   rule). (d) ``Trainer.train`` in float16 as phase 5 runs it (no loss
+   scaling, as JAX): finite float32 losses and gradients, float32
+   parameters that moved, the exactly-zero gradients counted; its
+   checkpoint's eval launches K1 and K2. (e) The eval CUDA graph against
+   eager in float16 (``graph_eval``, as phase 13 times bf16), bit for bit. (f) The
+   float16 network's int8 eval (K4 on ``int8_conv_f16``, 48 a batch) and
+   card against CPU at 256x256 (0.1% of the pixels, the bandwidth equal, as
+   phase 10 holds bf16).
+   (g) The float16 serving artifact and its int8 one (float16 output) at
+   batch 8, each against the eager function (``serve_float16``).
+
+Phase 16 runs right after phase 8, its bf16 counterpart. Kineto files
+some of a trace window's kernel records as outside its capture window
+("Out-of-range" in its log), more the longer the process has run, and not
+as many in every window: after ~1000 s a window of 50 back-to-back K1
+launches may hold none. So a trace's launch counts are reported, and a
+check asks only that a trace hold some record of a kernel (the launch
+counters are held exactly); ``_traced_ms`` takes a window again while it
+holds none. ``trace_drops`` prints, after phase 1, before phase 15
+and after it, the records each of TRACE_TRIES windows of K1 lacked, and the
+smoke fails unless a window after phase 15 holds a record.
 
 ``Evaluator.evaluate`` runs through CUDA graphs on the card by default,
 so phases 2, 3, 5 (its validation), 7, 8 and 12 evaluate through graphs,
@@ -287,7 +321,9 @@ serving path of their type, ``serving_launches``, and a batch of phase 13's
 eval under replay, ``graph_launches_per_batch`` and
 ``graph_traced_launches``; K1's and K2's float32 records their launches in
 phase 14's noisy ``test``, ``phase14_launches``, and per rank in phase 15's
-2-rank eval, ``phase15_launches``), and last
+2-rank eval, ``phase15_launches``; ``upsample_argmax_f16``,
+``comm_fusion_f16`` and ``int8_conv_f16`` are the float16 routes with their
+launches on phase 16's paths), and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -340,25 +376,61 @@ SEED = 0
 EVAL_BATCHES = 10  # timed; two more warm up cuDNN and the caching allocator
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10  # train iterations: warm-up, then timed
 PROFILE_STEPS = 5  # train steps in the traced window
+TRACE_TRIES = 4  # windows ``_traced_ms`` may take to hold a record of its kernel
 DIAG_BIAS = 0.001
 THRES = 0.2
+
+
+def _trace_window(fn, kernel: str, iters: int) -> list:
+    """The device events of the kernel whose name holds ``kernel`` in one
+    ``torch.profiler`` (CUPTI) window of ``iters`` back-to-back runs of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in _device_events(prof) if kernel in e.key]
 
 
 def _traced_ms(fn, kernel: str, iters: int = 50) -> float:
     """Device time per launch of the kernel whose name holds ``kernel``
     over ``iters`` back-to-back runs of ``fn`` under ``torch.profiler``
     (CUPTI): the kernel alone, its inputs warm in L2, no launch gaps. Set
-    beside its time on the eval path, it shows what the path adds."""
-    from torch.profiler import ProfilerActivity, profile
-
+    beside its time on the eval path, it shows what the path adds. Kineto
+    files some of a window's kernel records as outside its capture window,
+    more the longer the process has run, and not as many in every window
+    (``trace_drops``): a window that holds none of the kernel's records is
+    taken again, at most TRACE_TRIES windows, and the time is over the
+    records the window holds."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in _device_events(prof) if kernel in e.key]
-    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+    for _ in range(TRACE_TRIES):
+        hits = _trace_window(fn, kernel, iters)
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+    raise AssertionError(f"{TRACE_TRIES} traces of {iters} launches of {kernel}: no record")
+
+
+TRACE_PROBE_LAUNCHES = 50
+
+
+def trace_drops(started: float) -> dict:
+    """K1's TRACE_PROBE_LAUNCHES back-to-back launches traced in TRACE_TRIES
+    windows, each taken whatever the one before held: the kernel records
+    each window lacks, at the process's age (seconds since ``started``).
+    Main runs it after phase 1, before phase 15 and after it, and requires
+    a window after phase 15 that holds records, as ``_traced_ms`` does."""
+    x = torch.randn(12, N_CLASSES, 16, 16, device="cuda")
+
+    def run() -> None:
+        k1.upsample_argmax(x, 512, 512)
+
+    run()
+    short = [TRACE_PROBE_LAUNCHES - sum(e.count for e in _trace_window(
+        run, "upsample_argmax_kernel", TRACE_PROBE_LAUNCHES)) for _ in range(TRACE_TRIES)]
+    return {"age_s": time.perf_counter() - started, "launches": TRACE_PROBE_LAUNCHES,
+            "missing_per_window": short}
 
 
 def _device_events(prof) -> list:
@@ -388,13 +460,18 @@ def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ phase 1
 
+def _route(dtype: torch.dtype | str | None) -> str:
+    """A network dtype's route (the kernels' ``route_launches`` keys), by torch
+    dtype or by ``model.dtype`` name (None: float32), from K1's route table."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, dtype or "float32")
+    return k1.ROUTES[dtype][0]
+
+
 def _suffix(dtype: torch.dtype) -> str:
-    """A bf16 route's record name suffix; the float32 routes keep their names."""
-    return "_bf16" if dtype == torch.bfloat16 else ""
+    """A 16-bit route's record name suffix; the float32 routes keep their names."""
+    return "" if dtype == torch.float32 else "_" + _route(dtype)
 
-
-def _short(dtype: torch.dtype) -> str:
-    return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
 def check_upsample_argmax(gen, dtype: torch.dtype = torch.float32) -> dict:
@@ -422,7 +499,7 @@ def check_upsample_argmax(gen, dtype: torch.dtype = torch.float32) -> dict:
         "plain_ms": _time_ms(lambda: k1.upsample_argmax_plain(x, out, out)),
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"({n}, {c}, {h}, {w}) {_short(dtype)} -> ({n}, {out}, {out}) int32",
+        "shape": f"({n}, {c}, {h}, {w}) {_route(dtype)} -> ({n}, {out}, {out}) int32",
     }
 
 
@@ -459,7 +536,7 @@ def check_comm_fusion(gen, dtype: torch.dtype = torch.float32) -> dict:
         "plain_ms": _time_ms(plain),
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) {_short(dtype)}, "
+        "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) {_route(dtype)}, "
                  "activated",
     }
 
@@ -659,17 +736,17 @@ def run_slice(kernels, dtype: str | None = None, batch: int | None = None,
               timed: int = EVAL_BATCHES) -> dict:
     """The flagship's ``activated`` eval through ``Evaluator``: ``timed``
     batches after 2 warm-up batches, then the same batches traced. ``dtype``
-    sets ``model.dtype`` (phase 8: ``bfloat16``), ``batch`` the batch size
-    (default the YAML's). Each kernel must launch on the route of the
-    model's type once per timed batch (K2: the bf16 route in bf16) and
-    never on another."""
+    sets ``model.dtype`` (phase 8: ``bfloat16``, phase 16: ``float16``),
+    ``batch`` the batch size (default the YAML's). Each kernel must launch
+    on the route of the model's type once per timed batch (K2: the bf16
+    route in bf16), as ``_expected_launches`` says, and never on another."""
     cfg = load_config(str(FLAGSHIP))
     if dtype is not None:
         cfg["model"]["dtype"] = dtype
     if batch is not None:
         cfg["training"]["batch_size"] = batch
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
-    route = "bf16" if dtype == "bfloat16" else "f32"
+    route = _route(dtype)
     model = init_weights(get_model(cfg, N_CLASSES), SEED)
     WORK.mkdir(parents=True, exist_ok=True)
     pkl = WORK / "mrms_when2com_seed0.pkl"
@@ -697,6 +774,11 @@ def run_slice(kernels, dtype: str | None = None, batch: int | None = None,
         if counts != {**dict.fromkeys(counts, 0), route: timed}:
             raise AssertionError(f"{name} did not launch its {route} route once per "
                                  f"batch ({timed} batches): {counts}")
+    if launches != _expected_launches(ev, "activated", timed):
+        raise AssertionError(f"eval launches {launches}, want "
+                             f"{_expected_launches(ev, 'activated', timed)}")
+    if not bool(torch.isfinite(_pre_logits(ev, batches[2][0], "activated")[0]).all()):
+        raise AssertionError(f"{dtype or 'float32'} eval: non-finite logits")
 
     metrics = ev.last_eval_metrics
     labels = np.stack([bt[1] for bt in batches[2:]])
@@ -872,17 +954,23 @@ def _recording_loss(cfg):
     return recording_loss, recorded
 
 
-def run_training(eval_kernels, mixed_precision: bool = False) -> dict:
+def run_training(eval_kernels, mixed_precision: bool = False, dtype: str | None = None,
+                 profile: bool = True) -> dict:
     """The flagship trains TRAIN_WARMUP + TRAIN_STEPS iterations through
-    ``Trainer.train`` (phase 8: with ``training.mixed_precision``): finite
-    float32 losses, float32 parameters, some of them moved, a checkpoint of
-    float32 tensors. Its best checkpoint is then evaluated in ``activated``
-    mode, which runs K1 and K2."""
+    ``Trainer.train`` (phase 8: with ``training.mixed_precision``; phase 16:
+    ``model.dtype`` ``dtype``): finite float32 losses, float32 parameters,
+    some of them moved, a checkpoint of float32 tensors; the last step's
+    gradients float32 and finite (the exactly-zero ones counted: a 16-bit
+    gradient that underflows, with no loss scaling, as JAX's). With
+    ``profile``, a traced window of steps. Its best checkpoint is then
+    evaluated in ``activated`` mode, which runs K1 and K2."""
     cfg = load_config(str(FLAGSHIP))
     total = TRAIN_WARMUP + TRAIN_STEPS
     cfg["training"].update(train_iters=total, val_interval=total, print_interval=1,
                            mixed_precision=mixed_precision)
-    tag = "_bf16" if mixed_precision else ""
+    if dtype is not None:
+        cfg["model"]["dtype"] = dtype
+    tag = "_bf16" if mixed_precision else "" if dtype is None else "_" + _route(dtype)
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
     train_batches = seeded_batches(total, b, n, size, SEED + 2)
     val_batches = seeded_batches(2, b, n, size, SEED + 3)
@@ -903,6 +991,13 @@ def run_training(eval_kernels, mixed_precision: bool = False) -> dict:
     if any(v.dtype != torch.float32 for v in trainer.model.state_dict().values()
            if v.is_floating_point()):
         raise AssertionError("a parameter or BatchNorm statistic left float32")
+    grads = [p.grad for p in trainer.model.parameters() if p.grad is not None]
+    if not grads or any(g.dtype != torch.float32 or not bool(torch.isfinite(g).all())
+                        for g in grads):
+        raise AssertionError("the last step's gradients are missing, not float32 or not finite")
+    zero_grads = sum(not bool(g.any()) for g in grads)
+    if zero_grads == len(grads):
+        raise AssertionError("every gradient of the last step is zero")
     saved = torch.load(best, map_location="cpu", weights_only=True)
     moved = sum(not torch.equal(saved["model_state"][k], v) for k, v in start.items()
                 if v.is_floating_point())
@@ -912,7 +1007,10 @@ def run_training(eval_kernels, mixed_precision: bool = False) -> dict:
 
     timed = trainer.iter_seconds[TRAIN_WARMUP:]
     result = {"config": FLAGSHIP.relative_to(ROOT).as_posix(),
-              "mixed_precision": mixed_precision, "batch": b, "agents": n,
+              "mixed_precision": mixed_precision, "dtype": dtype or "float32",
+              "gradients": len(grads), "zero_gradients": zero_grads,
+              "zero_gradient_elements": sum(int((g == 0).sum()) for g in grads),
+              "gradient_elements": sum(g.numel() for g in grads), "batch": b, "agents": n,
               "size": size, "iterations": total, "timed_iterations": len(timed),
               "train_frames_per_s": len(timed) * b * n / sum(timed),
               "ms_per_step": float(np.mean(timed)) * 1e3,
@@ -921,8 +1019,9 @@ def run_training(eval_kernels, mixed_precision: bool = False) -> dict:
               "peak_device_bytes": peak_bytes, "tensors_changed": moved,
               "cudnn_tf32": torch.backends.cudnn.allow_tf32,
               "best_checkpoint_iter": int(saved["epoch"])}
-    result.update(profile_train_window(trainer, train_batches[:PROFILE_STEPS],
-                                       WORK / f"train_profile{tag}.txt"))
+    if profile:
+        result.update(profile_train_window(trainer, train_batches[:PROFILE_STEPS],
+                                           WORK / f"train_profile{tag}.txt"))
 
     ev = Evaluator(cfg)
     ev.load_weight(best)
@@ -1153,18 +1252,19 @@ def _pre_logits(ev, images, inference: str):
 
 
 @_no_tf32()
-def bf16_card_vs_cpu(size: int = 256) -> dict:
-    """The flagship's ``activated`` eval at ``size`` in bf16 and in float32
-    (TF32 off), on the card and on the CPU, from one set of weights per
-    seed: over MP_SEEDS, the card's bf16 pre-upsample logits lie no further
-    from its float32 ones than MP_RATIO times the CPU's bf16 logits from
-    the CPU's float32 ones (relative L2, summed over the seeds), the rule
+def mixed_card_vs_cpu(dtype: str = "bfloat16", size: int = 256) -> dict:
+    """The flagship's ``activated`` eval at ``size`` in ``dtype`` (bfloat16,
+    phase 8, or float16, phase 16) and in float32 (TF32 off), on the card
+    and on the CPU, from one set of weights per seed: over MP_SEEDS, the
+    card's ``dtype`` pre-upsample logits lie no further from its float32
+    ones than MP_RATIO times the CPU's from the CPU's float32 ones
+    (relative L2, summed over the seeds), the rule
     tests/test_torch_mixed_precision_models.py holds the port to against
-    JAX. Actions and bandwidth of card and CPU in bf16 are reported."""
+    JAX. Actions and bandwidth of card and CPU in ``dtype`` are reported."""
     cfg32 = load_config(str(FLAGSHIP))
     cfg32["data"]["img_rows"] = cfg32["data"]["img_cols"] = size
     cfg16 = copy.deepcopy(cfg32)
-    cfg16["model"]["dtype"] = "bfloat16"
+    cfg16["model"]["dtype"] = dtype
     b, n = cfg32["training"]["batch_size"], cfg32["model"]["agent_num"]
     errs = {"cuda": [], "cpu": []}
     same_actions, same_bandwidth = 0, 0
@@ -1173,19 +1273,21 @@ def bf16_card_vs_cpu(size: int = 256) -> dict:
         images = seeded_batches(1, b, n, size, SEED + 20 + seed, "None")[0][0]
         out = {}
         for dev in ("cuda", "cpu"):
-            for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
+            for name, cfg in (("f32", cfg32), ("mixed", cfg16)):
                 ev = Evaluator(cfg, device=dev)
                 ev.model.load_state_dict(state, strict=True)
                 out[dev, name] = _pre_logits(ev, images, "activated")
-            errs[dev].append(_rel(out[dev, "bf16"][0], out[dev, "f32"][0]))
-        same_actions += torch.equal(out["cuda", "bf16"][1], out["cpu", "bf16"][1])
-        same_bandwidth += out["cuda", "bf16"][2] == out["cpu", "bf16"][2]
+            if not bool(torch.isfinite(out[dev, "mixed"][0]).all()):
+                raise AssertionError(f"{dtype} on {dev}: non-finite logits (seed {seed})")
+            errs[dev].append(_rel(out[dev, "mixed"][0], out[dev, "f32"][0]))
+        same_actions += torch.equal(out["cuda", "mixed"][1], out["cpu", "mixed"][1])
+        same_bandwidth += out["cuda", "mixed"][2] == out["cpu", "mixed"][2]
     card, cpu = sum(errs["cuda"]), sum(errs["cpu"])
     if not card <= MP_RATIO * cpu:
-        raise AssertionError(f"bf16 card vs float32 card {errs['cuda']} beyond {MP_RATIO} x "
-                             f"bf16 CPU vs float32 CPU {errs['cpu']}")
-    return {"size": size, "seeds": len(MP_SEEDS), "tf32": False,
-            "rel_l2_bf16_to_f32": errs, "ratio": card / cpu,
+        raise AssertionError(f"{dtype} card vs float32 card {errs['cuda']} beyond {MP_RATIO} x "
+                             f"{dtype} CPU vs float32 CPU {errs['cpu']}")
+    return {"dtype": dtype, "size": size, "seeds": len(MP_SEEDS), "tf32": False,
+            "rel_l2_to_f32": errs, "ratio": card / cpu,
             "seeds_with_equal_actions": same_actions,
             "seeds_with_equal_bandwidth": same_bandwidth}
 
@@ -1216,7 +1318,7 @@ def run_zoo_bf16(yml: Path) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     counts = dict(k1.upsample_argmax.route_launches)
-    if counts != {"f32": 0, "bf16": ZOO_EVAL_BATCHES}:
+    if counts != {**dict.fromkeys(counts, 0), "bf16": ZOO_EVAL_BATCHES}:
         raise AssertionError(f"{yml.name} bf16 {mode}: K1 routes {counts}")
     if not all(np.isfinite(float(v)) for v in score.values()):
         raise AssertionError(f"{yml.name} bf16 {mode}: non-finite scores")
@@ -1251,7 +1353,7 @@ def check_kernels_at_bench_batch(gen) -> dict:
         q = torch.randn(b, n, 1024, generator=gen).to("cuda", dtype)
         k = (torch.randn(b, n, 1024, generator=gen) * 2 / 1024 ** 0.5).to("cuda", dtype)
         v = torch.randn(b, n, 512, 16, 16, generator=gen).to("cuda", dtype)
-        out[_short(dtype)] = {
+        out[_route(dtype)] = {
             "upsample_argmax": checks.check_upsample_argmax(x, 512, 512),
             "comm_fusion_max_abs_err": max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS,
                                                                     THRES)
@@ -1459,6 +1561,8 @@ def check_int8_conv(gen, shapes=K4_SHAPES, n: int = BENCH_BATCH * 6,
     records = []
     geometries = shapes
     for route, dtype in dtypes.items():
+        # the yardstick: cuDNN in the float16 network's type, else bf16
+        library_dtype = torch.float16 if dtype == torch.float16 else torch.bfloat16
         shapes, err = [], 0.0
         for cin, cout, side, k, stride, pad, has_bias, calls in geometries:
             in_dtype = torch.float32 if cin == 3 else dtype
@@ -1473,8 +1577,8 @@ def check_int8_conv(gen, shapes=K4_SHAPES, n: int = BENCH_BATCH * 6,
             geometry = k4.plan(n, cin, side, side, cout, k, k, stride, pad)
             xq = k4.quantize_scratch(x, s_x, geometry)
             acc = k4.conv_nhwc(xq, prep, s_x, None, geometry, torch.int32)
-            x16, w16 = x.bfloat16(), w.bfloat16()
-            b16 = None if bias is None else bias.bfloat16()
+            x16, w16 = x.to(library_dtype), w.to(library_dtype)
+            b16 = None if bias is None else bias.to(library_dtype)
             out_side = geometry.out[0]
             macs = n * out_side ** 2 * cout * cin * k * k
             out_bytes = n * cout * out_side ** 2 * torch.finfo(dtype).bits // 8
@@ -1511,7 +1615,7 @@ def check_int8_conv(gen, shapes=K4_SHAPES, n: int = BENCH_BATCH * 6,
                                if r["bound_by"] == basis) for basis in ("bytes", "operations")}
         int_mm = [r["library_int_mm_ms"] for r in shapes]
         records.append({
-            "name": "int8_conv" + ("_bf16" if route == "bf16" else ""), "route": "cuda",
+            "name": "int8_conv" + _suffix(dtype), "route": "cuda",
             "source": "multiagentperception_tpu_torch/csrc/int8_conv.cu",
             "replaces": "multiagentperception_tpu/quantize.py:106 (XLA's int8 conv; no "
                         "Pallas kernel)",
@@ -1521,8 +1625,8 @@ def check_int8_conv(gen, shapes=K4_SHAPES, n: int = BENCH_BATCH * 6,
             "quantize_ms": step("quantize_ms"), "gemm_ms": step("gemm_ms"),
             "quantize_bound_ms": step("quantize_bound_ms"), "gemm_bound_ms": step("gemm_bound_ms"),
             "library_int_mm_ms": None if None in int_mm else step("library_int_mm_ms"),
-            "per": f"{per} (sums over 'shapes'); library: cuDNN bf16; library_int_mm: "
-                   "torch._int_mm on the GEMM's int8 matrices",
+            "per": f"{per} (sums over 'shapes'); library: cuDNN {_route(library_dtype)}; "
+                   "library_int_mm: torch._int_mm on the GEMM's int8 matrices",
             "shapes": shapes})
         torch.cuda.empty_cache()
     return records
@@ -1548,7 +1652,7 @@ def run_int8_slice(dtype: str | None = None, model_keys: dict | None = None,
     if dtype is not None:
         cfg["model"]["dtype"] = dtype
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
-    route = "bf16" if dtype == "bfloat16" else "f32"
+    route = _route(dtype)
     WORK.mkdir(parents=True, exist_ok=True)
     ev = Evaluator(cfg, graphs=False)  # the trace below counts the eager step's host ops
     ev.model.load_state_dict(init_weights(get_model(cfg, N_CLASSES), SEED).state_dict())
@@ -1620,8 +1724,10 @@ def run_int8_slice(dtype: str | None = None, model_keys: dict | None = None,
             "k4_gemms_traced_per_batch": k4_traced / len(timed)}
 
 
-# card against CPU, int8: the share of pixels whose class may differ, by network dtype
-INT8_CARD_VS_CPU_MOVED = {"float32": 0.01, "bfloat16": 0.001}
+# card against CPU, int8: the share of pixels whose class may differ, by network
+# dtype; a 16-bit network rounds its BatchNorm outputs before the next quantizer,
+# which absorbs most of the float layers' ulps (int8_card_vs_cpu)
+INT8_CARD_VS_CPU_MOVED = {"float32": 0.01, "bfloat16": 0.001, "float16": 0.001}
 
 
 def int8_card_vs_cpu(dtype: str | None = None, size: int = 256,
@@ -1629,8 +1735,8 @@ def int8_card_vs_cpu(dtype: str | None = None, size: int = 256,
     """The flagship's ``activated`` int8 eval at ``size`` on the card and on
     the CPU from one set of weights and one set of scales (calibrated on the
     card), TF32 off for the float layers: the confusion matrices apart by
-    at most INT8_CARD_VS_CPU_MOVED of the pixels, and in bf16 the bandwidth
-    equal (in float32 it is reported). Every int8 conv is exact on both
+    at most INT8_CARD_VS_CPU_MOVED of the pixels, and in bf16 and float16
+    the bandwidth equal (in float32 it is reported). Every int8 conv is exact on both
     sides (``check_int8_conv``), but the float layers between them
     (BatchNorm, the residual adds) differ by an ulp between cuDNN/ATen on
     the card and the CPU, and a value within an ulp of a half-step of the
@@ -1640,7 +1746,8 @@ def int8_card_vs_cpu(dtype: str | None = None, size: int = 256,
     quantizer (on an NVIDIA H100 80GB HBM3 at 700 W: 0.54% of the pixels
     moved, and one off-diagonal link of one batch crossed the 0.2
     threshold, bandwidth 0.9583 against 0.9167); in bf16 the BatchNorm's output is rounded to bf16
-    first, which absorbs most of them (0.019%, the bandwidth equal).
+    first, which absorbs most of them (0.019%, the bandwidth equal), and
+    in float16 likewise (0.013%, the bandwidth equal).
     ``model_keys`` go over the flagship's model section."""
     cfg = _config(FLAGSHIP, model_keys)
     cfg["data"]["img_rows"] = cfg["data"]["img_cols"] = size
@@ -2553,9 +2660,9 @@ def _graph_eval_runs(evs: dict, batches) -> dict:
 def graph_eval(kind: str) -> dict:
     """The flagship's ``activated`` eval at the YAML's batch through
     ``Evaluator.evaluate``, with CUDA graphs and eagerly
-    (``Evaluator(graphs=False)``), ``kind`` float32, bfloat16 or int8 (float32
-    network, static scales from INT8_CALIB_BATCHES held-out batches, both
-    evaluators under an ``Int8Convs`` swap). Checks: over the window's
+    (``Evaluator(graphs=False)``), ``kind`` float32, bfloat16, float16 or int8
+    (float32 network, static scales from INT8_CALIB_BATCHES held-out
+    batches, both evaluators under an ``Int8Convs`` swap). Checks: over the window's
     batches the class maps, confusion matrices, actions and bandwidth
     equal bit for bit, and under replay K1 and K2 launch once a batch and K4
     once per swapped conv (48 a batch). Then GRAPH_PAIRS alternated pairs
@@ -2565,8 +2672,8 @@ def graph_eval(kind: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     cfg = load_config(str(FLAGSHIP))
-    if kind == "bfloat16":
-        cfg["model"]["dtype"] = "bfloat16"
+    if kind in ("bfloat16", "float16"):
+        cfg["model"]["dtype"] = kind
     b, n, size = cfg["training"]["batch_size"], cfg["model"]["agent_num"], cfg["data"]["img_rows"]
     state = init_weights(get_model(cfg, N_CLASSES), SEED).state_dict()
     batches = seeded_batches(GRAPH_EVAL_BATCHES + INT8_CALIB_BATCHES, b, n, size, SEED + 70)
@@ -3354,6 +3461,95 @@ def run_phase15(records: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+
+def serve_float16() -> dict:
+    """Phase 16 (g): the float16 flagship exported at batch 8 as phase 11
+    exports the bf16 one, and its int8 artifact (static scales calibrated on
+    the float16 network, int8 weights baked, float16 output), each loaded
+    and held to the eager ``make_eval_fn`` / ``make_int8_eval_fn`` over
+    SERVE_BATCHES batches, K1, K2 and K4 counted on the f16 route
+    (``serve_variant``)."""
+    from multiagentperception_tpu_torch.export import make_eval_fn
+    from multiagentperception_tpu_torch.quantize import calibrate_activations, make_int8_eval_fn
+
+    cfg = load_config(str(FLAGSHIP))
+    cfg["model"]["dtype"] = "float16"
+    n, size = cfg["model"]["agent_num"], cfg["data"]["img_rows"]
+    batches = seeded_images(SERVE_BATCHES, SERVE_BATCH, n, size, SEED + 160)
+    model = init_weights(get_model(cfg, N_CLASSES), SEED).to("cuda").eval()
+    out = {"config": FLAGSHIP.relative_to(ROOT).as_posix(), "dtype": "float16",
+           "batch": SERVE_BATCH, "agents": n, "size": size}
+    out["float16"], _ = serve_variant("float16", model, batches, make_eval_fn(model), "f16")
+    calib = seeded_images(2, SERVE_BATCH, n, size, SEED + 161)
+    scales = calibrate_activations(model, calib, inference="activated", full_res=False)
+    out["int8"], _ = serve_variant("int8 float16", model, batches,
+                                   make_int8_eval_fn(model, act_scales=scales), "f16",
+                                   int8=True, act_scales=scales)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase16(records: list, lap) -> dict:
+    """Phase 16: ``model.dtype: float16`` end to end at the flagship's full
+    width (the module docstring's (a)-(g)). Adds the float16 records of K1,
+    K2 and K4 to ``records``; ``lap(name)`` books each part's seconds."""
+    eval_kernels = (k1.upsample_argmax, k2.comm_fusion)
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 16)
+    f16 = [check_upsample_argmax(gen, torch.float16), check_comm_fusion(gen, torch.float16),
+           *check_int8_conv(torch.Generator().manual_seed(SEED + 41),
+                            dtypes={"f16": torch.float16})]
+    print("phase16_kernels " + json.dumps(f16))
+    lap("16_kernels_f16")
+
+    out["eval"] = {"yaml_batch": run_slice(eval_kernels, dtype="float16"),
+                   "bench_batch": run_slice(eval_kernels, dtype="float16", batch=BENCH_BATCH,
+                                            timed=BENCH_EVAL_BATCHES)}
+    for rec, kern in zip(f16, eval_kernels):
+        name = kern.__name__
+        rec["launches"] = out["eval"]["yaml_batch"]["route_launches"][name]["f16"]
+        rec["path_device_ms"] = out["eval"]["yaml_batch"]["path_kernel_device_ms"][name]
+        rec["launches_bench_batch"] = out["eval"]["bench_batch"]["route_launches"][name]["f16"]
+        rec["path_device_ms_bench_batch"] = \
+            out["eval"]["bench_batch"]["path_kernel_device_ms"][name]
+        rec["kernel_ms"] = rec["ms"]
+    print("phase16_eval " + json.dumps(out["eval"]))
+    lap("16_eval_f16")
+    out["card_vs_cpu"] = mixed_card_vs_cpu("float16")
+    print("phase16_card_vs_cpu " + json.dumps(out["card_vs_cpu"]))
+    lap("16_card_vs_cpu_f16")
+    out["train"] = run_training(eval_kernels, dtype="float16", profile=False)
+    print("phase16_train " + json.dumps(out["train"]))
+    lap("16_train_f16")
+    out["graph_eval"] = graph_eval("float16")
+    print("phase16_graph_eval " + json.dumps(out["graph_eval"]))
+    for rec, kern in zip(f16, eval_kernels):
+        rec["graph_launches_per_batch"] = out["graph_eval"]["launches_per_batch"][kern.__name__]
+        rec["graph_traced_launches"] = \
+            out["graph_eval"]["traced_launches"]["graph"][kern.__name__]
+    lap("16_graph_eval_f16")
+
+    out["int8_eval"] = run_int8_slice("float16")
+    f16[2]["launches"] = out["int8_eval"]["launches"]["int8_conv"]["f16"]
+    f16[2]["path_device_ms_per_batch"] = out["int8_eval"]["k4_device_ms_per_batch"]
+    print("phase16_int8_eval " + json.dumps(out["int8_eval"]))
+    out["int8_card_vs_cpu"] = int8_card_vs_cpu("float16")
+    print("phase16_int8_card_vs_cpu " + json.dumps(out["int8_card_vs_cpu"]))
+    lap("16_int8_f16")
+
+    out["serving"] = serve_float16()
+    print("phase16_serving " + json.dumps(out["serving"]))
+    for rec in f16:
+        kern = rec["name"].removesuffix("_f16")
+        variant = "int8" if kern == "int8_conv" else "float16"
+        rec["serving_launches"] = sum(out["serving"][variant]["launches"][kern].values())
+    lap("16_serving_f16")
+    records += f16
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8-draws", type=int, default=0, metavar="N",
@@ -3393,6 +3589,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     records = [check_upsample_argmax(gen), check_comm_fusion(gen), *check_fused_block()]
     print("kernel checks passed; K3 " + json.dumps(records[2:]))
+    drops = {"after_phase1": trace_drops(t0)}
     lap("1_kernels")
     print("k3_float64 " + json.dumps(k3_against_float64()))
     lap("1_k3_float64")
@@ -3446,7 +3643,7 @@ def main() -> int:
         rec["kernel_ms"] = rec["ms"]
     print("mixed_precision_eval " + json.dumps(mp_eval))
     lap("8_eval_bf16")
-    print("mixed_precision_card_vs_cpu " + json.dumps(bf16_card_vs_cpu()))
+    print("mixed_precision_card_vs_cpu " + json.dumps(mixed_card_vs_cpu("bfloat16")))
     lap("8_card_vs_cpu_bf16")
     print("mixed_precision_train " + json.dumps(run_training(eval_kernels, True)))
     lap("8_train_bf16")
@@ -3457,6 +3654,7 @@ def main() -> int:
     bf16_records[0]["zoo_launches"] = {name: z["k1_bf16_launches"] for name, z in zoo16.items()}
     records += bf16_records
     lap("8_zoo_bf16")
+    run_phase16(records, lap)  # beside its bf16 counterpart (module docstring)
 
     print("kernel checks passed at the bench's batch " +
           json.dumps(check_kernels_at_bench_batch(torch.Generator().manual_seed(SEED + 10))))
@@ -3506,7 +3704,12 @@ def main() -> int:
     lap("13_graphs")
     run_phase14(records)
     lap("14_loader")
+    drops["before_phase15"] = trace_drops(t0)
     run_phase15(records)
+    drops["after_phase15"] = trace_drops(t0)
+    print("trace_drops " + json.dumps(drops))
+    if min(drops["after_phase15"]["missing_per_window"]) == TRACE_PROBE_LAUNCHES:
+        raise AssertionError(f"no trace after phase 15 holds a kernel record: {drops}")
     lap("15_parallel")
     print("phase_seconds " + json.dumps(seconds))
 

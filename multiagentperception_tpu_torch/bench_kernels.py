@@ -9,16 +9,17 @@ without the lead, which times a call whose host side outlasts its kernel
 as the host's.
 
 Run as a script on the card, it times K4 ``int8_conv`` at each of the
-flagship's 16 int8 conv shapes (``K4_SHAPES``, batch 20 x 6, float32 and
-bf16 networks), K1 ``upsample_argmax`` and K2 ``comm_fusion`` (float32 and
-bf16) at the shapes ``chip_smoke.py`` times them, each with the lead and
-without it:
+flagship's 16 int8 conv shapes (``K4_SHAPES``, batch 20 x 6, float32, bf16
+and float16 networks), K1 ``upsample_argmax`` and K2 ``comm_fusion``
+(float32, bf16 and float16) at the shapes ``chip_smoke.py`` times them,
+each with the lead and without it:
 
     python -m multiagentperception_tpu_torch.bench_kernels [--iters 20] [--label NAME]
 
 It calls only the kernels' public wrappers, so it also times an earlier
 checkout of the port: copy this file into that checkout's package and run
-it there.
+it there. A network dtype that the checkout's K1, K2 or K4 route tables
+lack is skipped, with a line that says so.
 
 It prints one JSON line per (kernel, network dtype, shape) with both
 times, then one line per K4 network dtype with the sums over an eval
@@ -52,7 +53,7 @@ K4_SHAPES = (
     (512, 256, 16, 3, 1, 1, True, 2),     # PolicyNet4 conv2, SimpleDecoder's 512->256
     (256, 256, 16, 3, 2, 1, True, 1), (256, 256, 8, 3, 1, 1, True, 1),
     (256, 256, 8, 3, 2, 1, True, 1))      # PolicyNet4 conv3-5
-NETWORKS = {"f32": torch.float32, "bf16": torch.bfloat16}
+NETWORKS = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 
 def time_ms(fn, iters: int = 50, lead_cycles: int = HOST_LEAD_CYCLES) -> float:
@@ -110,6 +111,9 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator().manual_seed(0)
     n = BATCH * 6  # the bench's frames of 6 agents
     for network, dtype in NETWORKS.items():
+        if not all(dtype in table for table in (k1.ROUTES, k2.ROUTES, k4.QUANTIZE)):
+            emit({"network": network, "skipped": "no route for this dtype in this checkout"})
+            continue
         step = {"lead_ms": 0.0, "no_lead_ms": 0.0}
         for cin, cout, side, k, stride, pad, has_bias, calls in K4_SHAPES:
             x = torch.randn(n, cin, side, side, generator=gen).to(

@@ -45,15 +45,19 @@
 // ~4 us reading all of Q' and K in every block.
 // Block (0, b) also writes coef and soft. N <= kMaxAgents (16).
 //
-// Types: comm_fusion_f32 takes float32 Q', K and V; comm_fusion_bf16 takes
-// bfloat16 ones (the mixed-precision MIMOcom's), as the TPU kernel does
-// (comm_fusion.py:42-43, 63-67): Q' and K are converted to float32 as they
-// are staged into shared memory, so the graph is the float32 route's; V
-// moves in 16-byte loads of 8 bf16 values, each converted to float32, the
-// fusion accumulates in float32 registers, and fused is rounded to bf16
-// once, at the store. coef and soft are float32 in both.
+// Types: comm_fusion_f32 takes float32 Q', K and V; comm_fusion_bf16 and
+// comm_fusion_f16 take bfloat16 or float16 ones (the mixed-precision
+// MIMOcom's), as the TPU kernel does (comm_fusion.py:42-43, 63-67): Q' and
+// K are converted to float32 as they are staged into shared memory, so the
+// graph is the float32 route's; V moves in 16-byte loads of 8 values, each
+// converted to float32, the fusion accumulates in float32 registers, and
+// fused is rounded to V's type once, at the store. coef and soft are
+// float32 in all three. bf16's conversions to float32 are shifts of its
+// bits (bf16_lo / bf16_hi); float16's are the hardware's (__half22float2),
+// its rounding __floats2half2_rn.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 
 #include "hopper.cuh"
@@ -111,9 +115,36 @@ struct Pack<__nv_bfloat16> {
     return make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+// A word of two float16 values as float32 (exact).
+__device__ __forceinline__ float2 f16x2(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+template <>
+struct Pack<__half> {
+  static constexpr int kElems = 8;
+  __device__ static __forceinline__ void unpack(const uint4& p, float (&v)[8]) {
+    const uint32_t w[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = f16x2(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static __forceinline__ uint4 pack(const float (&v)[8]) {  // round to nearest even
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // The cluster barrier's halves. A release waits for this thread's loads in
 // flight, so the kernel arrives before it issues any.
@@ -171,6 +202,15 @@ __device__ __forceinline__ float4 load_qk4(const __nv_bfloat16* p, bool now) {
   else
     u = *reinterpret_cast<const uint2*>(p);
   return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+__device__ __forceinline__ float4 load_qk4(const __half* p, bool now) {
+  uint2 u;
+  if (now)
+    asm volatile("ld.global.v2.u32 {%0, %1}, [%2];" : "=r"(u.x), "=r"(u.y) : "l"(p));
+  else
+    u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = f16x2(u.x), b = f16x2(u.y);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 template <int MAXN>
@@ -469,7 +509,7 @@ int launch_n(const T* q, const T* k, const T* v, T* fused, float* coef, float* s
 }  // namespace
 
 // q, k: (B, N, D); v, fused: (B, N, M) with 16-byte aligned rows, M % 4 == 0
-// (f32) or M % 8 == 0 (bf16); coef, soft: (B, N, N) f32. mode: 0 softmax,
+// (f32) or M % 8 == 0 (bf16, f16); coef, soft: (B, N, N) f32. mode: 0 softmax,
 // 1 activated, 2 argmax. Returns a cudaError_t.
 extern "C" int comm_fusion_f32(const float* q, const float* k, const float* v,
                                float* fused, float* coef, float* soft, int B, int N,
@@ -482,5 +522,11 @@ extern "C" int comm_fusion_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const __nv_bfloat16* v, __nv_bfloat16* fused, float* coef,
                                 float* soft, int B, int N, int D, long long M, int mode,
                                 float diag_bias, float thres, void* stream) {
+  return launch_n(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, stream);
+}
+
+extern "C" int comm_fusion_f16(const __half* q, const __half* k, const __half* v, __half* fused,
+                               float* coef, float* soft, int B, int N, int D, long long M,
+                               int mode, float diag_bias, float thres, void* stream) {
   return launch_n(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, stream);
 }

@@ -9,26 +9,28 @@
 //     x_i8 = rint(clip(x / s_x, -127, 127))                (half to even)
 //     acc  = conv(x_i8, w_i8)  in int32, padding = int8 zeros
 //     y    = float(acc) * (s_x * s_w[c]) (+ bias[c])        float32, no FMA
-// and rounds y once to the output type (float32 or bfloat16); the s32
+// and rounds y once to the output type (float32, bfloat16 or float16); the s32
 // entry point writes acc itself (the checks hold it against the plain
 // version's exact sum).
 //
 // Bound on the H100: bytes, at the flagship's bench batch (B*N = 120 at
 // 512x512). The step's 48 int8 convolutions are ~2.6e12 operations, 1.3
 // ms at the int8 tensor cores' 1,979 TOPS dense; their activations, int8
-// scratch and outputs move 7.5 GB (float32 network) or 4.5 GB (bf16),
+// scratch and outputs move 7.5 GB (float32 network) or 4.5 GB (bf16 or
+// float16),
 // 7.5 / 4.5 ms at 3.35 TB/s (the 512-channel 16x16 convolutions alone are
 // bound by operations). chip_smoke.py phase 10 splits the bound between
 // the two launches and times each.
 //
 // Launch 1, the quantize pass, at its byte bound (one read of x, one write
-// of the scratch). quantize_nhwc_kernel: NCHW float32/bf16 to NHWC int8
-// with Cp channels (Cin rounded up to 16, the padding zero), so that K, the
-// channels of one tap, is contiguous in 16-byte pieces. A block takes 64
-// channels x 16 16-byte runs along the image row (64 pixels float32, 128
-// bf16): a thread loads 4 channels x one run, packs each pixel's 4 int8
-// channels into a word in shared memory, and the block writes 16-byte
-// pieces along the channels. quantize_s2d_kernel (the stride-2 stem, Cin <=
+// of the scratch). quantize_nhwc_kernel: NCHW float32/bf16/float16 to NHWC
+// int8 with Cp channels (Cin rounded up to 16, the padding zero), so that
+// K, the channels of one tap, is contiguous in 16-byte pieces. A block
+// takes 64 channels x 16 16-byte runs along the image row (64 pixels
+// float32, 128 bf16 or float16, whose values are converted to float32
+// exactly before the same division and rounding): a thread loads 4
+// channels x one run, packs each pixel's 4 int8 channels into a word in
+// shared memory, and the block writes 16-byte pieces along the channels. quantize_s2d_kernel (the stride-2 stem, Cin <=
 // 4): space to depth, a 16-byte scratch pixel per 2 x 2 block of pixels x 4
 // channels, so that the stem runs as a stride-1 convolution over 16
 // channels on the halo route.
@@ -81,7 +83,10 @@
 // pixels at a time in shared memory as [channel][pixel], and write each
 // channel's pixels as 16-byte vector stores along NCHW's rows (a scalar
 // store where a run is ragged or unaligned): 64-byte runs per halo row of
-// 16, whole 128-pixel runs at 16x16 and in the gather route.
+// 16, whole 128-pixel runs at 16x16 and in the gather route. The stores
+// are one template on the output's element type (store_pass<OutT>): float
+// (f32, or the s32 bits), or a 16-bit float (bf16, float16) rounded to
+// nearest even, 8 values a store.
 //
 // Shared memory: the halo chunks, the ring, each epilogue's staging, the
 // mbarriers. The wrapper's plan() is the one source of that layout: it
@@ -92,6 +97,7 @@
 // launch instead of overlapping shared memory.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "hopper.cuh"
 
@@ -115,7 +121,7 @@ constexpr int kSmemLimit = 232448;            // dynamic shared memory a CTA may
 #endif
 
 enum Route { kHalo = 0, kGather16 = 1, kS2d = 2 };
-enum OutKind { kF32 = 0, kBF16 = 1, kS32 = 2 };
+enum OutKind { kF32 = 0, kBF16 = 1, kS32 = 2, kF16 = 3 };
 
 // routes whose A comes from a TMA halo
 __host__ __device__ constexpr bool halo_a(int r) { return r == kHalo || r == kS2d; }
@@ -158,6 +164,22 @@ struct Geometry {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+
+// A float32 value, and a pair of them as one word, rounded (to nearest
+// even) to the 16-bit output type of the tag's
+__device__ __forceinline__ __nv_bfloat16 round_to(float v, __nv_bfloat16) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ __half round_to(float v, __half) { return __float2half_rn(v); }
+__device__ __forceinline__ uint32_t round_pair(float a, float b, __nv_bfloat16) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t round_pair(float a, float b, __half) {
+  const __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 __device__ __forceinline__ uint32_t quantize(float v, float s) {
   const float q = fminf(fmaxf(__fdiv_rn(v, s), -127.f), 127.f);
@@ -227,7 +249,8 @@ __global__ void __launch_bounds__(kQThreads) quantize_nhwc_kernel(
 // 4) to (N, ceil(H/2), ceil(W/2), 16) int8, a 16-byte "pixel" holding a
 // 2 x 2 block of pixels x 4 channels as [row][column][channel] (zero past
 // the image and past Cin). A thread takes two neighbouring blocks: 4
-// columns of 2 rows, read as 16-byte runs (float32) or 8-byte ones (bf16),
+// columns of 2 rows, read as 16-byte runs (float32) or 8-byte ones (bf16,
+// float16),
 // written as two 16-byte stores. Over this scratch the stride-2 convolution
 // is a stride-1 one over 16 channels with about half the taps a side
 // (int8_conv.py's s2d_taps), which the halo's TMA boxes can feed.
@@ -427,10 +450,13 @@ __device__ __forceinline__ void produce_gather(const int8_t* __restrict__ xq, co
 
 // One pass's stores by NT threads: 64 staged channels x the tile's TM
 // pixels, VL pixels (16 bytes) a store. A thread keeps one pixel run (its
-// output offset decoded once) and steps over the channels.
-template <int VL, int TM, int NT, int R>
+// output offset decoded once) and steps over the channels. OutT: float
+// (f32, or the s32 bits staged as floats) or a 16-bit float type.
+template <typename OutT, int TM, int NT, int R>
 __device__ __forceinline__ void store_pass(const float* epi, const Tile& tl, const Geometry& g,
                                            int co0, void* out) {
+  constexpr bool kHalf = sizeof(OutT) == 2;
+  constexpr int VL = 16 / sizeof(OutT);
   constexpr int G = TM / VL;           // runs a channel
   constexpr int CSTEP = NT / G;        // channels a step
   constexpr int PITCH = TM + 4;
@@ -458,14 +484,11 @@ __device__ __forceinline__ void store_pass(const float* epi, const Tile& tl, con
     const long long idx = pix + co * ohw;
     if (vec) {
       const float4 a = *reinterpret_cast<const float4*>(src);
-      if constexpr (VL == 8) {
+      if constexpr (kHalf) {
         const float4 b = *reinterpret_cast<const float4*>(src + 4);
-        const __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
-                                     __floats2bfloat162_rn(a.z, a.w),
-                                     __floats2bfloat162_rn(b.x, b.y),
-                                     __floats2bfloat162_rn(b.z, b.w)};
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + idx) =
-            *reinterpret_cast<const uint4*>(h);
+        *reinterpret_cast<uint4*>(static_cast<OutT*>(out) + idx) =
+            make_uint4(round_pair(a.x, a.y, OutT{}), round_pair(a.z, a.w, OutT{}),
+                       round_pair(b.x, b.y, OutT{}), round_pair(b.z, b.w, OutT{}));
       } else {
         *reinterpret_cast<float4*>(static_cast<float*>(out) + idx) = a;  // f32 or s32 bits
       }
@@ -480,8 +503,8 @@ __device__ __forceinline__ void store_pass(const float* epi, const Tile& tl, con
         const long long img = m / ohw;
         at = (img * g.cout + co) * ohw + (m - img * ohw);
       }
-      if constexpr (VL == 8)
-        static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(src[e]);
+      if constexpr (kHalf)
+        static_cast<OutT*>(out)[at] = round_to(src[e], OutT{});
       else
         static_cast<uint32_t*>(out)[at] = __float_as_uint(src[e]);  // f32, or s32 bits
     }
@@ -543,9 +566,11 @@ __device__ __forceinline__ void epilogue(int (&acc)[Tl::MB][Tl::NB / 2], float* 
     named_sync(bar, Tl::EPI_T);
     const int co0 = tl.slice * NB + pass * kEpiChannels;
     if (g.out_kind == kBF16)
-      store_pass<8, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
+      store_pass<__nv_bfloat16, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
+    else if (g.out_kind == kF16)
+      store_pass<__half, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
     else
-      store_pass<4, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
+      store_pass<float, Tl::TM, Tl::EPI_T, R>(epi, tl, g, co0, out);
   }
   if (INT8_CONV_LAG_CYCLES > 0 && warp == 1) {
     const long long until = clock64() + INT8_CONV_LAG_CYCLES;
@@ -804,7 +829,7 @@ int launch_quantize(const T* x, const float* sx, int n_img, int c_in, int hw, in
   if (V == 4 || hw > 64) {
     const dim3 grid((hw + 16 * V - 1) / (16 * V), (cp + 63) / 64, n_img);
     quantize_nhwc_kernel<T, V><<<grid, kQThreads, 0, stream>>>(x, sx, c_in, hw, cp, vec, xq);
-  } else {  // bf16 at most 64 pixels: 8-byte runs, a block's 64 pixels
+  } else {  // 16-bit at most 64 pixels: 8-byte runs, a block's 64 pixels
     const int vec8 = hw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
     const dim3 grid((hw + 63) / 64, (cp + 63) / 64, n_img);
     quantize_nhwc_kernel<T, 4><<<grid, kQThreads, 0, stream>>>(x, sx, c_in, hw, cp, vec8, xq);
@@ -876,6 +901,11 @@ extern "C" int int8_quantize_bf16(const __nv_bfloat16* x, const float* sx, int n
   return launch_quantize(x, sx, n_img, c_in, hw, cp, xq, (cudaStream_t)stream);
 }
 
+extern "C" int int8_quantize_f16(const __half* x, const float* sx, int n_img, int c_in, int hw,
+                                 int cp, int8_t* xq, void* stream) {
+  return launch_quantize(x, sx, n_img, c_in, hw, cp, xq, (cudaStream_t)stream);
+}
+
 // x: (N, Cin <= 4, H, W); xq: (N, ceil(H/2), ceil(W/2), 16), every byte written
 extern "C" int int8_quantize_s2d_f32(const float* x, const float* sx, int n_img, int c_in, int h,
                                      int w, int8_t* xq, void* stream) {
@@ -884,6 +914,11 @@ extern "C" int int8_quantize_s2d_f32(const float* x, const float* sx, int n_img,
 
 extern "C" int int8_quantize_s2d_bf16(const __nv_bfloat16* x, const float* sx, int n_img,
                                       int c_in, int h, int w, int8_t* xq, void* stream) {
+  return launch_quantize_s2d(x, sx, n_img, c_in, h, w, xq, (cudaStream_t)stream);
+}
+
+extern "C" int int8_quantize_s2d_f16(const __half* x, const float* sx, int n_img, int c_in,
+                                     int h, int w, int8_t* xq, void* stream) {
   return launch_quantize_s2d(x, sx, n_img, c_in, h, w, xq, (cudaStream_t)stream);
 }
 
@@ -909,4 +944,5 @@ extern "C" int int8_quantize_s2d_bf16(const __nv_bfloat16* x, const float* sx, i
 
 INT8_CONV_ENTRY(int8_conv_f32, kF32)
 INT8_CONV_ENTRY(int8_conv_bf16, kBF16)
+INT8_CONV_ENTRY(int8_conv_f16, kF16)
 INT8_CONV_ENTRY(int8_conv_s32, kS32)

@@ -36,13 +36,16 @@
 // chains, and writes one 16-byte int4 a run. Other shapes, and other
 // class counts than the model's 11, take the per-pixel path.
 //
-// The logits come in float32 (upsample_argmax_f32) or bfloat16
-// (upsample_argmax_bf16, the mixed-precision models' decoder output). A
-// bf16 value is converted to float32 as phase 1 reads it, as the TPU
-// kernel upcasts each class's slice (upsample_argmax.py:38); everything
-// after, the shared rows included, is the float32 route's.
+// The logits come in float32 (upsample_argmax_f32), bfloat16
+// (upsample_argmax_bf16) or float16 (upsample_argmax_f16): the
+// mixed-precision models' decoder output. A bf16 or float16 value is
+// converted to float32 (exactly) as phase 1 reads it, as the TPU kernel
+// upcasts each class's slice (upsample_argmax.py:38); everything after,
+// the shared rows included, is the float32 route's, so the shared memory a
+// block holds does not depend on the type.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +59,7 @@ constexpr int kClasses = 11;   // the model's classes: the span path's class loo
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // kC > 0: C == kC, known to the compiler (the span path runs at the model's
 // kClasses only); kC == 0: any C.
@@ -210,7 +214,7 @@ int launch(const T* x, int n_img, int C, int h, int w, const int* ytap, const fl
 
 }  // namespace
 
-// x: (n_img, C, h, w) f32 or bf16; taps: (H, 2) / (W, 2) int32 indices and
+// x: (n_img, C, h, w) f32, bf16 or f16; taps: (H, 2) / (W, 2) int32 indices and
 // f32 weights; span4: 1 if W % 4 == 0 and every aligned run of 4 output
 // columns shares one tap pair, else 0; out: (n_img, H, W) int32, 16-byte
 // aligned when span4. Returns cudaGetLastError().
@@ -226,6 +230,14 @@ extern "C" int upsample_argmax_bf16(const __nv_bfloat16* x, int n_img, int C, in
                                     const int* ytap, const float* ywt,
                                     const int* xtap, const float* xwt,
                                     int H, int W, int span4, int32_t* out, void* stream) {
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                (cudaStream_t)stream);
+}
+
+extern "C" int upsample_argmax_f16(const __half* x, int n_img, int C, int h, int w,
+                                   const int* ytap, const float* ywt,
+                                   const int* xtap, const float* xwt,
+                                   int H, int W, int span4, int32_t* out, void* stream) {
   return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
                 (cudaStream_t)stream);
 }

@@ -26,14 +26,16 @@ batch index into one key) and one per train step. A card run and a CPU
 run with one seed pick the same partners.
 
 A mixed-precision model (``model.dtype: bfloat16`` or
-``training.mixed_precision``) takes the same float32 frames (its first
-convolution casts them) and hands the kernel bf16 pre-upsample logits,
-which it upcasts, as the JAX evaluation hands its Pallas kernel.
+``training.mixed_precision``, or ``model.dtype: float16``) takes the same
+float32 frames (its first convolution casts them) and hands the kernel
+pre-upsample logits in its type, which it upcasts, as the JAX evaluation
+hands its Pallas kernel.
 
 On the card, ``evaluate`` and the trainer's validation run each batch as
 a CUDA graph (``graphs.GraphCache``), the counterpart of JAX's one jitted
 dispatch a step: keyed by the inference mode, ``with_loss``, the active
-int8 swap, the model's dtype, the inputs' shapes and the TF32 settings,
+int8 swap, the model's dtype, the inputs' shapes and the precision
+settings (TF32, cuBLAS's reduced-precision float16 and bf16 reductions),
 the first batch of a key runs eagerly, the second is captured, the rest
 replay; the frames, labels, ``commun_label`` and the draws are copied into
 the graph's static buffers, and its outputs copied out, at each replay. A
@@ -394,6 +396,8 @@ class Evaluator:
                None if swap is None else swap.serial,
                self.compute_dtype, torch.backends.cudnn.allow_tf32,
                torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction,
+               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(host.items())))
         if self._eval_graphs is None:
             self._eval_graphs = GraphCache(self.device)
@@ -425,7 +429,7 @@ class Evaluator:
     def _record(self, metrics: runningScore, res: dict, commun_label,
                 bandwidth: bool = True, selection: bool = True) -> dict:
         # numpy has no bfloat16: a bf16 model's thresholded row reads back as
-        # float32 (the same values)
+        # float32 (the same values); float16 reads back as it is
         host = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
                 for k, v in res.items()}
         if "num_connect_parts" in host:  # the batch's rows split over data ranks

@@ -12,8 +12,9 @@ Logits are NCHW ``(B, C, H, W)``; targets ``(B, H, W)`` of any integer type
 - ``bootstrapped_cross_entropy2d`` averages each image's K largest pixel
   losses (unweighted, as the JAX package's).
 
-bf16 logits (mixed precision) are resized in bf16 and then upcast: the
-log-softmax and the mean run in float32, as in JAX (loss.py:44, 94).
+bf16 or float16 logits (mixed precision) are resized in their type and
+then upcast: the log-softmax and the mean run in float32, as in JAX
+(loss.py:41-44, 94). There is no loss scaling in either type (JAX has none).
 
 Under data parallel (and the agent ring's training) each rank holds a
 share of the pixels JAX's jit averages over; ``group`` (a

@@ -6,10 +6,9 @@ and the ``simple_decoder`` / ``FCN_decoder`` / ``n_segnet_decoder``
 decoders, with ``feat_squeezer``, ``sparse`` (sparsemax on the SRMS
 attentions), MIMOcom's ``query: false`` / ``multiple_output: false`` and its
 ``topk`` eval (``topk_k``), in float32 or, with ``model.dtype: bfloat16``
-or the ``training.mixed_precision`` shorthand, computing in bf16 with
-float32 parameters and BatchNorm statistics (``compute_dtype``). What the
-port does not carry yet raises ``NotImplementedError`` naming the key and
-ROADMAP.md, never a silent substitute: ``model.dtype: float16``.
+(or the ``training.mixed_precision`` shorthand) or ``model.dtype:
+float16``, computing in that type with float32 parameters and BatchNorm
+statistics (``compute_dtype``). Nothing on the model surface is refused.
 With a ``parallel.Layout`` whose rings hold more than one rank
 (``model.agent_parallel``), MIMOcom's full-graph eval modes run the
 communication step as a ring over its agent group (``parallel.ring``), and
@@ -54,17 +53,12 @@ MODELS = {
     "MIMOcom": MIMOcom,
     "MIMOcomWho": MIMOcomWho,
 }
-_LATER = "not ported yet; see ROADMAP.md queue A"
-
-
-def _refuse(key: str, value) -> None:
-    raise NotImplementedError(f"model.{key}={value!r}: {_LATER}")
 
 
 def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype | None:
     """The models' compute dtype (JAX models/__init__.py:57-66):
-    ``model.dtype``, else ``bfloat16`` when ``training.mixed_precision`` is
-    set; ``None`` for float32."""
+    ``model.dtype`` (``bfloat16`` or ``float16``), else ``bfloat16`` when
+    ``training.mixed_precision`` is set; ``None`` for float32."""
     name = cfg["model"].get("dtype")
     if name is None and cfg.get("training", {}).get("mixed_precision"):
         name = "bfloat16"
@@ -73,8 +67,8 @@ def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype | None:
     if name == "bfloat16":
         return torch.bfloat16
     if name == "float16":
-        _refuse("dtype", name)
-    raise KeyError(f"model.dtype={name!r}: bfloat16, float32 or None")
+        return torch.float16
+    raise KeyError(f"model.dtype={name!r}: bfloat16, float16, float32 or None")
 
 
 def get_model(cfg: Mapping[str, Any], n_classes: int, layout=None) -> nn.Module:

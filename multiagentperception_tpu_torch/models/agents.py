@@ -45,11 +45,12 @@ run and a CPU run with one seed pick the same partners.
 
 Every architecture takes ``dtype``, the compute dtype (``None`` for
 float32, ``torch.bfloat16`` for ``model.dtype: bfloat16`` /
-``training.mixed_precision``), and hands it to every tower, head and
-attention, as the JAX models do (agents.py:79, 105, 150, 205, 287, 382).
-The parameters stay float32; the frames enter in float32 and the first
-convolution casts them. In bf16 the predictions are bf16, the MIMO graphs
-float32, and MIMOcom's pruned modes hand the comm step bf16 Q', K and V.
+``training.mixed_precision``, ``torch.float16`` for ``model.dtype:
+float16``), and hands it to every tower, head and attention, as the JAX
+models do (agents.py:79, 105, 150, 205, 287, 382). The parameters stay
+float32; the frames enter in float32 and the first convolution casts
+them. In a 16-bit compute dtype the predictions are in it, the MIMO graphs
+float32, and MIMOcom's pruned modes hand the comm step Q', K and V in it.
 """
 
 from __future__ import annotations

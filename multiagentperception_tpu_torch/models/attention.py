@@ -13,11 +13,14 @@ attentions accept it and ignore it, as the JAX ones and the reference do
 (agent.py:274 always softmaxes).
 
 ``dtype`` is the compute dtype of the linear layers (``models.blocks``).
-In bf16 the SRMS attentions stay in bf16 end to end, the logits' softmax
-included, as the JAX ones do; the MIMO attentions take the bf16 einsum
-``K Q'^T``, upcast it to float32 and return a float32 graph
-(attention.py:102-106, 121-126), and the fusion casts the graph to the
-values' dtype (``ops.comm.fuse_values``).
+In a 16-bit compute dtype (bf16 or float16) the SRMS attentions stay in it
+end to end, the logits' softmax included, as the JAX ones do; the MIMO
+attentions take the einsum ``K Q'^T`` rounded to the compute dtype, upcast
+it to float32 and return a float32 graph (attention.py:102-106, 121-126),
+and the fusion casts the graph to the values' dtype
+(``ops.comm.fuse_values``). (The fused comm step, K2, upcasts Q' and K
+first and never rounds the logits, as the Pallas kernel does.) A float16
+logit beyond 65504 is inf here as in JAX; nothing clamps.
 """
 
 from __future__ import annotations

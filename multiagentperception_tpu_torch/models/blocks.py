@@ -10,12 +10,14 @@ statistics by momentum 0.1 towards the batch mean and the unbiased
 variance ``n/(n-1)``, as torch does.
 
 Mixed precision follows the JAX blocks' ``dtype=`` (blocks.py:17-19): with
-``dtype=torch.bfloat16`` the convolutions and linear layers cast their
-input, weight and bias to bf16 at the call and return bf16 (``Conv2d``,
-``ConvTranspose2d``, ``Linear``), while every parameter and BatchNorm statistic stays float32.
-``nn.BatchNorm2d`` with float32 parameters takes the bf16 input, works in
-float32 and returns bf16, in both modes, which is the JAX ``TorchBatchNorm``
-with ``dtype`` set (blocks.py:61-77). ``dtype=None`` is the float32 program.
+``dtype=torch.bfloat16`` (or ``torch.float16``) the convolutions and linear
+layers cast their input, weight and bias to that type at the call and
+return it (``Conv2d``, ``ConvTranspose2d``, ``Linear``), while every
+parameter and BatchNorm statistic stays float32. ``nn.BatchNorm2d`` with
+float32 parameters takes the 16-bit input, works in float32 and returns
+the input's type, in both modes and on both devices, which is the JAX
+``TorchBatchNorm`` with ``dtype`` set (blocks.py:61-77). ``dtype=None`` is
+the float32 program.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ class Conv2d(nn.Conv2d):
     input, weight and bias are cast at the call, the parameters stay float32
     (flax ``nn.Conv(dtype=...)``). ``None`` runs ``nn.Conv2d`` unchanged.
 
-    On CPU tensors a bf16 convolution runs as the float32 convolution of
-    the bf16-rounded operands, rounded once to bf16: the same exact products
-    and float32 sums, without oneDNN's bf16 kernels, whose weight gradient
-    is wrong (NaN, inf or garbage) for a 1x1 input at stride 2 in torch
-    2.13's CPU build (the policy tower's ``conv5`` below 128x128)."""
+    On CPU tensors a bf16 or float16 convolution runs as the float32
+    convolution of the rounded operands, rounded once to the compute dtype:
+    the same exact products (a product of two 16-bit values is exact in
+    float32) and float32 sums, as XLA's CPU convolution forms them, without
+    oneDNN's bf16 kernels, whose weight gradient is wrong (NaN, inf or
+    garbage) for a 1x1 input at stride 2 in torch 2.13's CPU build (the
+    policy tower's ``conv5`` below 128x128)."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -71,9 +75,10 @@ class Linear(nn.Linear):
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` when one is
     set, as ``Conv2d`` does (flax ``nn.ConvTranspose(dtype=...)``). torch
-    2.13's CPU bf16 transposed convolution has no fault of the kind
-    ``Conv2d`` works around (its gradients lie within bf16 rounding of
-    float64's at the decoders' geometries), so it runs as it is."""
+    2.13's CPU bf16 and float16 transposed convolutions have no fault of
+    the kind ``Conv2d`` works around (their gradients lie within the type's
+    rounding of float64's at the decoders' geometries), so they run as they
+    are."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
         super().__init__(*args, **kwargs)

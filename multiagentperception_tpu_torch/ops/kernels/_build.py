@@ -40,8 +40,10 @@ _K4_QUANTIZE_ARGS = [P, P, I32, I32, I32, I32, P, P]
 _K4_ARGS = [P, P, P, P, P, P] + [I32] * 22 + [P]
 # C entry points and their signatures, per kernel source
 SIGNATURES = {
-    "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS},
-    "comm_fusion": {"comm_fusion_f32": _K2_ARGS, "comm_fusion_bf16": _K2_ARGS},
+    "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS,
+                        "upsample_argmax_f16": _K1_ARGS},
+    "comm_fusion": {"comm_fusion_f32": _K2_ARGS, "comm_fusion_bf16": _K2_ARGS,
+                    "comm_fusion_f16": _K2_ARGS},
     "fused_block_wgmma": {"fused_basic_block_wgmma": [P, P, P, P, I32, I32, I32, I32, P]},
     "fused_block_tf32": {"fused_basic_block_tf32x3": [P, P, P, P, I32, I32, I32, I32, P]},
     "fused_block_wgmma_conv": {"fused_basic_block_wgmma_conv":
@@ -49,10 +51,12 @@ SIGNATURES = {
     "fused_block_tf32_conv": {"fused_basic_block_tf32x3_conv":
                               [P, P, P, P, P, P, P, I32, I32, I32, I32, P]},
     "int8_conv": {"int8_quantize_f32": _K4_QUANTIZE_ARGS, "int8_quantize_bf16": _K4_QUANTIZE_ARGS,
+                  "int8_quantize_f16": _K4_QUANTIZE_ARGS,
                   "int8_quantize_s2d_f32": _K4_QUANTIZE_ARGS,
                   "int8_quantize_s2d_bf16": _K4_QUANTIZE_ARGS,
+                  "int8_quantize_s2d_f16": _K4_QUANTIZE_ARGS,
                   "int8_conv_f32": _K4_ARGS, "int8_conv_bf16": _K4_ARGS,
-                  "int8_conv_s32": _K4_ARGS},
+                  "int8_conv_f16": _K4_ARGS, "int8_conv_s32": _K4_ARGS},
 }
 
 # debug builds: name -> (source, extra nvcc flags). int8_conv_lag: K4 with

@@ -5,10 +5,10 @@ shapes, and ``tests/test_torch_cuda.py`` runs them too. Each check raises
 returns what it measured.
 
 Tolerances:
-- K1 (``upsample_argmax``), float32 or bfloat16 logits: at least 99.99% of
-  pixels agree. At every pixel that differs, the plain version's top two
-  upsampled logits (in float32, as both sides upcast bf16 logits first)
-  lie within 1e-4 (a near-tie), because the kernel sums its taps in
+- K1 (``upsample_argmax``), float32, bfloat16 or float16 logits: at least
+  99.99% of pixels agree. At every pixel that differs, the plain version's
+  top two upsampled logits (in float32, as both sides upcast 16-bit logits
+  first) lie within 1e-4 (a near-tie), because the kernel sums its taps in
   another order than the dense matmuls. An all-equal input gives class 0.
 - K2 (``comm_fusion``): masks equal to the plain version's; ``coef`` and
   ``soft`` within atol 1e-6 of the plain version run in float64 on the
@@ -21,7 +21,10 @@ Tolerances:
   6). fused: float32 within rtol/atol 1e-5; bfloat16
   (both sides sum in float32 and round once) within one bf16 ulp of the
   larger of the two values plus atol 1e-5, the float32 route's atol, for
-  sums that cancel to near zero, where an ulp is tiny.
+  sums that cancel to near zero, where an ulp is tiny. float16 within one
+  float16 ulp plus 1e-5 of the plain version and of ``coef``^T V in
+  float64 (both rounded once from a sum within float32 rounding of the
+  exact one).
 - K3 (``fused_basic_block``), with TF32 off for the plain version's
   convolutions: float32 within rtol/atol 1e-4 (tests/test_fused_block.py's
   bound). bfloat16: both sides form exact bf16 products and sum them in
@@ -69,12 +72,16 @@ Tolerances:
   to the bit in float32 and in bfloat16 (both sides form
   ``float(acc) * (s_x * s_w) + bias`` in float32 with one rounding per
   operation and round once to bf16), with a static or a dynamic ``s_x``.
+  In float16 the output is the plain version's to the bit too, and within
+  one float16 ulp of the plain version's float32 rescale (the one
+  rounding).
 """
 
 from __future__ import annotations
 
 import torch
 
+from multiagentperception_tpu_torch.ops.comm import fuse_values
 from multiagentperception_tpu_torch.ops.kernels import comm_fusion as k2
 from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
@@ -137,8 +144,10 @@ def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: s
     torch.testing.assert_close(soft.double(), x_soft, rtol=0, atol=K2_GRAPH_ATOL)
     if fused.dtype != v.dtype or r_fused.dtype != v.dtype:
         raise AssertionError(f"K2 fused in {fused.dtype}, plain {r_fused.dtype}, V {v.dtype}")
-    if v.dtype == torch.bfloat16:
-        assert_within_bf16_ulp(fused, r_fused, K2_ATOL)
+    if v.dtype in (torch.bfloat16, torch.float16):
+        assert_within_ulp(fused, r_fused, K2_ATOL, v.dtype)
+        if v.dtype == torch.float16:
+            assert_within_ulp(fused, fuse_values(x_coef, v.double()), K2_ATOL, v.dtype)
     else:
         torch.testing.assert_close(fused, r_fused, rtol=K2_ATOL, atol=K2_ATOL)
     if mode == "activated":
@@ -168,22 +177,37 @@ def check_comm_fusion_squeezed(gen: torch.Generator, device, dtype=torch.float32
     return errs
 
 
+# a 16-bit type's (stored significand bits, least normal exponent)
+_SIGNIFICANDS = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}
+
+
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype`` numbers at ``|v|`` (bfloat16 8 significant
+    bits, float16 11; below the least normal number, its subnormals')."""
+    bits, least = _SIGNIFICANDS[dtype]
+    mag = v.float().abs().clamp(min=2.0 ** least)
+    return torch.exp2(torch.floor(torch.log2(mag)) - bits)
+
+
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     """The spacing of bfloat16 numbers (8 significant bits) at ``|v|``."""
-    mag = v.float().abs().clamp(min=2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ulp(v, torch.bfloat16)
 
 
-def assert_within_bf16_ulp(got: torch.Tensor, ref: torch.Tensor, atol: float) -> None:
-    """Every element of ``got`` within one bf16 ulp (of the larger of the
-    two values) plus ``atol`` of ``ref``: two float32 sums of one set of
-    terms in another order, each rounded once to bf16."""
-    g, r = got.float(), ref.float()
+def assert_within_ulp(got: torch.Tensor, ref: torch.Tensor, atol: float,
+                      dtype: torch.dtype) -> None:
+    """Every element of ``got`` within one ``dtype`` ulp (of the larger of
+    the two values) plus ``atol`` of ``ref``: two float32 sums of one set of
+    terms in another order, each rounded once to ``dtype`` (bfloat16 or
+    float16), or one such rounding of a float64 ``ref``. A non-finite
+    element passes only where both sides hold the same infinity."""
+    g, r = got.double(), ref.double()
     err = (g - r).abs()
-    bound = bf16_ulp(torch.maximum(g.abs(), r.abs())) + atol
-    if bool((err > bound).any()):
-        worst = int((err - bound).argmax())
-        raise AssertionError(f"{int((err > bound).sum())} elements beyond one bf16 ulp + "
+    bound = ulp(torch.maximum(g.abs(), r.abs()), dtype).double() + atol
+    ok = ((err <= bound) & torch.isfinite(g) & torch.isfinite(r)) | (g == r)
+    if not bool(ok.all()):
+        worst = int((~ok).double().argmax())
+        raise AssertionError(f"{int((~ok).sum())} elements beyond one {dtype} ulp + "
                              f"{atol}: e.g. {g.flatten()[worst].item()} vs "
                              f"{r.flatten()[worst].item()}")
 
@@ -283,7 +307,8 @@ def check_fused_block(x, w1, s1, b1, w2, s2, b2) -> dict:
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.float16: torch.int16}.get(t.dtype, t.dtype))
 
 
 def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
@@ -291,7 +316,8 @@ def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | 
                     out_dtype: torch.dtype, ops: bool = False) -> dict:
     """K4 against ``int8_conv_plain`` on the same tensors: int8 operands,
     int32 sums and the ``out_dtype`` output all equal (the output to the
-    bit), with the calibrated ``s_x`` or, if None, the dynamic scale.
+    bit; a float16 one also within one float16 ulp of the plain float32
+    rescale), with the calibrated ``s_x`` or, if None, the dynamic scale.
     Launches the kernel twice (the sums, then the output). ``ops`` holds
     the two ops ``torch.ops.when2com.int8_quantize`` / ``int8_gemm``
     called directly instead of the wrappers."""
@@ -327,5 +353,8 @@ def check_int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | 
         bad = int((_bits(y) != _bits(want)).sum())
         raise AssertionError(f"int8_conv: {bad} of {y.numel()} {out_dtype} outputs differ "
                              "from plain")
+    if out_dtype == torch.float16:
+        assert_within_ulp(y, k4.int8_conv_plain(x, w, s, bias, stride, padding), 0.0,
+                          torch.float16)
     return {"max_abs_err": float((y.float() - want.float()).abs().max()),
             "acc_abs_max": int(acc.abs().max()), "s_x": float(s)}

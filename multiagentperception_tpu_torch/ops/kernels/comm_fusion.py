@@ -6,10 +6,11 @@ keys, + ``diag_bias`` I (the pre-mask graph ``soft``), the mode mask
 (``softmax`` | ``activated`` strict ``> thres`` | ``argmax`` one-hot,
 lowest key on ties) giving ``coef``, and fused = coef^T V. As the TPU
 kernel does (comm_fusion.py:42-43, 63-67), Q', K and V are read in their
-dtype (float32 or bfloat16) and upcast, the graph and the fusion are
-float32, ``coef`` and ``soft`` are float32, and ``fused`` is rounded once to
-V's dtype. On CUDA tensors ``comm_fusion`` launches ``csrc/comm_fusion.cu``
-(entry point ``comm_fusion_f32`` or ``comm_fusion_bf16``, counted in
+dtype (float32, bfloat16 or float16) and upcast, the graph and the fusion
+are float32, ``coef`` and ``soft`` are float32, and ``fused`` is rounded once
+to V's dtype. On CUDA tensors ``comm_fusion`` launches
+``csrc/comm_fusion.cu`` (entry point ``comm_fusion_f32``,
+``comm_fusion_bf16`` or ``comm_fusion_f16``, counted in
 ``comm_fusion.route_launches``); on CPU tensors it runs
 ``comm_fusion_plain``, the same function in plain PyTorch, and so it does
 on ``meta`` tensors, which compute nothing (the bench counts the model's
@@ -33,7 +34,8 @@ MODES = ("softmax", "activated", "argmax")
 MAX_AGENTS = 16  # kMaxAgents in csrc/comm_fusion.cu
 # dtype: (route, C entry point, elements of V in one 16-byte load)
 ROUTES = {torch.float32: ("f32", "comm_fusion_f32", 4),
-          torch.bfloat16: ("bf16", "comm_fusion_bf16", 8)}
+          torch.bfloat16: ("bf16", "comm_fusion_bf16", 8),
+          torch.float16: ("f16", "comm_fusion_f16", 8)}
 
 
 def comm_fusion_plain(query_proj: torch.Tensor, keys: torch.Tensor,
@@ -95,8 +97,8 @@ def _launch(query_proj, keys, vals, mode, diag_bias, thres):
             raise ValueError(f"{name} on {t.device}, vals on {vals.device}")
         if t.dtype != vals.dtype or t.dtype not in ROUTES:
             raise TypeError(f"comm_fusion kernel takes query_proj, keys and vals all "
-                            f"float32 or all bfloat16; {name} is {t.dtype}, vals "
-                            f"{vals.dtype}")
+                            f"float32, all bfloat16 or all float16; {name} is {t.dtype}, "
+                            f"vals {vals.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"comm_fusion kernel takes contiguous tensors; {name} is not")
     if vals.dim() < 2 or query_proj.dim() != 3 or keys.dim() != 3:

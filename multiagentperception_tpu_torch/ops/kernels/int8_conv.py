@@ -5,25 +5,26 @@ The JAX package runs this through XLA (``multiagentperception_tpu/quantize.py``
 ``_int8_conv``, :106-117: ``lax.conv_general_dilated`` on int8 operands with
 ``preferred_element_type=jnp.int32``); it has no Pallas kernel. PyTorch on
 CUDA has no int8 convolution, so on the card ``int8_conv`` launches the
-hand-written ``csrc/int8_conv.cu``: a quantize pass (NCHW float32/bf16 to
-NHWC int8 scratch, at its byte bound's pace: 16-byte loads along the image
-row, 16-byte stores along the channels) and an implicit GEMM on Hopper's
-``wgmma`` s8 (persistent, warp-specialized: a producer warpgroup feeds two
-consumer warpgroups through an mbarrier ring; 128-pixel x NB-channel tiles
-with NB = 64/128/256, so a tile's activations are fetched once for all of
-Cout up to 256), whose epilogue rescales in registers, stages the tile in
-shared memory as [channel][pixel] and writes NCHW rows as 16-byte stores.
-For one ``models.blocks.Conv2d``:
+hand-written ``csrc/int8_conv.cu``: a quantize pass (NCHW
+float32/bf16/float16 to NHWC int8 scratch, at its byte bound's pace:
+16-byte loads along the image row, 16-byte stores along the channels) and
+an implicit GEMM on Hopper's ``wgmma`` s8 (persistent, warp-specialized: a
+producer warpgroup feeds two consumer warpgroups through an mbarrier ring;
+128-pixel x NB-channel tiles with NB = 64/128/256, so a tile's activations
+are fetched once for all of Cout up to 256), whose epilogue rescales in
+registers, stages the tile in shared memory as [channel][pixel] and
+writes NCHW rows as 16-byte stores. For one ``models.blocks.Conv2d``:
 
     x_i8 = round(clip(x / s_x, -127, 127))        (half to even, jnp.round)
     acc  = conv_int32(x_i8, w_i8)                   (int8 zero padding)
     y    = float(acc) * (s_x * s_w[c]) + bias[c]    (float32, rounded once)
 
-cast once to ``out_dtype``; ``out_dtype=torch.int32`` returns ``acc``
-itself (the checks hold the kernel's sums to the plain version's). Its
-bound on the H100 at the flagship's shapes is bytes (the activations,
-the int8 scratch and the outputs at 3.35 TB/s), except at 512 channels,
-where the int8 tensor cores' 1,979 TOPS bound it.
+cast once to ``out_dtype`` (float32, bfloat16 or float16: the network's
+dtype, as JAX quantize.py:126-132 writes it); ``out_dtype=torch.int32``
+returns ``acc`` itself (the checks hold the kernel's sums to the plain
+version's). Its bound on the H100 at the flagship's shapes is bytes (the
+activations, the int8 scratch and the outputs at 3.35 TB/s), except at 512
+channels, where the int8 tensor cores' 1,979 TOPS bound it.
 
 ``plan`` picks the GEMM's route from the geometry, in plain Python (the
 CPU tests reach it): ``halo`` (3x3, stride 1: one TMA load of a tile's
@@ -36,8 +37,8 @@ source of the kernel's shared-memory layout: it picks the compiled
 instantiation (``RINGS``) and passes every offset and the size to the
 launch, which only refuses a layout that cannot hold it. Each route
 launches its kernel or raises; nothing falls back. Its bound at the
-flagship's eval step is 7.5 ms (float32 network) / 4.5 ms (bf16) of bytes
-a step at batch 20 x 6; PERF.md gives the times.
+flagship's eval step is 7.5 ms (float32 network) / 4.5 ms (bf16 or
+float16) of bytes a step at batch 20 x 6; PERF.md gives the times.
 
 The pair runs as two custom ops (``torch.library``), so that
 ``torch.export`` keeps each as one node: ``when2com::int8_quantize`` (the
@@ -97,10 +98,14 @@ LIBRARY = "int8_conv"  # the build the launches bind; a test may name a debug on
 # output dtype: (route, C entry point of the GEMM)
 ROUTES = {torch.float32: ("f32", "int8_conv_f32"),
           torch.bfloat16: ("bf16", "int8_conv_bf16"),
+          torch.float16: ("f16", "int8_conv_f16"),
           torch.int32: ("s32", "int8_conv_s32")}
 # input dtype: C entry point of the quantize pass
-QUANTIZE = {torch.float32: "int8_quantize_f32", torch.bfloat16: "int8_quantize_bf16"}
-QUANTIZE_S2D = {torch.float32: "int8_quantize_s2d_f32", torch.bfloat16: "int8_quantize_s2d_bf16"}
+QUANTIZE = {torch.float32: "int8_quantize_f32", torch.bfloat16: "int8_quantize_bf16",
+            torch.float16: "int8_quantize_f16"}
+QUANTIZE_S2D = {torch.float32: "int8_quantize_s2d_f32", torch.bfloat16: "int8_quantize_s2d_bf16",
+                torch.float16: "int8_quantize_s2d_f16"}
+_TAKES = "float32, bfloat16 or float16"
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -366,9 +371,9 @@ def _check(x, w_shape: tuple, stride, padding, dilation, groups, out_dtype):
         raise ValueError(f"int8_conv: input {tuple(x.shape)} against weight "
                          f"{tuple(w_shape)}")
     if x.dtype not in QUANTIZE:
-        raise TypeError(f"int8_conv takes float32 or bfloat16 input, got {x.dtype}")
+        raise TypeError(f"int8_conv takes {_TAKES} input, got {x.dtype}")
     if out_dtype not in ROUTES:
-        raise TypeError(f"int8_conv writes float32, bfloat16 or int32, got {out_dtype}")
+        raise TypeError(f"int8_conv writes {_TAKES} or int32, got {out_dtype}")
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     if sh != sw or ph != pw:
         raise ValueError(f"int8_conv takes square stride and padding, got {stride}, {padding}")
@@ -462,7 +467,7 @@ def _scratch_plain(x: torch.Tensor, s_x: torch.Tensor, route: str, cp: int) -> t
 def int8_conv(x: torch.Tensor, w: Int8Weight, s_x: torch.Tensor | None = None,
               bias: torch.Tensor | None = None, stride=1, padding=0, dilation=1,
               groups: int = 1, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """NCHW float32/bf16 ``x`` -> NCHW ``out_dtype`` (default x's dtype)
+    """NCHW float32/bf16/float16 ``x`` -> NCHW ``out_dtype`` (default x's dtype)
     int8 convolution with ``w`` (``prepare_weight``). ``s_x`` is the
     activation scale, a float32 scalar tensor on x's device (a calibrated
     one), or None for the dynamic scale ``dynamic_scale(x)``. ``bias`` is
@@ -548,7 +553,7 @@ def _quantize_fake(x, s_x, route, cp):
 def _quantize_launch(x, s_x, route, cp):
     """The CUDA implementation: the quantize pass, or an error."""
     if x.dtype not in QUANTIZE:
-        raise TypeError(f"int8_conv takes float32 or bfloat16 input, got {x.dtype}")
+        raise TypeError(f"int8_conv takes {_TAKES} input, got {x.dtype}")
     if s_x.device != x.device:
         raise ValueError("int8_conv: the input, weight, scales and bias must share a device")
     if s_x.dtype != torch.float32 or s_x.numel() != 1:
@@ -608,7 +613,7 @@ def _gemm_launch(xq, operand, s_w, s_x, bias, c_in, kh, kw, h, w, stride, pad, o
     if any(t.device != xq.device for t in tensors):
         raise ValueError("int8_conv: the input, weight, scales and bias must share a device")
     if out_dtype not in ROUTES:
-        raise TypeError(f"int8_conv writes float32, bfloat16 or int32, got {out_dtype}")
+        raise TypeError(f"int8_conv writes {_TAKES} or int32, got {out_dtype}")
     if s_x.dtype != torch.float32 or s_x.numel() != 1:
         raise TypeError("int8_conv: s_x must be one float32 value")
     if s_w.dtype != torch.float32 or s_w.dim() != 1 or not s_w.is_contiguous():

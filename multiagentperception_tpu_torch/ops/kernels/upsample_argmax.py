@@ -4,11 +4,12 @@ Port of the TPU kernel ``multiagentperception_tpu/ops/pallas/upsample_argmax.py`
 (``upsample_argmax_pallas``). ``upsample_argmax`` takes the decoder's
 pre-upsample logits NCHW ``(B*N, C, h, w)`` and returns the ``(B*N, H, W)``
 int32 class map of their bilinear resize (``align_corners=False``), ties to
-the lowest class. The logits are float32 or bfloat16 (the mixed-precision
-models' output); the resize and the compares run in float32, as the TPU
-kernel upcasts each class's slice (upsample_argmax.py:38). On a CUDA
-tensor it launches ``csrc/upsample_argmax.cu`` (entry point
-``upsample_argmax_f32`` or ``upsample_argmax_bf16``, counted in
+the lowest class. The logits are float32, bfloat16 or float16 (the
+mixed-precision models' output); the resize and the compares run in
+float32, as the TPU kernel upcasts each class's slice
+(upsample_argmax.py:38). On a CUDA tensor it launches
+``csrc/upsample_argmax.cu`` (entry point ``upsample_argmax_f32``,
+``upsample_argmax_bf16`` or ``upsample_argmax_f16``, counted in
 ``upsample_argmax.route_launches``), which never writes the
 full-resolution logits; on a CPU tensor it runs ``upsample_argmax_plain``,
 the same function in plain PyTorch, and so it does on a ``meta`` tensor,
@@ -38,7 +39,8 @@ SPAN = 4  # output columns a thread owns on the kernel's span path
 _MAX_SHARED = 48 * 1024  # the kernel's dynamic shared memory stays under the default limit
 # dtype of the logits: (route, C entry point); the kernel stages float32 either way
 ROUTES = {torch.float32: ("f32", "upsample_argmax_f32"),
-          torch.bfloat16: ("bf16", "upsample_argmax_bf16")}
+          torch.bfloat16: ("bf16", "upsample_argmax_bf16"),
+          torch.float16: ("f16", "upsample_argmax_f16")}
 
 
 def upsample_argmax_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -87,8 +89,8 @@ def _device_taps(h: int, out_h: int, w: int, out_w: int, device: torch.device):
 
 
 def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """(B*N, C, h, w) float32 or bfloat16 logits -> (B*N, out_h, out_w)
-    int32 class map."""
+    """(B*N, C, h, w) float32, bfloat16 or float16 logits -> (B*N, out_h,
+    out_w) int32 class map."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW logits, got shape {tuple(x.shape)}")
     if x.device.type == "meta":
@@ -123,7 +125,8 @@ def _fake(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def _launch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """The op's CUDA implementation: the kernel, or an error."""
     if x.dtype not in ROUTES:
-        raise TypeError(f"upsample_argmax kernel takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"upsample_argmax kernel takes float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("upsample_argmax kernel takes contiguous NCHW logits")
     n, c, h, w = x.shape

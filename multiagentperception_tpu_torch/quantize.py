@@ -18,7 +18,8 @@ the transposed convs of the SegNet decoder and the de-squeezers
   *Dynamic*: a conv without a calibrated scale takes max|x| / 127 of its
   input at each call.
 - **accumulation**: int32, then ``float(acc) * (s_x * s_w) + bias`` in
-  float32, cast once to the conv's compute dtype (or its input's).
+  float32, cast once to the conv's compute dtype (or its input's): float32,
+  bf16 or float16, each a route of K4 on the card (JAX quantize.py:126-132).
 
 ``default_skip`` keeps convs below 16 output channels (the 11-class head)
 in the network dtype. BatchNorm, the communication step, the key/query

@@ -58,10 +58,12 @@ The loop, as JAX's:
   and ``val_metrics/*`` at validation, JAX's tags.
 
 Mixed precision (``training.mixed_precision`` or ``model.dtype:
-bfloat16``, ``models.compute_dtype``) is the JAX trainer's: the model
-computes in bf16, the loss in float32 (``loss.py``), and the optimizer
-steps the float32 parameters with their float32 gradients, without loss
-scaling (JAX has none). Checkpoints hold float32 tensors either way.
+bfloat16``, or ``model.dtype: float16``; ``models.compute_dtype``) is the
+JAX trainer's: the model computes in bf16 or float16, the loss in float32
+(``loss.py``), and the optimizer steps the float32 parameters with their
+float32 gradients, without loss scaling (JAX has none: a float16 gradient
+that underflows to zero does so in both). Checkpoints hold float32 tensors
+either way.
 
 Checkpoints are reference-layout ``.pkl`` files
 (``{"epoch", "model_state", "optimizer_state", "best_iou"}``, the layout of

@@ -78,9 +78,29 @@ def test_upsample_argmax_bf16_route_matches_plain(cuda, h, w, out_h, out_w):
 
 
 def test_upsample_argmax_kernel_refuses_float16(cuda):
-    x = torch.randn(2, 11, 16, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    """Named for the refusal it once held: float16 takes its own route now
+    (``test_upsample_argmax_f16_route_matches_plain``); float64, which no
+    route takes, is refused and launches nothing."""
+    x = torch.randn(2, 11, 16, 16, device=cuda, dtype=torch.float64)
+    before = dict(k1.upsample_argmax.route_launches)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         k1.upsample_argmax(x, 512, 512)
+    assert k1.upsample_argmax.route_launches == before
+    checks.check_upsample_argmax(x.half(), 512, 512)
+    assert k1.upsample_argmax.route_launches == {**before, "f16": before["f16"] + 2}
+
+
+@pytest.mark.parametrize("h,w,out_h,out_w", [(16, 16, 512, 512), (5, 7, 17, 29)],
+                         ids=["16x16_to_512", "5x7_to_17x29"])
+def test_upsample_argmax_f16_route_matches_plain(cuda, h, w, out_h, out_w):
+    """float16 logits (the float16 decoder's) take the f16 entry point, on
+    the span path at the flagship's shape and the per-pixel path elsewhere;
+    the check's plain version upcasts the same values."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(12, 11, h, w, generator=g).to(cuda, torch.float16)
+    before = dict(k1.upsample_argmax.route_launches)
+    checks.check_upsample_argmax(x, out_h, out_w)
+    assert k1.upsample_argmax.route_launches == {**before, "f16": before["f16"] + 2}
 
 
 @pytest.mark.parametrize("mode", k2.MODES)
@@ -143,10 +163,21 @@ def test_comm_fusion_kernel_refuses_bf16(cuda):
 
 
 def test_comm_fusion_kernel_refuses_float16(cuda):
-    q, k = (torch.randn(2, 6, 1024, device=cuda, dtype=torch.float16) for _ in range(2))
-    v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float16"):
+    """Named for the refusal it once held: float16 takes its own route now,
+    checked here at the flagship's shapes; float64 is refused, and float16
+    V, like bf16, streams in 16-byte loads of 8 values (M % 8 == 0)."""
+    before = dict(k2.comm_fusion.route_launches)
+    q, k = (torch.randn(2, 6, 1024, device=cuda, dtype=torch.float64) for _ in range(2))
+    v = torch.randn(2, 6, 512, 16, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="all float16"):
         k2.comm_fusion(q, k, v, mode="activated")
+    with pytest.raises(ValueError, match="M % 8"):
+        k2.comm_fusion(q.half(), k.half(), torch.randn(2, 6, 2, 514, device=cuda).half(),
+                       mode="activated")
+    assert k2.comm_fusion.route_launches == before
+    k = k * 2 / 1024 ** 0.5  # links survive
+    checks.check_comm_fusion(q.half(), k.half(), v.half(), "activated", diag_bias=0.001)
+    assert k2.comm_fusion.route_launches == {**before, "f16": before["f16"] + 1}
 
 
 @pytest.mark.parametrize("b,n,d,rest,mode", [
@@ -168,6 +199,26 @@ def test_comm_fusion_bf16_route_matches_plain(cuda, b, n, d, rest, mode):
     before = dict(k2.comm_fusion.route_launches)
     checks.check_comm_fusion(q, k, v, mode, diag_bias=0.001)
     assert k2.comm_fusion.route_launches["bf16"] == before["bf16"] + 1
+    assert k2.comm_fusion.route_launches["f32"] == before["f32"]
+
+
+@pytest.mark.parametrize("b,n,d,rest,mode", [
+    (2, 6, 1024, (512, 16, 16), "softmax"), (2, 6, 1024, (512, 16, 16), "activated"),
+    (2, 6, 1024, (512, 16, 16), "argmax"), (16, 6, 1024, (512, 16, 16), "activated"),
+    (20, 6, 37, (257, 8), "activated"), (2, 16, 5, (3, 104), "argmax"),
+    (2, 1, 1000, (64, 16, 16), "softmax")],
+    ids=["flagship_softmax", "flagship_activated", "flagship_argmax", "b16_activated",
+         "b20_n6_m2056_activated", "b2_n16_m312_argmax", "b2_n1_softmax"])
+def test_comm_fusion_f16_route_matches_plain(cuda, b, n, d, rest, mode):
+    """float16 Q', K and V take the f16 entry point at bf16's shapes. Fused
+    within one float16 ulp + 1e-5 of the plain version and of float64."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(b, n, d, generator=g).to(cuda, torch.float16)
+    k = (torch.randn(b, n, d, generator=g) * 3 / d ** 0.5).to(cuda, torch.float16)
+    v = torch.randn(b, n, *rest, generator=g).to(cuda, torch.float16)
+    before = dict(k2.comm_fusion.route_launches)
+    checks.check_comm_fusion(q, k, v, mode, diag_bias=0.001)
+    assert k2.comm_fusion.route_launches["f16"] == before["f16"] + 1
     assert k2.comm_fusion.route_launches["f32"] == before["f32"]
 
 
@@ -392,11 +443,10 @@ def test_eval_step_of_every_arch_launches_k1(cuda, arch, monkeypatch):
     assert int(res["hist_pos"].sum() + res["hist_neg"].sum()) == int(res["hist"].sum())
 
 
-@pytest.mark.parametrize("arch", ZOO)
-def test_bf16_eval_step_of_every_arch_takes_the_bf16_routes(cuda, arch):
-    """One eval step of each architecture with ``model.dtype: bfloat16`` on
-    the card: K1 takes the bf16 logits on its bf16 route, MIMOcom's
-    ``activated`` step runs K2's bf16 route, and no float32 route runs."""
+def _mixed_eval_step(cuda, arch: str, dtype: str) -> None:
+    """One eval step of ``arch`` with ``model.dtype: dtype`` on the card: K1
+    takes the 16-bit logits on the dtype's route, MIMOcom's ``activated``
+    step runs K2's, and no other route runs."""
     import numpy as np
 
     from multiagentperception_tpu_torch import evaluate
@@ -406,7 +456,7 @@ def test_bf16_eval_step_of_every_arch_takes_the_bf16_routes(cuda, arch):
     mrms = arch in MRMS
     cfg = normalize_config({
         "model": {"arch": arch, "agent_num": 3, "query_size": 8, "key_size": 64,
-                  "multiple_output": mrms, "dtype": "bfloat16", **ZOO[arch]},
+                  "multiple_output": mrms, "dtype": dtype, **ZOO[arch]},
         "data": {"img_rows": 128, "img_cols": 128,
                  "commun_label": "mimo" if mrms else "when2com"}})
     ev = evaluate.Evaluator(cfg, device=cuda)
@@ -414,21 +464,43 @@ def test_bf16_eval_step_of_every_arch_takes_the_bf16_routes(cuda, arch):
     rng = np.random.default_rng(0)
     images = (rng.standard_normal((2, 3, 128, 128, 3)) * 0.5).astype(np.float32)
     labels = rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32)
+    route = k1.ROUTES[getattr(torch, dtype)][0]
     k1_before = dict(k1.upsample_argmax.route_launches)
     k2_before = dict(k2.comm_fusion.route_launches)
     res = ev.eval_step(images, labels)
     torch.cuda.synchronize()
-    assert k1.upsample_argmax.route_launches == {**k1_before, "bf16": k1_before["bf16"] + 1}
+    assert k1.upsample_argmax.route_launches == {**k1_before, route: k1_before[route] + 1}
     k2_runs = 1 if arch == "MIMOcom" else 0
-    assert k2.comm_fusion.route_launches == {**k2_before, "bf16": k2_before["bf16"] + k2_runs}
+    assert k2.comm_fusion.route_launches == {**k2_before, route: k2_before[route] + k2_runs}
     assert int(res["hist"].sum()) == (labels.size if mrms and arch != "All_agents"
                                       else labels[:, 0].size)
 
 
+@pytest.mark.parametrize("arch", ZOO)
+def test_bf16_eval_step_of_every_arch_takes_the_bf16_routes(cuda, arch):
+    """``_mixed_eval_step`` in bfloat16."""
+    _mixed_eval_step(cuda, arch, "bfloat16")
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_f16_eval_step_of_every_arch_takes_the_f16_routes(cuda, arch):
+    """``_mixed_eval_step`` in float16: finite class maps from K1's f16 route."""
+    _mixed_eval_step(cuda, arch, "float16")
+
+
 def test_mixed_precision_training_step_on_the_card(cuda):
     """A small MIMOcom with ``training.mixed_precision`` takes one Adam step
-    on the card: finite float32 loss, float32 parameters and BatchNorm
-    statistics that moved."""
+    on the card: finite float32 loss and gradients, float32 parameters and
+    BatchNorm statistics that moved."""
+    _mixed_train_step(cuda, {"mixed_precision": True})
+
+
+def test_float16_training_step_on_the_card(cuda):
+    """The same with ``model.dtype: float16``, no loss scaling (JAX has none)."""
+    _mixed_train_step(cuda, {"dtype": "float16"})
+
+
+def _mixed_train_step(cuda, keys: dict) -> None:
     import numpy as np
 
     from multiagentperception_tpu_torch.config import normalize_config
@@ -436,11 +508,12 @@ def test_mixed_precision_training_step_on_the_card(cuda):
     from multiagentperception_tpu_torch.models import init_weights
     from multiagentperception_tpu_torch.trainer import Trainer
 
+    model = {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
+             "multiple_output": True, **{k: v for k, v in keys.items() if k == "dtype"}}
     cfg = normalize_config({
-        "model": {"arch": "MIMOcom", "agent_num": 3, "query_size": 8, "key_size": 64,
-                  "multiple_output": True},
+        "model": model,
         "data": {"img_rows": 128, "img_cols": 128, "commun_label": "mimo"},
-        "training": {"batch_size": 2, "mixed_precision": True,
+        "training": {"batch_size": 2, "mixed_precision": bool(keys.get("mixed_precision")),
                      "optimizer": {"name": "adam", "lr": 1e-4}}})
     trainer = Trainer(cfg, None, get_loss_function(cfg), None, None, device=cuda)
     init_weights(trainer.model, 0)
@@ -450,6 +523,8 @@ def test_mixed_precision_training_step_on_the_card(cuda):
                           rng.integers(0, 11, (2, 3, 128, 128)).astype(np.int32))
     loss = trainer.train_step(x, y)
     assert loss.dtype == torch.float32 and np.isfinite(float(loss))
+    assert all(p.grad.dtype == torch.float32 and bool(torch.isfinite(p.grad).all())
+               for p in trainer.model.parameters() if p.grad is not None)
     state = trainer.model.state_dict()
     floats = {n: v for n, v in state.items() if v.is_floating_point()}
     assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
@@ -559,10 +634,11 @@ K4_CONVS = {
 
 
 @pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("name", list(K4_CONVS))
 def test_int8_conv_kernel_matches_plain(cuda, name, dtype, static):
-    """Operands, int32 sums and outputs to the bit (``checks.check_int8_conv``)."""
+    """Operands, int32 sums and outputs to the bit (``checks.check_int8_conv``;
+    float16 also within one float16 ulp of the float32 rescale)."""
     from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
 
     cin, cout, side, k, stride, pad, bias, n, route = K4_CONVS[name]
@@ -592,8 +668,8 @@ def test_int8_conv_kernel_refuses(cuda, what):
         kw["groups"] = 2
     elif what == "dilation":
         kw["dilation"] = 2
-    elif what == "float16":
-        x, err = x.half(), TypeError
+    elif what == "float16":  # the case's old input, now ported: float64 is refused
+        x, err = x.double(), TypeError
     elif what == "mismatch":
         w = k4.prepare_weight(torch.randn(32, 16, 3, 3))
     elif what == "bias16":
@@ -660,7 +736,8 @@ def test_upsample_argmax_op_launches_and_counts(cuda):
     assert k1.upsample_argmax.launches == before + 2
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_comm_fusion_op_launches_and_counts(cuda, dtype):
     g = torch.Generator().manual_seed(7)
     q = torch.randn(2, 6, 1024, generator=g).to(cuda, dtype)
@@ -668,7 +745,7 @@ def test_comm_fusion_op_launches_and_counts(cuda, dtype):
     v = torch.randn(2, 6, 512, 16, 16, generator=g).to(cuda, dtype)
     before = dict(k2.comm_fusion.route_launches)
     checks.check_comm_fusion(q, k, v, "activated", 0.001, fn=torch.ops.when2com.comm_fusion)
-    route = "bf16" if dtype == torch.bfloat16 else "f32"
+    route = k2.ROUTES[dtype][0]
     assert k2.comm_fusion.route_launches == {**before, route: before[route] + 1}
 
 
@@ -909,7 +986,8 @@ def _graph_vs_eager(cfg, batches, state, swap_scales=None, loss_fn=None, **step_
     return out
 
 
-@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "with_loss"])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "with_loss", "float16",
+                                  "int8_float16"])
 def test_graph_eval_equals_eager(cuda, kind):
     """The eval step as a CUDA graph against the eager step at 128x128,
     bit for bit: class maps, the three confusion matrices, actions,
@@ -920,11 +998,12 @@ def test_graph_eval_equals_eager(cuda, kind):
     from multiagentperception_tpu_torch.loss import get_loss_function
     from multiagentperception_tpu_torch.models import get_model, init_weights
 
-    cfg = _graph_cfg(dtype="bfloat16" if kind == "bfloat16" else None)
+    dtype = {"bfloat16": "bfloat16", "float16": "float16", "int8_float16": "float16"}
+    cfg = _graph_cfg(dtype=dtype.get(kind))
     state = init_weights(get_model(cfg, 11), 0).state_dict()
     batches = _graph_batches(cfg, 4) + _graph_batches(cfg, 1, b=1, seed=1)
     scales, kw = None, {"keep_pred": True}
-    if kind == "int8":
+    if kind.startswith("int8"):
         ev = Evaluator(cfg, device=cuda, graphs=False)
         ev.model.load_state_dict(state)
         scales = ev._calibrate_int8(batches, "activated", calib_loader=batches[:1])
@@ -938,7 +1017,7 @@ def test_graph_eval_equals_eager(cuda, kind):
             assert torch.equal(g[key], e[key]), key
     want = 0 if kind == "with_loss" else len(batches)  # the softmax forward runs neither
     assert (graph["k1"], graph["k2"]) == (eager["k1"], eager["k2"]) == (want, want)
-    if kind == "int8":
+    if kind.startswith("int8"):
         assert graph["k4"] == eager["k4"] == 48 * len(batches)
         assert graph["calls"] == eager["calls"] == 48 * len(batches)
     entries = graph["ev"]._eval_graphs.entries
@@ -1016,7 +1095,7 @@ def _deterministic():
         torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
 
 
-@pytest.mark.parametrize("variant", ["plain", "remat", "nan_guard", "selection"])
+@pytest.mark.parametrize("variant", ["plain", "remat", "nan_guard", "selection", "float16"])
 def test_graph_train_steps_match_eager(cuda, variant, monkeypatch, tmp_path):
     """K = 4 train steps a chunk by graph replays against K eager steps over
     9 iterations (chunks 4, 4, 1; the first step eager in both), both
@@ -1025,8 +1104,9 @@ def test_graph_train_steps_match_eager(cuda, variant, monkeypatch, tmp_path):
     it: backward atomics): losses, parameters, BatchNorm statistics and
     the optimizer's state equal bit for bit. ``nan_guard``: step 6 (a
     replay) has a non-finite loss; both runs drop it (the guard's counters
-    equal), and over that replay the parameters did not move. ``remat`` and
-    the selection baseline's draws under the graph."""
+    equal), and over that replay the parameters did not move. ``remat``,
+    the selection baseline's draws and ``model.dtype: float16`` under the
+    graph."""
     from multiagentperception_tpu_torch import graphs as graphs_mod
     from multiagentperception_tpu_torch.loss import get_loss_function
     from multiagentperception_tpu_torch.models import get_model, init_weights
@@ -1034,7 +1114,8 @@ def test_graph_train_steps_match_eager(cuda, variant, monkeypatch, tmp_path):
 
     monkeypatch.chdir(tmp_path)
     arch = "MIMO_All_agents" if variant == "selection" else "MIMOcom"
-    cfg = _graph_cfg(arch, remat=True) if variant == "remat" else _graph_cfg(arch)
+    cfg = _graph_cfg(arch, remat=True) if variant == "remat" else \
+        _graph_cfg(arch, dtype="float16") if variant == "float16" else _graph_cfg(arch)
     state = init_weights(get_model(cfg, 11), 0).state_dict()
     batches = _graph_batches(cfg, 9, seed=3)
     loss_fn, keys = None, {}

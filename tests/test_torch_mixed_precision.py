@@ -7,7 +7,7 @@ Tolerances: K1's class maps exactly equal (both upcast the bf16 logits
 and resize in float32 with the same weights, strict-``>`` argmax). K2 on
 bf16 Q', K and V: ``coef`` and ``soft`` within 1e-6 (float32 graphs from
 the same upcast inputs) and masks equal; ``fused`` within one bf16 ulp of
-the larger value plus 1e-5 (``checks.assert_within_bf16_ulp``: two
+the larger value plus 1e-5 (``checks.assert_within_ulp``: two
 float32 sums of the same products in another order, each rounded once to
 bf16; the 1e-5 covers sums that cancel to near zero, as K2's float32
 tolerance does). The models' bf16 forwards against JAX are in
@@ -52,10 +52,11 @@ def _cfg(arch="MIMOcom", dtype=None, mixed=None, agents=3) -> dict:
     return normalize_config(cfg)
 
 
-def _bf16(a: np.ndarray) -> tuple[torch.Tensor, jnp.ndarray]:
-    """The same bf16 values as a torch tensor and a JAX array."""
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
-    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+def _typed(a: np.ndarray, dtype: str = "bfloat16") -> tuple[torch.Tensor, jnp.ndarray]:
+    """The same ``dtype`` (bfloat16 or float16) values as a torch tensor and
+    a JAX array."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype))
+    return t, jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
 
 
 # ----------------------------------------------------------------- config
@@ -73,8 +74,22 @@ def test_compute_dtype_follows_jax(dtype, mixed, want):
 
 
 def test_float16_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="model.dtype='float16'"):
-        get_model(_cfg(dtype="float16"), 11)
+    """Named for the refusal it once held: ``model.dtype: float16`` maps to
+    ``torch.float16`` (JAX models/__init__.py:57-66) and builds a flagship
+    that computes in float16: float16 predictions, a float32 graph and
+    bandwidth, float32 parameters."""
+    cfg = _cfg(dtype="float16")
+    assert compute_dtype(cfg) is torch.float16
+    model = init_weights(get_model(cfg, 11), 0).eval()
+    assert all(v.dtype == torch.float32 for v in model.state_dict().values()
+               if v.is_floating_point())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 3, IMG, IMG, 3)).astype(np.float32))
+    with torch.inference_mode():
+        pred, prob, action, nc = model(x, inference="activated")
+    assert pred.dtype == torch.float16 and pred.shape == (3, 11, IMG, IMG)
+    assert bool(torch.isfinite(pred).all())
+    assert prob.dtype == torch.float32 and nc.dtype == torch.float32
 
 
 def test_unknown_dtype_raises():
@@ -202,17 +217,23 @@ def test_cpu_bf16_conv_is_the_float32_conv_of_rounded_operands(hw, stride):
 
 # ----------------------------------------------------------------- K1
 
-@pytest.mark.parametrize("tie", [False, True], ids=["random", "all_tied"])
-def test_upsample_argmax_plain_bf16_matches_pallas(tie):
+def k1_against_pallas(tie: bool, dtype: str) -> None:
+    """K1's plain version on ``dtype`` logits against the Pallas kernel in
+    interpret mode on the same values: class maps exactly equal."""
     x = np.ones((3, 4, 4, 11), np.float32) if tie else \
         np.random.default_rng(0).standard_normal((3, 4, 4, 11)).astype(np.float32)
-    xt, xj = _bf16(x)
+    xt, xj = _typed(x, dtype)
     want = np.asarray(upsample_argmax_pallas(xj, 128, 128, interpret=True))
     got = k1.upsample_argmax_plain(xt.permute(0, 3, 1, 2), 128, 128)
     assert got.dtype == torch.int32 and got.shape == (3, 128, 128)
     np.testing.assert_array_equal(got.numpy(), want)
     if tie:
         assert not got.any()
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["random", "all_tied"])
+def test_upsample_argmax_plain_bf16_matches_pallas(tie):
+    k1_against_pallas(tie, "bfloat16")
 
 
 def test_upsample_argmax_cpu_bf16_runs_plain():
@@ -225,33 +246,39 @@ def test_upsample_argmax_cpu_bf16_runs_plain():
 
 # ----------------------------------------------------------------- K2
 
-def _comm_inputs(b=2, n=6, d=64, seed=1):
-    """bf16 Q', K and (B, N, h, w, C) V; the keys' scale gives logits with a
-    spread of about 2, so ``activated`` keeps off-diagonal links."""
+def _comm_inputs(b=2, n=6, d=64, seed=1, dtype="bfloat16"):
+    """``dtype`` Q', K and (B, N, h, w, C) V; the keys' scale gives logits
+    with a spread of about 2, so ``activated`` keeps off-diagonal links."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, n, d)).astype(np.float32)
     k = (rng.standard_normal((b, n, d)) * 2 / np.sqrt(d)).astype(np.float32)
     v = rng.standard_normal((b, n, 4, 4, 8)).astype(np.float32)
-    return _bf16(q), _bf16(k), _bf16(v)
+    return _typed(q, dtype), _typed(k, dtype), _typed(v, dtype)
+
+
+def k2_against_pallas(mode: str, n: int, dtype: str) -> None:
+    """K2's plain version on ``dtype`` Q', K and V against the Pallas kernel
+    in interpret mode (module docstring's tolerances, the ulp of ``dtype``)."""
+    (qt, qj), (kt, kj), (vt, vj) = _comm_inputs(n=n, dtype=dtype)
+    j_fused, j_coef, j_soft = fused_comm_step(qj, kj, vj, mode=mode, diag_bias=0.001,
+                                              interpret=True)
+    fused, coef, soft = k2.comm_fusion_plain(qt, kt, vt, mode=mode, diag_bias=0.001)
+    assert fused.dtype == getattr(torch, dtype) and j_fused.dtype == getattr(jnp, dtype)
+    assert coef.dtype == soft.dtype == torch.float32
+    np.testing.assert_array_equal(coef.numpy() != 0, np.asarray(j_coef) != 0)
+    np.testing.assert_allclose(coef.numpy(), np.asarray(j_coef), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(soft.numpy(), np.asarray(j_soft), rtol=0, atol=1e-6)
+    checks.assert_within_ulp(fused, torch.from_numpy(np.asarray(j_fused, np.float32)),
+                             checks.K2_ATOL, getattr(torch, dtype))
+    if mode == "activated":
+        offdiag = (coef.numpy() != 0) & ~np.eye(n, dtype=bool)
+        assert offdiag.any(axis=(1, 2)).all()
 
 
 @pytest.mark.parametrize("n", [3, 6])
 @pytest.mark.parametrize("mode", MODES)
 def test_comm_fusion_plain_bf16_matches_pallas(mode, n):
-    (qt, qj), (kt, kj), (vt, vj) = _comm_inputs(n=n)
-    j_fused, j_coef, j_soft = fused_comm_step(qj, kj, vj, mode=mode, diag_bias=0.001,
-                                              interpret=True)
-    fused, coef, soft = k2.comm_fusion_plain(qt, kt, vt, mode=mode, diag_bias=0.001)
-    assert fused.dtype == torch.bfloat16 and j_fused.dtype == jnp.bfloat16
-    assert coef.dtype == soft.dtype == torch.float32
-    np.testing.assert_array_equal(coef.numpy() != 0, np.asarray(j_coef) != 0)
-    np.testing.assert_allclose(coef.numpy(), np.asarray(j_coef), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(soft.numpy(), np.asarray(j_soft), rtol=0, atol=1e-6)
-    checks.assert_within_bf16_ulp(fused, torch.from_numpy(np.asarray(j_fused, np.float32)),
-                                  checks.K2_ATOL)
-    if mode == "activated":
-        offdiag = (coef.numpy() != 0) & ~np.eye(n, dtype=bool)
-        assert offdiag.any(axis=(1, 2)).all()
+    k2_against_pallas(mode, n, "bfloat16")
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -83,22 +83,24 @@ def _pred(out) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def shared_seeds():
-    """Per (arch, keys) and seed: the float32 and bf16 configs, inputs and
-    JAX-initialized weights, on first use."""
+    """Per (arch, keys) and seed: the float32 config, inputs and
+    JAX-initialized weights, on first use, and the config in ``dtype``
+    (bfloat16, or float16: tests/test_torch_float16_models.py)."""
     cache = {}
 
-    def get(arch, keys, seed):
+    def get(arch, keys, seed, dtype="bfloat16"):
         key = (arch, tuple(sorted(keys.items())), seed)
         if key not in cache:
             cfg = raw_cfg(arch, N, (IMG, IMG), **keys)
-            cfg16 = raw_cfg(arch, N, (IMG, IMG), dtype="bfloat16", pallas_comm=True, **keys)
             x = model_inputs(cfg, (B, N, IMG, IMG, 3), seed=seed)
             variables = shared_variables(cfg, x, seed=seed)
             if arch == "MIMOcom":
                 proj = variables["params"]["MIMOGeneralDotAttention_0"]["proj"]
                 proj["kernel"] = proj["kernel"] * PEAK
-            cache[key] = (cfg, cfg16, x, variables)
-        return cache[key]
+            cache[key] = (cfg, x, variables)
+        cfg, x, variables = cache[key]
+        cfg16 = raw_cfg(arch, N, (IMG, IMG), dtype=dtype, pallas_comm=True, **keys)
+        return cfg, cfg16, x, variables
 
     return get
 
@@ -118,7 +120,7 @@ def _four_way(cfg, cfg16, x, variables, mode):
 
 def _assert_ratio(errs: dict, label: str) -> None:
     port, ref = sum(errs["port"]), sum(errs["jax"])
-    print(f"{label}: bf16 relative L2 from float32, port {errs['port']}, JAX {errs['jax']}")
+    print(f"{label}: relative L2 from float32, port {errs['port']}, JAX {errs['jax']}")
     assert port <= RATIO * ref, f"{label}: port {port:.3e} > {RATIO} x JAX {ref:.3e}"
 
 
@@ -133,15 +135,18 @@ def _excused(soft_a: np.ndarray, soft_b: np.ndarray) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("mode", FLAGSHIP_MODES)
-def test_flagship_bf16_matches_jax(shared_seeds, mode):
+def flagship_against_jax(shared_seeds, mode: str, dtype: str = "bfloat16",
+                         seeds=SEEDS) -> None:
+    """The flagship in ``dtype`` against JAX's under the rule of the module
+    docstring, over ``seeds``: predictions, actions and bandwidth."""
     errs, excused, links = {"port": [], "jax": []}, 0, 0
-    for seed in SEEDS:
-        cfg, cfg16, x, variables = shared_seeds("MIMOcom", {}, seed)
+    for seed in seeds:
+        cfg, cfg16, x, variables = shared_seeds("MIMOcom", {}, seed, dtype)
         out = _four_way(cfg, cfg16, x, variables, mode)
         jp, jprob, jact, jnc = out["jax16"]
         tp, tprob, tact, tnc = out["port16"]
-        assert tp.dtype == torch.bfloat16 and jp.dtype == jnp.bfloat16
+        assert tp.dtype == getattr(torch, dtype) and jp.dtype == getattr(jnp, dtype)
+        assert bool(torch.isfinite(tp).all()) and bool(jnp.isfinite(jp).all())
         assert tprob.dtype == torch.float32 and jprob.dtype == jnp.float32
         errs["port"].append(_rel(_pred(out["port16"]), _pred(out["port32"])))
         errs["jax"].append(_rel(np.asarray(jp, np.float32), out["jax32"][0]))
@@ -157,9 +162,14 @@ def test_flagship_bf16_matches_jax(shared_seeds, mode):
         # bandwidth: off-diagonal links / (N * B); only excused links may move it
         assert abs(float(tnc) - float(jnc)) * N * B <= \
             (int(offdiag.sum()) if mode != "softmax" else 0) + 1e-4
-    print(f"MIMOcom {mode}: excused {excused} of {links} links")
+    print(f"MIMOcom {dtype} {mode}: excused {excused} of {links} links")
     assert excused <= MAX_EXCUSED * links
-    _assert_ratio(errs, f"MIMOcom {mode}")
+    _assert_ratio(errs, f"MIMOcom {dtype} {mode}")
+
+
+@pytest.mark.parametrize("mode", FLAGSHIP_MODES)
+def test_flagship_bf16_matches_jax(shared_seeds, mode):
+    flagship_against_jax(shared_seeds, mode)
 
 
 def test_flagship_bf16_keeps_links(shared_seeds):
@@ -180,17 +190,28 @@ def test_flagship_bf16_keeps_links(shared_seeds):
 LR = 1e-4
 
 
-def _train_cfg() -> dict:
+def _train_cfg(dtype: str = "bfloat16") -> dict:
+    """bfloat16 by the ``training.mixed_precision`` shorthand, float16 by
+    ``model.dtype``."""
     cfg = raw_cfg("MIMOcom", N, (IMG, IMG))
     cfg["data"]["commun_label"] = "mimo"
-    cfg["training"] = {"batch_size": B, "mixed_precision": True,
-                       "optimizer": {"name": "adam", "lr": LR},
+    cfg["training"] = {"batch_size": B, "optimizer": {"name": "adam", "lr": LR},
                        "loss": {"name": "cross_entropy", "size_average": True}}
+    if dtype == "bfloat16":
+        cfg["training"]["mixed_precision"] = True
+    else:
+        cfg["model"]["dtype"] = dtype
     return cfg
 
 
-def test_mixed_precision_train_step_matches_jax(shared_seeds):
-    raw = _train_cfg()
+def train_step_against_jax(shared_seeds, dtype: str = "bfloat16",
+                           moved_at_least: int = 101) -> dict:
+    """One ``Trainer`` step in ``dtype`` against JAX's training forward
+    (module docstring's tolerances), at least ``moved_at_least`` parameter
+    tensors moved by the step. Returns the step's inputs (``raw`` config,
+    ``variables``, ``images``, ``labels``), the port's gradients and the
+    names of the parameters that moved."""
+    raw = _train_cfg(dtype)
     _, _, _, variables = shared_seeds("MIMOcom", {}, SEEDS[0])
     rng = np.random.default_rng(11)
     images = (rng.standard_normal((B, N, IMG, IMG, 3)) * 0.5).astype(np.float32)
@@ -201,7 +222,7 @@ def test_mixed_precision_train_step_matches_jax(shared_seeds):
     (out, new_state) = jax_get_model(jcfg, 11).apply(
         variables, jnp.asarray(images), train=True, mo_flag=True, inference="softmax",
         mutable=["batch_stats"])
-    assert out[0].dtype == jnp.bfloat16
+    assert out[0].dtype == getattr(jnp, dtype)
     y = labels.reshape((-1, IMG, IMG)).astype(np.uint8)
     j_loss = float(jax_get_loss(jcfg)(input=out[0], target=jnp.asarray(y)))
     j_stats = state_dict_from_flax(jcfg, jax.tree_util.tree_map(np.asarray, {
@@ -216,7 +237,7 @@ def test_mixed_precision_train_step_matches_jax(shared_seeds):
     np.testing.assert_allclose(float(loss), j_loss, rtol=1e-2)
 
     after = trainer.model.state_dict()
-    moved = 0
+    moved = []
     for name, v in after.items():
         if not v.is_floating_point():
             continue
@@ -224,6 +245,12 @@ def test_mixed_precision_train_step_matches_jax(shared_seeds):
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(v.numpy(), j_stats[name], rtol=1e-2, atol=1e-2,
                                        err_msg=name)
-        else:
-            moved += not torch.equal(v, before[name])
-    assert moved > 100
+        elif not torch.equal(v, before[name]):
+            moved.append(name)
+    assert len(moved) >= moved_at_least
+    return {"raw": raw, "variables": variables, "images": images, "labels": labels,
+            "moved": moved, "grads": {n: p.grad for n, p in trainer.model.named_parameters()}}
+
+
+def test_mixed_precision_train_step_matches_jax(shared_seeds):
+    train_step_against_jax(shared_seeds)

@@ -36,16 +36,24 @@ OTHERS = {  # id: (arch, model keys)
 }
 
 
-@pytest.mark.parametrize("case", list(OTHERS))
-def test_other_archs_bf16_match_jax(shared_seeds, case):
+def other_arch_against_jax(shared_seeds, case: str, dtype: str = "bfloat16",
+                           seeds=SEEDS) -> None:
+    """Architecture ``case`` of ``OTHERS`` in ``dtype`` against JAX's under
+    the rule, over ``seeds``."""
     arch, keys = OTHERS[case]
     mode = EVAL_DEFAULT.get(arch, "softmax")
     errs = {"port": [], "jax": []}
-    for seed in SEEDS:
-        cfg, cfg16, x, variables = shared_seeds(arch, keys, seed)
+    for seed in seeds:
+        cfg, cfg16, x, variables = shared_seeds(arch, keys, seed, dtype)
         out = _four_way(cfg, cfg16, x, variables, mode)
-        assert out["port16"][0].dtype == torch.bfloat16
-        assert out["jax16"][0].dtype == jnp.bfloat16
+        assert out["port16"][0].dtype == getattr(torch, dtype)
+        assert out["jax16"][0].dtype == getattr(jnp, dtype)
+        assert bool(torch.isfinite(out["port16"][0]).all())
         errs["port"].append(_rel(_pred(out["port16"]), _pred(out["port32"])))
         errs["jax"].append(_rel(np.asarray(out["jax16"][0], np.float32), out["jax32"][0]))
-    _assert_ratio(errs, f"{arch} {mode}")
+    _assert_ratio(errs, f"{arch} {dtype} {mode}")
+
+
+@pytest.mark.parametrize("case", list(OTHERS))
+def test_other_archs_bf16_match_jax(shared_seeds, case):
+    other_arch_against_jax(shared_seeds, case)

@@ -185,14 +185,21 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 
 
 def test_unported_configs_raise_not_implemented():
+    """Named for the refusal it once held: the topk YAML with
+    ``model.dtype: float16`` builds, computing in float16 over float32
+    parameters (its forwards: tests/test_torch_float16*.py)."""
     from multiagentperception_tpu_torch.config import load_config
     from multiagentperception_tpu_torch.models import get_model
+    from multiagentperception_tpu_torch.models.blocks import Conv2d, Linear
 
-    # the topk YAML builds (tests/test_torch_topk.py); float16 is not ported yet
     cfg = load_config(str(ROOT / "configs" / "extensions" / "mrms_when2com_topk.yml"))
     cfg["model"]["dtype"] = "float16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg, 11)
+    model = get_model(cfg, 11)
+    assert model.topk_k == cfg["model"]["topk_k"]
+    assert {m.compute_dtype for m in model.modules()
+            if isinstance(m, (Conv2d, Linear))} == {torch.float16}
+    assert all(v.dtype == torch.float32 for v in model.state_dict().values()
+               if v.is_floating_point())
 
 
 def test_serving_modules_load_no_jax_module():

@@ -117,6 +117,15 @@ def _jax_int32(x_nhwc: np.ndarray, w_hwio: np.ndarray, stride: int, pad: int) ->
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(CONVS))
 def test_one_conv_matches_jax(name, dtype, static):
+    one_conv_against_jax(name, dtype, static)
+
+
+def one_conv_against_jax(name: str, dtype: str, static: bool) -> None:
+    """The port's int8 conv ``CONVS[name]`` in a ``dtype`` network against
+    JAX's ``_int8_conv`` (``quantized_apply`` on one flax conv): the int8
+    operands and int32 sums equal; the output within one float32 ulp
+    (float32), equal (bfloat16), or within one float16 ulp (float16: both
+    round one float32 rescale; equal in practice)."""
     cin, cout, side, k, stride, pad, bias = CONVS[name]
     rng = np.random.default_rng(len(name) + 7 * static)
     x = rng.normal(size=(2, side, side, cin)).astype(np.float32)
@@ -134,7 +143,7 @@ def test_one_conv_matches_jax(name, dtype, static):
                      .astype(jnp.float32))
 
     conv = Conv2d(cin, cout, k, stride, pad, bias=bias,
-                  compute_dtype=None if dtype == "float32" else torch.bfloat16)
+                  compute_dtype=None if dtype == "float32" else getattr(torch, dtype))
     with torch.no_grad():
         conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(
             params["Conv_0"]["kernel"].transpose(3, 2, 0, 1))))
@@ -166,6 +175,9 @@ def test_one_conv_matches_jax(name, dtype, static):
     got = t_y.float().numpy().transpose(0, 2, 3, 1)
     if dtype == "float32":
         np.testing.assert_array_max_ulp(got, j_y, maxulp=1)
+    elif dtype == "float16":  # j_y holds float16 values: exact back in float16
+        np.testing.assert_array_max_ulp(got.astype(np.float16), j_y.astype(np.float16),
+                                        maxulp=1)
     else:
         np.testing.assert_array_equal(got, j_y)
 
@@ -177,8 +189,8 @@ def test_conv_refusals():
         k4.int8_conv(x, w, groups=2)
     with pytest.raises(ValueError, match="dilation"):
         k4.int8_conv(x, w, dilation=2)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        k4.int8_conv(x.half(), w)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):  # float16 is taken
+        k4.int8_conv(x.double(), w)
     with pytest.raises(ValueError, match="explicit padding"):
         k4.int8_conv(x, w, padding="same")
 

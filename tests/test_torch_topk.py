@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
+from test_torch_train import drop_files, few_threads  # noqa: F401 (autouse fixtures)
 from test_torch_zoo_configs import _builds_and_loads_bridged_weights
 from test_torch_zoo import (
     assert_outputs_match,

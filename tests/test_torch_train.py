@@ -43,6 +43,7 @@ Tolerances, and why:
 from __future__ import annotations
 
 import logging
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -113,6 +114,17 @@ def few_threads():
     torch.set_num_threads(TORCH_THREADS)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True)
+def drop_files(request):
+    """A test's own ``tmp_path`` (checkpoints of 0.1-0.4 GB, exported
+    artifacts) goes when the test ends: the test runner's workers share one
+    disk, and pytest keeps the temporary directories of the last three runs."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

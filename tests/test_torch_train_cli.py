@@ -41,7 +41,7 @@ from multiagentperception_tpu_torch.evaluate import Evaluator
 from multiagentperception_tpu_torch.loss import get_loss_function
 from multiagentperception_tpu_torch.models import init_weights
 from multiagentperception_tpu_torch.trainer import UNPORTED, Trainer, refuse_unported
-from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
+from test_torch_train import drop_files, few_threads  # noqa: F401 (autouse fixtures)
 
 IMG = 128
 

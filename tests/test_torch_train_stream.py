@@ -54,7 +54,7 @@ from multiagentperception_tpu_torch.models import init_weights
 from multiagentperception_tpu_torch.trainer import Trainer, refuse_unported
 from test_torch_eval import IMG as EVAL_IMG
 from test_torch_eval import fixture  # noqa: F401 (the shared-weights fixture)
-from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
+from test_torch_train import drop_files, few_threads  # noqa: F401 (autouse fixtures)
 
 IMG = 32
 SEED = 5

@@ -18,7 +18,7 @@ import torch
 from multiagentperception_tpu_torch import train as port_train
 from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import Evaluator
-from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
+from test_torch_train import drop_files, few_threads  # noqa: F401 (autouse fixtures)
 from test_torch_zoo_eval import ZOO_YAMLS, fixture_roots, toy_yaml  # noqa: F401
 
 

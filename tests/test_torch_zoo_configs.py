@@ -30,6 +30,7 @@ from multiagentperception_tpu.models import get_model as jax_get_model
 from multiagentperception_tpu_torch.config import load_config, normalize_config
 from multiagentperception_tpu_torch.convert import state_dict_from_flax
 from multiagentperception_tpu_torch.models import get_model
+from multiagentperception_tpu_torch.models.blocks import Conv2d, Linear
 from test_torch_zoo import (
     B,
     assert_outputs_match,
@@ -91,13 +92,18 @@ def test_topk_extension_is_refused_by_name(caplog):
     ("Single_agent", "agent_parallel", True), ("All_agents", "dtype", "float16"),
     ("MIMO_All_agents", "dtype", "float16"), ("LearnWho2Com", "agent_parallel", True)])
 def test_unported_model_keys_are_refused(arch, key, value, caplog):
-    """float16 is still refused; the ring's keys are ported: without a
-    ring of ranks ``agent_parallel_train`` raises as in JAX, and the other
-    architectures ignore ``agent_parallel`` with a warning."""
+    """Named for the refusals these cases once held; every key is ported
+    now. float16 builds a model whose convolutions and linear layers compute
+    in float16 over float32 parameters; without a ring of ranks
+    ``agent_parallel_train`` raises as in JAX, and the other architectures
+    ignore ``agent_parallel`` with a warning."""
     cfg = normalize_config(raw_cfg(arch, **{key: value}))
     if key == "dtype":
-        with pytest.raises(NotImplementedError, match=key):
-            get_model(cfg, 11)
+        model = get_model(cfg, 11)
+        assert {m.compute_dtype for m in model.modules()
+                if isinstance(m, (Conv2d, Linear))} == {torch.float16}
+        assert all(v.dtype == torch.float32 for v in model.state_dict().values()
+                   if v.is_floating_point())
     elif arch == "MIMOcom":
         with pytest.raises(ValueError, match="agent_parallel_train requires"):
             get_model(cfg, 11)

@@ -39,7 +39,7 @@ from multiagentperception_tpu_torch.config import load_config
 from multiagentperception_tpu_torch.evaluate import Evaluator
 from test_torch_zoo import jax_kwargs, seeded_stats
 from test_torch_zoo import _scale_attention as scale_attention
-from test_torch_train import few_threads  # noqa: F401 (an autouse fixture)
+from test_torch_train import drop_files, few_threads  # noqa: F401 (autouse fixtures)
 
 ROOT = Path(__file__).resolve().parents[1]
 IMG = 128

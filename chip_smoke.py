@@ -287,6 +287,34 @@ and the script exits non-zero:
    phase 10 holds bf16).
    (g) The float16 serving artifact and its int8 one (float16 output) at
    batch 8, each against the eager function (``serve_float16``).
+17. int8 eval on the agent ring and the mesh's ``model`` axis on this one
+   card, the flagship at full width from seeded weights (phase 15's
+   P15_SHARPEN), in deterministic mode; two ``MAP_COORDINATOR`` ranks
+   share the card under gloo (``chip_smoke.py --phase17-rank``, each rank
+   its own timeout), as in phase 15. One process first runs the int8 eval
+   (P17_CALIB_BATCHES calibration batches, P17_INT8_BATCHES eval batches).
+   (a) A ring of 2 (3 agents a rank) calibrates its int8 scales over its
+   ranks: each within relative 1e-4 of one process's; with one process's
+   scales (phase 10's rule: two int8 evals, one set of scales) its class
+   maps within phase 10's seeded 1% of one process's; K1, K2 and K4 per
+   rank exactly as ``_expected_launches`` says (K2 never: the ring fuses
+   with plain ops) and K4 48 a batch; the bandwidth printed. (b) A data 1
+   x model 2 grid: K4 against its plain version at each output-channel
+   shard's geometry the flagship's step does not have (``check_int8_conv``),
+   3 ``Trainer.train`` steps at batch 2 against one process under phase
+   15's rule (losses, the first step's gradients gathered over the shards),
+   the ``activated`` eval (class maps 99.99%, bandwidth equal, K1 and K2
+   per rank as expected) and the int8 eval as (a) holds it. (c)
+   ``python -m multiagentperception_tpu_torch.dryrun_multichip --ranks 4
+   --device cuda --img 128`` (4 ranks sharing the card) passes; its
+   ``steps_per_call`` leg reports the trainer's refusal under gloo. (a),
+   (b) and (c) run at once (each rank pair's rendezvous a file), so (b)'s
+   ms a step is taken beside the others. (d)
+   ``phase17_info``: the bytes one model-axis train step moves through the
+   host, ms a step for the grid and one process (no speed claim), the
+   card. Phase 17 takes no CUPTI trace: it runs last, when Kineto drops
+   most records; the counters are exact. ``phase17_seconds`` times its
+   parts.
 
 Phase 16 runs right after phase 8, its bf16 counterpart. Kineto files
 some of a trace window's kernel records as outside its capture window
@@ -323,7 +351,10 @@ eval under replay, ``graph_launches_per_batch`` and
 phase 14's noisy ``test``, ``phase14_launches``, and per rank in phase 15's
 2-rank eval, ``phase15_launches``; ``upsample_argmax_f16``,
 ``comm_fusion_f16`` and ``int8_conv_f16`` are the float16 routes with their
-launches on phase 16's paths), and last
+launches on phase 16's paths; K1's, K2's and ``int8_conv``'s records hold
+their launches per rank on phase 17's ring and grid, ``phase17_launches``,
+and ``int8_conv`` its times at the shards' geometries, ``phase17_shapes``),
+and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -359,7 +390,9 @@ from multiagentperception_tpu_torch.ops.kernels import fused_block as k3
 from multiagentperception_tpu_torch.ops.kernels import int8_conv as k4
 from multiagentperception_tpu_torch.ops.kernels import upsample_argmax as k1
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
-from multiagentperception_tpu_torch.quantize import Int8Convs
+from multiagentperception_tpu_torch.parallel import tensor
+from multiagentperception_tpu_torch.parallel.collectives import all_gather_cat
+from multiagentperception_tpu_torch.quantize import Int8Convs, eligible_convs
 from multiagentperception_tpu_torch.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -1147,10 +1180,12 @@ def _expected_launches(trainer, mode: str | None, batches: int) -> dict:
     once a batch where the decoder has pre-upsample logits (none with
     ``n_segnet_decoder``), K2 once a batch for MIMOcom's ``activated`` and
     ``argmax_test`` on the full N x N graph (not on ``topk``, not with one
-    output), else never."""
+    output, and not on the agent ring, which fuses with its own plain ops),
+    else never."""
     mode = mode or trainer.eval_default
+    rings = getattr(trainer.model, "rings", None)
     k2_on = (trainer.arch == "MIMOcom" and trainer.model.mo_flag
-             and mode in ("activated", "argmax_test"))
+             and mode in ("activated", "argmax_test") and not (rings and rings(mode)))
     return {"upsample_argmax": batches if trainer.model.decoder.has_pre_logits else 0,
             "comm_fusion": batches if k2_on else 0}
 
@@ -2026,27 +2061,49 @@ def topk_bandwidth(yml: Path = TOPK_YAML) -> dict:
 CLI_TIMEOUT_S = 600
 
 
-def _cli(module: str, *args: str, cwd: Path) -> str:
+def _cli_start(module: str, *args: str, cwd: Path) -> tuple:
     """``python -m multiagentperception_tpu_torch.<module> *args`` in ``cwd``
-    (on the card: no ``--device``); its stdout, or an AssertionError with
-    its output's end."""
-    out = subprocess.run([sys.executable, "-m", f"multiagentperception_tpu_torch.{module}",
-                          *args], cwd=cwd, capture_output=True, text=True,
-                         timeout=CLI_TIMEOUT_S, env={**os.environ, "PYTHONPATH": str(ROOT)})
-    if out.returncode != 0:
-        raise AssertionError(f"{module} {' '.join(args)}: rc {out.returncode}\n"
-                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
-    return out.stdout
+    (on the card: no ``--device``), started, its output to files in ``cwd``;
+    ``_cli_wait`` takes what it returns."""
+    out, err = (open(cwd / f"{module}.{kind}", "w+") for kind in ("out", "err"))
+    proc = subprocess.Popen([sys.executable, "-m", f"multiagentperception_tpu_torch.{module}",
+                             *args], cwd=cwd, stdout=out, stderr=err, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    return proc, module, args, time.perf_counter(), out, err
+
+
+def _cli_wait(started: tuple) -> tuple[str, float]:
+    """A started CLI's stdout and seconds, or an AssertionError with its
+    output's end."""
+    proc, module, args, t0, out, err = started
+    try:
+        proc.wait(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{module}: no exit after {CLI_TIMEOUT_S} s") from None
+    finally:
+        text = []
+        for f in (out, err):
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)}: rc {proc.returncode}\n"
+                             f"{text[0][-2000:]}\n{text[1][-3000:]}")
+    return text[0], time.perf_counter() - t0
 
 
 def topk_clis(yml: Path = TOPK_YAML) -> dict:
     """The topk YAML through the CLIs a user runs, on the card: over the
     informative fixture at the YAML's 512x512 (one trajectory a split, 2
     frames each, written with the port's ``generate_informative_fixture``),
-    ``train`` (2 iterations, then its test-split eval in ``topk``),
-    ``test`` on the checkpoint it wrote, ``export_serving`` (the artifact in
-    the YAML's ``topk``) and ``serve`` over the test split. Each must exit
-    0; the evaluations print a bandwidth, the export's meta says ``topk``."""
+    ``train`` (2 iterations, then its test-split eval in ``topk`` on the
+    checkpoint it wrote), and, from a seeded ``.pkl``, ``test``,
+    ``export_serving`` (the artifact in the YAML's ``topk``) and ``serve``
+    over the test split; ``train``, ``test`` and ``export_serving`` run at
+    once, ``serve`` once its artifact exists. Each must exit 0; the
+    evaluations print a bandwidth, the export's meta says ``topk``."""
     import yaml
 
     from multiagentperception_tpu_torch.data.synthetic import generate_informative_fixture
@@ -2061,23 +2118,34 @@ def topk_clis(yml: Path = TOPK_YAML) -> dict:
     cfg["training"].update(train_iters=2, val_interval=2, print_interval=1, n_workers=2)
     config = work / "mrms_when2com_topk.yml"
     config.write_text(yaml.safe_dump(cfg))
-    seconds, t0 = {}, time.perf_counter()
-    trained = _cli("train", "--config", str(config), cwd=work)
-    seconds["train"] = time.perf_counter() - t0
-    (pkl,) = work.glob("runs/*/*/MIMOcom_airsim_best_model.pkl")
-    t0 = time.perf_counter()
-    tested = _cli("test", "--config", str(config), "--model_path", str(pkl), cwd=work)
-    seconds["test"] = time.perf_counter() - t0
+    pkl = work / "seed0.pkl"
+    model = init_weights(get_model(load_config(str(config)), N_CLASSES), SEED)
+    torch.save({"epoch": 0, "model_state": model.state_dict(), "best_iou": 0.0}, pkl)
+    del model
     artifact = work / "topk.pt2"
-    t0 = time.perf_counter()
-    _cli("export_serving", "--config", str(config), "--model_path", str(pkl), "--out",
-         str(artifact), "--batch", "1", cwd=work)
-    seconds["export_serving"] = time.perf_counter() - t0
-    meta = json.loads(Path(str(artifact) + ".meta.json").read_text())
-    t0 = time.perf_counter()
-    served = _cli("serve", "--config", str(config), "--artifact", str(artifact), "--out",
-                  str(work / "preds"), cwd=work)
-    seconds["serve"] = time.perf_counter() - t0
+    started, seconds = [], {}
+
+    def start(*args: str) -> tuple:
+        started.append(_cli_start(*args, cwd=work))
+        return started[-1]
+
+    try:
+        train = start("train", "--config", str(config))
+        test = start("test", "--config", str(config), "--model_path", str(pkl))
+        export = start("export_serving", "--config", str(config), "--model_path", str(pkl),
+                       "--out", str(artifact), "--batch", "1")
+        _, seconds["export_serving"] = _cli_wait(export)
+        meta = json.loads(Path(str(artifact) + ".meta.json").read_text())
+        served, seconds["serve"] = _cli_wait(start(
+            "serve", "--config", str(config), "--artifact", str(artifact), "--out",
+            str(work / "preds")))
+        tested, seconds["test"] = _cli_wait(test)
+        trained, seconds["train"] = _cli_wait(train)
+    finally:
+        for proc, *_ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if "Bandwidth:" not in trained or "Bandwidth:" not in tested or meta["inference"] != "topk":
         raise AssertionError(f"topk CLIs: no bandwidth printed, or the artifact's mode is "
                              f"{meta['inference']}")
@@ -3092,15 +3160,16 @@ P15_STATS = ("running_mean", "running_var")
 
 
 def _p15_train(cfg, stream, work: Path, name: str, layout=None) -> Trainer:
-    """``Trainer.train`` from the phase's weights, in deterministic mode;
-    validation on one global batch of 2. ``first_stats`` and
-    ``first_grads``: the BatchNorm statistics and the gradients (summed over
-    the ranks) of the first step (phase 6 compares those: later steps follow
-    parameters Adam moved by ~lr on noise-sized gradients)."""
+    """``Trainer.train`` from the phase's weights (a model group's shards
+    of them on the model axis), in deterministic mode; validation on one
+    global batch of 2. ``first_stats`` and ``first_grads``: the BatchNorm
+    statistics and the gradients (summed over the ranks, a shard's gathered
+    over its model group) of the first step (phase 6 compares those: later
+    steps follow parameters Adam moved by ~lr on noise-sized gradients)."""
     val = seeded_batches(1, 2, 6, P15_SIZE, SEED + 155)
     tr = Trainer(cfg, logging.getLogger("chip_smoke"), get_loss_function(cfg), stream, val,
                  logdir=str(work / name), layout=layout)
-    tr.model.load_state_dict(_p15_weights(work), strict=True)
+    tr.model.load_state_dict(tensor.shard_state_dict(_p15_weights(work), tr.model), strict=True)
     tr.first_stats, tr.first_grads = {}, {}
     eager_step = tr.train_step
 
@@ -3109,8 +3178,8 @@ def _p15_train(cfg, stream, work: Path, name: str, layout=None) -> Trainer:
         if not tr.first_stats:
             tr.first_stats = {k: v.detach().cpu().clone()
                               for k, v in tr.model.state_dict().items() if k.endswith(P15_STATS)}
-            tr.first_grads = {n: p.grad.detach().cpu().clone()
-                              for n, p in tr.model.named_parameters()}
+            tr.first_grads = {n: g.detach().cpu().clone() for n, g in _gathered(
+                tr.model, {n: p.grad for n, p in tr.model.named_parameters()}).items()}
         return loss
 
     tr.train_step = step
@@ -3208,30 +3277,41 @@ def phase15_rank(kind: str, work: Path) -> int:
     return 0
 
 
-def _p15_launch(kind: str, work: Path) -> list:
-    """Two ``MAP_*`` ranks on this card (gloo), each with its own timeout;
-    a rank that fails fails the phase with its output's end."""
-    import socket
+def _ranks_start(kind: str, work: Path, phase: int = 15, coordinator: str | None = None):
+    """Two ``MAP_*`` ranks of phase ``phase`` (15 or 17) on this card
+    (gloo), started: the coordinator ``localhost:<a free port>`` unless
+    ``coordinator`` is given (a ``file://`` rendezvous needs no port, so
+    launches may run at once); ``_ranks_wait`` takes what it returns."""
+    if coordinator is None:
+        import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    env = {**os.environ, "MAP_COORDINATOR": f"localhost:{port}", "MAP_NUM_PROCESSES": "2"}
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            coordinator = f"localhost:{s.getsockname()[1]}"
+    env = {**os.environ, "MAP_COORDINATOR": coordinator, "MAP_NUM_PROCESSES": "2"}
     procs, logs = [], []
     for rank in range(2):
         log = open(work / f"{kind}_rank{rank}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--phase15-rank", kind,
-             "--phase15-dir", str(work)], env={**env, "MAP_PROCESS_ID": str(rank)},
+            [sys.executable, str(Path(__file__).resolve()), f"--phase{phase}-rank", kind,
+             f"--phase{phase}-dir", str(work)], env={**env, "MAP_PROCESS_ID": str(rank)},
             stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    return kind, work, phase, procs, logs, time.monotonic()
+
+
+def _ranks_wait(started) -> list:
+    """The started ranks' results, each rank within the phase's timeout; a
+    rank that fails fails the phase with its output's end."""
+    kind, work, phase, procs, logs, t0 = started
+    timeout = P15_RANK_TIMEOUT_S if phase == 15 else P17_RANK_TIMEOUT_S
     try:
         for rank, p in enumerate(procs):
             try:
-                p.wait(timeout=P15_RANK_TIMEOUT_S)
+                p.wait(timeout=max(1.0, timeout - (time.monotonic() - t0)))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"phase 15 {kind} rank {rank}: no exit after "
-                                     f"{P15_RANK_TIMEOUT_S} s") from None
+                raise AssertionError(f"phase {phase} {kind} rank {rank}: no exit after "
+                                     f"{timeout} s") from None
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3242,12 +3322,17 @@ def _p15_launch(kind: str, work: Path) -> list:
     for rank, p in enumerate(procs):
         text = (work / f"{kind}_rank{rank}.log").read_text()
         if p.returncode != 0:
-            raise AssertionError(f"phase 15 {kind} rank {rank} failed (exit code "
+            raise AssertionError(f"phase {phase} {kind} rank {rank} failed (exit code "
                                  f"{p.returncode}):\n{text[-4000:]}")
         if rank == 0:
-            print(f"phase15 {kind} rank 0: " + next(
+            print(f"phase{phase} {kind} rank 0: " + next(
                 line for line in text.splitlines() if line.startswith("parallel:")))
     return [torch.load(work / f"{kind}_rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _p15_launch(kind: str, work: Path) -> list:
+    """Phase 15's two ranks of ``kind``, started and waited for."""
+    return _ranks_wait(_ranks_start(kind, work))
 
 
 def _p15_close(got: dict, want: dict, skip=()) -> dict:
@@ -3461,6 +3546,273 @@ def run_phase15(records: list) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 17
+
+P17_RANK_TIMEOUT_S = 400
+P17_CALIB_BATCHES, P17_INT8_BATCHES = 2, 3
+P17_DRYRUN_TIMEOUT_S = 400
+P17_DRYRUN_IMG = 128  # JAX's dry run's side (__graft_entry__.py:131)
+
+
+def _gathered(model, tensors: dict) -> dict:
+    """``tensors`` named as ``model``'s parameters, a shard's gathered over
+    its model group (the one-process tensors; others as they are)."""
+    layers = tensor.sharded(model)
+    return {k: all_gather_cat(v, layers[k].group, layers[k].shard_dim) if k in layers else v
+            for k, v in tensors.items()}
+
+
+def _p17_int8(ev: Evaluator, scales: dict | None = None) -> dict:
+    """The ``activated`` int8 eval, eagerly, in deterministic mode: scales
+    calibrated (over the layout's ranks) on P17_CALIB_BATCHES seeded
+    batches, then P17_INT8_BATCHES batches with ``scales`` (one process's:
+    phase 10's rule holds two int8 evals to one set of scales), or the
+    calibrated ones, K1's, K2's and K4's launches counted from 0; the
+    calibrated scales, class maps, confusion matrix, bandwidth."""
+    from multiagentperception_tpu_torch.metrics import runningScore
+
+    calib = seeded_batches(P17_CALIB_BATCHES, 2, 6, P15_SIZE, SEED + 171)
+    batches = seeded_batches(P17_INT8_BATCHES, 2, 6, P15_SIZE, SEED + 172)
+    kernels = (k1.upsample_argmax, k2.comm_fusion, k4.int8_conv)
+    metrics, maps = runningScore(N_CLASSES), []
+    with _deterministic():
+        calibrated = ev._calibrate_int8(None, "activated", calib_loader=calib)
+        swap = ev.int8_convs = Int8Convs(ev.model, scales or calibrated)
+        bench._zero_launches(kernels)
+        with swap:
+            for res, cl in ev._pipelined(batches, inference="activated", keep_pred=True):
+                maps.append(torch.from_numpy(ev._record(metrics, res, cl)["pred"].astype(
+                    np.uint8)))
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    expected = {**_expected_launches(ev, "activated", len(batches)),
+                "int8_conv": 48 * len(batches)}
+    if launches != expected or swap.calls != 48 * len(batches):
+        raise AssertionError(f"int8 eval launches {launches} ({swap.calls} swapped calls), "
+                             f"expected {expected}")
+    return {"scales": calibrated, "maps": maps, "hist": metrics.confusion_matrix,
+            "bandwidth": metrics.get_avg_bandW(), "launches": launches}
+
+
+def _p17_staged(layout) -> int:
+    groups = {id(g): g for g in (layout.world_group, layout.data_group, layout.model_group,
+                                 layout.agent_group)}
+    return sum(g.staged_bytes for g in groups.values())
+
+
+def phase17_rank(kind: str, work: Path) -> int:
+    """One rank of a phase-17 launch (``MAP_*`` environment): ``ring`` runs
+    (a), ``grid`` (b); the results go to ``work/<kind>_rank<r>.pt``."""
+    from multiagentperception_tpu_torch.parallel import from_environment
+
+    layout = from_environment("cuda", agent=2 if kind == "ring" else 1,
+                              model=2 if kind == "grid" else 1)
+    try:
+        out = {"backend": layout.backend}
+        if kind == "grid":
+            batches = seeded_batches(P15_STEPS, 2, 6, P15_SIZE, SEED + 170)
+            tr = _p15_train(_p15_cfg(), batches, work, "grid_run", layout)
+            out.update(losses=[tr.loss_history[i] for i in range(1, P15_STEPS + 1)],
+                       iter_ms=[1e3 * s for s in tr.iter_seconds], first_grads=tr.first_grads,
+                       shards=len(tensor.sharded(tr.model)))
+            before = _p17_staged(layout)  # one more step, its bytes through the host alone
+            tr.train_step(*tr._batch(*batches[0][:2]))
+            out["staged_bytes_per_step"] = _p17_staged(layout) - before
+            del tr
+            torch.cuda.empty_cache()
+        ev = Evaluator(load_config(str(FLAGSHIP)), layout=layout, graphs=False)
+        ev.load_weight(str(work / "weights.pkl"))
+        if kind == "grid":
+            out["eval"] = _p15_eval(ev)
+        out["int8"] = _p17_int8(ev, torch.load(work / "scales.pt"))
+        torch.save(out, work / f"{kind}_rank{layout.rank}.pt")
+    finally:
+        layout.close()
+    return 0
+
+
+def _p17_int8_against(ranks: list, want: dict, maps_of) -> dict:
+    """Each rank's calibrated int8 scales within relative 1e-4 of one
+    process's; with one process's scales (phase 10's rule), its class maps
+    (``maps_of``) within phase 10's seeded share of moved pixels."""
+    scales_rel = max(abs(r["int8"]["scales"][k] / v - 1.0) for r in ranks
+                     for k, v in want["scales"].items())
+    if any(set(r["int8"]["scales"]) != set(want["scales"]) for r in ranks) or scales_rel > 1e-4:
+        raise AssertionError(f"int8 scales {scales_rel} from one process's")
+    got, ref = maps_of(ranks), torch.cat(want["maps"])
+    moved = {"pixels_moved": int((got != ref).sum()), "pixels": ref.numel(),
+             "moved_share": float((got != ref).double().mean())}
+    if moved["moved_share"] > INT8_CARD_VS_CPU_MOVED["float32"]:
+        raise AssertionError(f"int8 class maps against one process: {moved}")
+    return {"scales_max_rel": scales_rel, "class_maps": moved,
+            "bandwidth": [r["int8"]["bandwidth"] for r in ranks],
+            "bandwidth_one_process": want["bandwidth"],
+            "launches_per_rank": [r["int8"]["launches"] for r in ranks]}
+
+
+def p17_ring_int8(ranks: list, want: dict) -> dict:
+    """(a) the ring's int8 eval against one process's dense int8 eval."""
+    def maps_of(ranks):  # each rank's 3 agents of every sample
+        return torch.cat([torch.cat([r["int8"]["maps"][i].reshape(2, 3, P15_SIZE, P15_SIZE)
+                                     for r in ranks], dim=1).reshape(-1, P15_SIZE, P15_SIZE)
+                          for i in range(P17_INT8_BATCHES)])
+    return {"backend": ranks[0]["backend"], **_p17_int8_against(ranks, want, maps_of)}
+
+
+def p17_grid(ranks: list, work: Path, want_int8: dict) -> dict:
+    """(b) the D = 1 x M = 2 grid: training, the ``activated`` eval and the
+    int8 eval against one process; K4 at the shards' new geometries."""
+    out = {"backend": ranks[0]["backend"], "sharded_layers": ranks[0]["shards"]}
+    # K4 at each shard geometry the flagship's step does not have
+    cfg = load_config(str(FLAGSHIP))
+    with torch.device("meta"):
+        model = get_model(cfg, N_CLASSES)
+    shapes = {g[:7]: g[7] for g in model_k4_shapes(cfg)}
+    half = {mod.out_channels for _, mod in eligible_convs(model)
+            if tensor.shard_rule(mod, 2) is not None}
+    flagship = {g[:7] for g in K4_SHAPES}
+    new = sorted((cin, cout // 2, *rest, calls) for (cin, cout, *rest), calls in shapes.items()
+                 if cout in half and (cin, cout // 2, *rest) not in flagship)
+    (k4_shards,) = check_int8_conv(
+        torch.Generator().manual_seed(SEED + 47), new, 2 * 6, {"f32": torch.float32},
+        "the model axis's output-channel shards (M = 2) not among the flagship's int8 "
+        "convolutions, at batch 2 x 6, each call of a step")
+    out["k4_shard_geometries"] = k4_shards
+    ref = _p15_train(_p15_cfg(), seeded_batches(P15_STEPS, 2, 6, P15_SIZE, SEED + 170), work,
+                     "grid_ref")
+    want_losses = [ref.loss_history[i] for i in range(1, P15_STEPS + 1)]
+    for r in ranks:
+        for g, w in zip(r["losses"], want_losses):
+            if abs(g - w) > P15_REL * abs(w):
+                raise AssertionError(f"grid loss {g} against one process {w}")
+    out["train"] = {"losses_grid": ranks[0]["losses"], "losses_1_process": want_losses,
+                    "gradients_first_step": _p15_grads(ranks[0]["first_grads"], ref.first_grads),
+                    "ms_per_step_grid": ranks[0]["iter_ms"][1:],
+                    "ms_per_step_1_process": [1e3 * s for s in ref.iter_seconds[1:]],
+                    "staged_bytes_per_step": ranks[0]["staged_bytes_per_step"]}
+    del ref
+    torch.cuda.empty_cache()
+    ev = Evaluator(load_config(str(FLAGSHIP)), graphs=False)
+    ev.load_weight(str(work / "weights.pkl"))
+    want = _p15_eval(ev)
+    agreement = min(_p15_agreement(torch.cat(r["eval"]["maps"]), torch.cat(want["maps"]))
+                    for r in ranks)
+    if agreement < P15_AGREEMENT or any(
+            r["eval"]["bandwidth"] != want["bandwidth"] or
+            r["eval"]["launches"] != r["eval"]["expected"] for r in ranks):
+        raise AssertionError(f"grid eval: class maps {agreement}, bandwidth "
+                             f"{[r['eval']['bandwidth'] for r in ranks]} against "
+                             f"{want['bandwidth']}, launches "
+                             f"{[r['eval']['launches'] for r in ranks]}")
+    out["eval"] = {"class_map_agreement": agreement, "bandwidth": want["bandwidth"],
+                   "launches_per_rank": [r["eval"]["launches"] for r in ranks]}
+    out["int8"] = _p17_int8_against(
+        ranks, want_int8, lambda ranks: torch.cat(ranks[0]["int8"]["maps"]))
+    return out
+
+
+def p17_dryrun(work: Path) -> tuple:
+    """(c) ``dryrun_multichip --ranks 4 --device cuda`` at JAX's 128x128,
+    started, its output to files in ``work`` (``p17_dryrun_result`` waits
+    for it)."""
+    out, err = (open(work / f"dryrun.{kind}", "w+") for kind in ("out", "err"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multiagentperception_tpu_torch.dryrun_multichip", "--ranks",
+         "4", "--device", "cuda", "--img", str(P17_DRYRUN_IMG)], stdout=out, stderr=err,
+        text=True, cwd=str(ROOT))
+    return proc, out, err
+
+
+def p17_dryrun_result(started: tuple) -> dict:
+    proc, out, err = started
+    try:
+        proc.wait(timeout=P17_DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"dryrun_multichip: no exit after {P17_DRYRUN_TIMEOUT_S} s") \
+            from None
+    finally:
+        text = []
+        for f in (out, err):
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+    lines = text[0].strip().splitlines()
+    result = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not result.get("ok"):
+        raise AssertionError(f"dryrun_multichip failed (exit code {proc.returncode}): "
+                             f"{text[0][-3000:]}{text[1][-3000:]}")
+    return result
+
+
+def run_phase17(records: list) -> dict:
+    """Phase 17: int8 eval on the agent ring and the mesh's model axis on
+    this card (the module docstring's (a)-(d))."""
+    started = time.perf_counter()
+    work = WORK / "phase17"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model = init_weights(get_model(load_config(str(FLAGSHIP)), N_CLASSES), SEED + 17)
+    with torch.no_grad():
+        model.attention_net.linear.weight.mul_(P15_SHARPEN)
+    torch.save({"epoch": 0, "model_state": model.state_dict(), "best_iou": 0.0},
+               work / "weights.pkl")
+    del model
+    torch.cuda.empty_cache()
+    ev = Evaluator(load_config(str(FLAGSHIP)), graphs=False)
+    ev.load_weight(str(work / "weights.pkl"))
+    want_int8 = _p17_int8(ev)
+    torch.save(want_int8["scales"], work / "scales.pt")
+    del ev
+    torch.cuda.empty_cache()
+    seconds = {"reference_int8": time.perf_counter() - started}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - started - sum(seconds.values())
+
+    # (a), (b) and (c) at once, each rendezvous a file; the ranks' results wait
+    dryrun = p17_dryrun(work)
+    launches = {kind: _ranks_start(kind, work, 17, f"file://{work / kind}_rendezvous")
+                for kind in ("ring", "grid")}
+    try:
+        ring = _ranks_wait(launches["ring"])
+        out = {"ring_int8": p17_ring_int8(ring, want_int8)}
+        print("phase17_ring_int8 " + json.dumps(out["ring_int8"]))
+        lap("a_ring_int8")
+        out["dryrun"] = p17_dryrun_result(dryrun)
+        print("phase17_dryrun " + json.dumps(out["dryrun"]))
+        lap("c_dryrun")
+        grid = _ranks_wait(launches["grid"])
+        lap("b_grid_ranks")
+    finally:
+        for proc in [dryrun[0], *launches["ring"][3], *launches["grid"][3]]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["grid"] = p17_grid(grid, work, want_int8)
+    print("phase17_grid " + json.dumps(out["grid"]))
+    lap("b_grid_one_process_and_k4")
+    print("phase17_seconds " + json.dumps(seconds))
+    train = out["grid"]["train"]
+    print("phase17_info " + json.dumps({
+        "staged_bytes_per_model_axis_step": train["staged_bytes_per_step"],
+        "ms_per_step_grid_one_card": train["ms_per_step_grid"],
+        "ms_per_step_1_process": train["ms_per_step_1_process"],
+        "note": "2 ranks share one card under gloo, beside (a) and (c): no speed claim",
+        "card": bench._card_line()}))
+    by_name = {rec["name"]: rec for rec in records}
+    for name in ("upsample_argmax", "comm_fusion", "int8_conv"):
+        by_name[name]["phase17_launches"] = {
+            "ring_int8": [r["int8"]["launches"][name] for r in ring],
+            "grid_int8": [r["int8"]["launches"][name] for r in grid]}
+        if name != "int8_conv":
+            by_name[name]["phase17_launches"]["grid_eval"] = \
+                [r["eval"]["launches"][name] for r in grid]
+    by_name["int8_conv"]["phase17_shapes"] = out["grid"]["k4_shard_geometries"]["shapes"]
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 # ------------------------------------------------------------------ phase 16
 
 def serve_float16() -> dict:
@@ -3556,6 +3908,8 @@ def main() -> int:
                         help="run only phase 10's trained int8 check, over N trainings")
     parser.add_argument("--phase15-rank", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--phase15-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase17-rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase17-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -3563,6 +3917,8 @@ def main() -> int:
         return 1
     if args.phase15_rank:
         return phase15_rank(args.phase15_rank, Path(args.phase15_dir))
+    if args.phase17_rank:
+        return phase17_rank(args.phase17_rank, Path(args.phase17_dir))
     if args.int8_draws:
         return int8_draws(args.int8_draws)
     eval_kernels = (k1.upsample_argmax, k2.comm_fusion)
@@ -3711,6 +4067,8 @@ def main() -> int:
     if min(drops["after_phase15"]["missing_per_window"]) == TRACE_PROBE_LAUNCHES:
         raise AssertionError(f"no trace after phase 15 holds a kernel record: {drops}")
     lap("15_parallel")
+    run_phase17(records)  # takes no trace (module docstring)
+    lap("17_parallel_model")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

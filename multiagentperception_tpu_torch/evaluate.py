@@ -52,8 +52,8 @@ the evaluator; its weights are quantized once and dropped by
 ``load_weight``. The step still ends in K2 and K1.
 
 With a ``parallel.Layout`` (``layout=``; data parallel, the agent ring or
-both) each rank evaluates its block of every batch, and the scores equal
-the single-process scores:
+both, or a data x model grid) each rank evaluates its block of every
+batch, and the scores equal the single-process scores:
 
 - Rows: over D data ranks each rank takes its rows of a global batch (a
   ``data.pipeline.ShardBatch`` from a sharded loader holds them already);
@@ -61,6 +61,19 @@ the single-process scores:
   as JAX replicates it.
 - Agents: MIMOcom's ring (``model.agent_parallel``) predicts the rank's
   agents; the labels and the normal/noise flags follow.
+- Channels: on the model axis (``Layout(model=M)``) the ranks of a model
+  group evaluate the same rows, each layer computing its shard of the
+  output channels and gathering them (``parallel.tensor``), so K1 and K2
+  run on every rank on whole tensors; their sums are the data group's
+  alone. ``load_weight`` takes a one-process ``.pkl`` and keeps the
+  rank's shards.
+- int8: the activation scales are max-reduced over the world
+  (``calibrate_activations``' ``group``): a ring rank's towers see its
+  agents alone, and the maxes over the ring are JAX's global ones; a
+  model group's ranks see the same inputs. On the ring ``Int8Convs``
+  swaps each rank's towers and decoder; on the model axis it quantizes a
+  shard's weight per output channel (a slice of the whole weight's
+  scales), runs K4 on it and gathers.
 - Per batch the confusion matrices (int64) and a validation loss are summed
   over the ranks whose blocks split the batch (the loss is each rank's
   share of the global mean, ``loss.py``'s ``group``); over the data ranks
@@ -91,6 +104,7 @@ from multiagentperception_tpu_torch.models import compute_dtype, get_model
 from multiagentperception_tpu_torch.ops.comm import confusion_matrix
 from multiagentperception_tpu_torch.ops.kernels.upsample_argmax import class_map
 from multiagentperception_tpu_torch.ops.normalize import normalize_images
+from multiagentperception_tpu_torch.parallel import tensor
 from multiagentperception_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from multiagentperception_tpu_torch.quantize import Int8Convs, active_swap, calibrate_activations
 
@@ -174,7 +188,7 @@ class Evaluator:
                 "%s: dropping %d argmax_decoder.* keys (unused at eval, no port module)",
                 model_path, len(unused))
             state = {k: v for k, v in state.items() if k not in set(unused)}
-        self.model.load_state_dict(state, strict=True)
+        self.model.load_state_dict(tensor.shard_state_dict(state, self.model), strict=True)
         if self.int8_convs is not None:
             self.int8_convs.clear()  # its graphs' key changes with it
 
@@ -498,8 +512,9 @@ class Evaluator:
             raise ValueError("int8 calibration source yielded no frames; pass a non-empty "
                              "calib_loader or train split")
         kw = self._forward_kwargs(inference or self.eval_default, "eval")
+        group = None if self.layout is None else self.layout.world_group
         return calibrate_activations(self.model, [self._images(b) for b in batches],
-                                     full_res=False, **kw)
+                                     full_res=False, group=group, **kw)
 
     def evaluate(self, loader, inference_mode: str | None = None, int8: bool = False,
                  calib_loader=None):
@@ -512,9 +527,6 @@ class Evaluator:
         self.model.eval()
         metrics = runningScore(self.n_classes)
         swap = contextlib.nullcontext()
-        if int8 and self.layout is not None and self.layout.agent > 1:
-            raise NotImplementedError("int8 eval with the agent ring (model.agent_parallel): "
-                                      "each rank would calibrate on its own agents alone")
         if int8:
             scales = self._calibrate_int8(loader, inference_mode, calib_loader)
             swap = self.int8_convs = Int8Convs(self.model, scales)

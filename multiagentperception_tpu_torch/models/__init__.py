@@ -15,7 +15,10 @@ communication step as a ring over its agent group (``parallel.ring``), and
 with ``model.agent_parallel_train`` its training forward too, its
 BatchNorms then taking their statistics over the ring
 (``parallel.sync_bn``); ``get_model`` raises where the JAX one does
-(models/__init__.py:102-127).
+(models/__init__.py:102-127). With a layout whose model groups hold more
+than one rank (``Layout(model=M)``, the mesh's ``model`` axis), every
+layer of any architecture that JAX's ``param_shardings`` shards holds
+this rank's output channels (``parallel.tensor``).
 ``model.pallas_comm`` is accepted and has no effect: MIMOcom's pruned eval
 modes always run the fused comm step where it applies (models/agents.py).
 ``model.remat`` checkpoints MIMOcom's two towers in its training forward
@@ -42,7 +45,7 @@ from multiagentperception_tpu_torch.models.agents import (
     MIMOcomWho,
     SingleAgent,
 )
-from multiagentperception_tpu_torch.parallel import sync_bn
+from multiagentperception_tpu_torch.parallel import sync_bn, tensor
 
 MODELS = {
     "Single_agent": SingleAgent,
@@ -74,7 +77,15 @@ def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype | None:
 def get_model(cfg: Mapping[str, Any], n_classes: int, layout=None) -> nn.Module:
     """Build the model of a reference-schema config dict; ``layout`` (a
     ``parallel.Layout``) gives MIMOcom its ring when its agent groups hold
-    more than one rank."""
+    more than one rank, and shards any model over its model group when that
+    holds more than one (module docstring)."""
+    model = _build(cfg, n_classes, layout)
+    if layout is not None and layout.model > 1:
+        tensor.parallelize(model, layout.model_group)
+    return model
+
+
+def _build(cfg: Mapping[str, Any], n_classes: int, layout) -> nn.Module:
     m = cfg["model"]
     name = m["arch"]
     if name not in MODELS:
@@ -136,24 +147,25 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     transposed convs (fan-in over the kernel and the input channels, as
     flax's kernel (kh, kw, in, out)), xavier-normal linears, zero biases,
     fresh BatchNorm. Drawn on the CPU from one ``torch.Generator``, so every
-    device gets the same weights."""
+    device gets the same weights; a layer sharded over a model group draws
+    the whole weight and keeps its shard, so the shards are the
+    one-process weights' (``parallel.tensor``)."""
     gen = torch.Generator().manual_seed(seed)
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            w = mod.weight
-            fan_in = w[0].numel()
-            if isinstance(mod, nn.Conv2d):
-                std = math.sqrt(2.0 / fan_in)
-            else:
-                std = math.sqrt(2.0 / (fan_in + w.shape[0]))
-            w.copy_(torch.randn(w.shape, generator=gen) * std)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw): fan-in over in
-            w = mod.weight
-            std = math.sqrt(2.0 / (w.shape[0] * w[0, 0].numel()))
-            w.copy_(torch.randn(w.shape, generator=gen) * std)
+
+    def draw(mod: nn.Module, std_of) -> None:
+        shape = tuple(getattr(mod, "full_weight_shape", mod.weight.shape))
+        full = torch.randn(shape, generator=gen) * std_of(shape)
+        mod.weight.copy_(mod.take(full) if isinstance(mod, tensor.ColumnParallel) else full)
+        if mod.bias is not None:
             mod.bias.zero_()
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):  # (out, in, kh, kw)
+            draw(mod, lambda s: math.sqrt(2.0 / math.prod(s[1:])))
+        elif isinstance(mod, nn.Linear):  # (out, in)
+            draw(mod, lambda s: math.sqrt(2.0 / (s[1] + s[0])))
+        elif isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw): fan-in over in
+            draw(mod, lambda s: math.sqrt(2.0 / (s[0] * s[2] * s[3])))
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     return model

@@ -45,11 +45,17 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.compute(x, self.weight, self.bias)
+
+    def compute(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None) -> torch.Tensor:
+        """The convolution with ``weight`` and ``bias`` (the module's, or a
+        shard of them: ``parallel.tensor``)."""
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
-        x, weight = x.to(dt), self.weight.to(dt)
-        bias = None if self.bias is None else self.bias.to(dt)
+            return self._conv_forward(x, weight, bias)
+        x, weight = x.to(dt), weight.to(dt)
+        bias = None if bias is None else bias.to(dt)
         if x.device.type == "cpu":
             bias = None if bias is None else bias.float()
             return self._conv_forward(x.float(), weight.float(), bias).to(dt)
@@ -65,11 +71,15 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.compute(x, self.weight, self.bias)
+
+    def compute(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+            return F.linear(x, weight, bias)
+        bias = None if bias is None else bias.to(dt)
+        return F.linear(x.to(dt), weight.to(dt), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -85,13 +95,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.compute(x, self.weight, self.bias)
+
+    def compute(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                                  self.padding, self.output_padding, self.groups,
-                                  self.dilation)
+        if dt is not None:
+            x, weight = x.to(dt), weight.to(dt)
+            bias = None if bias is None else bias.to(dt)
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
 
 
 class ConvBNRelu(nn.Module):

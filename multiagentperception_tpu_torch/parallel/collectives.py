@@ -12,10 +12,10 @@ still issues its collectives (under NCCL, inside its CUDA graph).
   ``batch_isend_irecv``.
 - ``gloo`` on CPU tensors: the direct collectives too.
 - ``gloo`` on CUDA tensors: gloo reduces and broadcasts CUDA tensors, and
-  nothing else, so ``all_reduce_sum`` and ``broadcast`` are direct (gloo
-  itself copies them to the host and back), while ``all_gather_cat`` and
-  ``ring_shift`` copy through pinned host buffers, here and nowhere else;
-  the compute stays on the card. ``Group.staged_bytes`` counts the bytes
+  nothing else, so ``all_reduce_sum``, ``all_reduce_max`` and ``broadcast``
+  are direct (gloo itself copies them to the host and back), while
+  ``all_gather_cat`` and ``ring_shift`` copy through pinned host buffers,
+  here and nowhere else; the compute stays on the card. ``Group.staged_bytes`` counts the bytes
   every call moves through the host, out and back.
 
 None of these functions records gradients; ``parallel.ring`` and
@@ -66,15 +66,25 @@ class Group:
         return host.to(device)
 
 
-def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """The sum of ``t`` over the group's ranks, in a new tensor."""
+def _all_reduce(t: torch.Tensor, group: Group, op) -> torch.Tensor:
     if not group.moves:
         return t
     out = t.detach().clone()
     if group._staged(out):
         group.staged_bytes += 2 * out.nbytes
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
+    dist.all_reduce(out, op=op, group=group.pg)
     return out
+
+
+def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks, in a new tensor."""
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the group's ranks, in a new
+    tensor."""
+    return _all_reduce(t, group, dist.ReduceOp.MAX)
 
 
 def broadcast(t: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:

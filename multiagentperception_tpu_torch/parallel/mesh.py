@@ -10,12 +10,18 @@ becomes D ranks of one ``torch.distributed`` process group:
 - ``agent_parallel_ranks`` is ``agent_parallel_mesh`` (:88-123): the agent
   count must divide over A ranks, A x D devices must exist and the batch
   must divide over D.
+- ``model_parallel_ranks`` is ``make_mesh``'s check (:29-40) for the
+  ``model`` axis: the world must divide into groups of M; and JAX has no
+  mesh with both an ``agent`` and a ``model`` axis, so A > 1 with M > 1
+  raises.
 - ``init_distributed`` joins the process group and returns a ``Layout``: the
-  world, its D x A grid (rank ``d * A + a``, JAX's ``reshape(d, n)``), the
-  data group of each rank (the ranks of its agent index: its batch rows'
-  peers) and its agent group (its ring), and its device
-  ``cuda:{local_rank % device_count}``, made current with
-  ``torch.cuda.set_device``.
+  world, its D x A grid (rank ``d * A + a``, JAX's ``reshape(d, n)``) or its
+  D x M grid (rank ``d * M + m``, ``make_mesh``'s ``reshape(n_data,
+  n_model)``), the data group of each rank (the ranks of its agent or model
+  index: its batch rows' peers), its agent group (its ring) and its model
+  group (the ranks that hold the output-channel shards of one replica,
+  ``parallel.tensor``), and its device ``cuda:{local_rank % device_count}``,
+  made current with ``torch.cuda.set_device``.
 - The backend is decided once, from the layout, before anything runs:
   ``nccl`` where every rank of a host has a card of its own, ``gloo`` where
   ranks share a card, or on the CPU. NCCL asked for on shared cards, or on
@@ -31,8 +37,9 @@ becomes D ranks of one ``torch.distributed`` process group:
   ``file://`` rendezvous, each with its own timeout; a failing rank fails
   the launch.
 
-The JAX mesh's ``model`` axis (``make_mesh(n_model > 1)`` /
-``param_shardings``, tensor parallel) is not ported: no CLI reaches it.
+No CLI reaches the ``model`` axis, in either package: ``Layout(model=M)``
+comes from ``init_distributed(model=M)`` or ``spawn(model=M)``, as
+``dryrun_multichip`` builds it.
 """
 
 from __future__ import annotations
@@ -96,9 +103,24 @@ def agent_parallel_ranks(cfg: Mapping[str, Any], n_cli: int = 0, n_data: int = 0
     return n
 
 
+def model_parallel_ranks(world: int, n_model: int = 1, agent: int = 1) -> int:
+    """Ranks on the ``model`` axis (JAX ``make_mesh``'s check): ``n_model``
+    must divide the world, and no layout has both an agent ring and a
+    model axis (JAX builds ``('data', 'agent')`` or ``('data', 'model')``)."""
+    n = max(1, int(n_model))
+    if world % n:
+        raise ValueError(f"mesh {world // n}x{n} != {world} ranks: the model axis "
+                         f"{n} does not divide the world {world}")
+    if n > 1 and agent > 1:
+        raise ValueError(f"agent {agent} x model {n}: no mesh has both an agent ring "
+                         "and a model axis (JAX builds ('data', 'agent') or "
+                         "('data', 'model'))")
+    return n
+
+
 @dataclass(eq=False)
 class Layout:
-    """A rank's place in a D x A grid of ranks (module docstring)."""
+    """A rank's place in a D x A or D x M grid of ranks (module docstring)."""
 
     rank: int
     world: int
@@ -106,16 +128,22 @@ class Layout:
     backend: str
     device: torch.device
     world_group: Group
-    data_group: Group  # the ranks of this rank's agent index
+    data_group: Group  # the ranks of this rank's agent (or model) index
     agent_group: Group  # this rank's ring
+    model: int = 1  # M: ranks holding one replica's output-channel shards
+    model_group: Group | None = None  # those ranks; a group of one without them
+
+    def __post_init__(self):
+        if self.model_group is None:
+            self.model_group = Group((self.rank,), 0, self.backend, self.device)
 
     @property
     def data(self) -> int:
-        return self.world // self.agent
+        return self.world // (self.agent * self.model)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.agent
+        return self.rank // (self.agent * self.model)
 
     @property
     def primary(self) -> bool:
@@ -147,12 +175,14 @@ def pick_backend(device_type: str, local_world: int, devices: int,
     return backend, reason
 
 
-def _groups(rank: int, world: int, agent: int, backend: str,
+def _groups(rank: int, world: int, inner: int, backend: str,
             device: torch.device) -> tuple[Group, Group, Group]:
-    """The world group and this rank's data and agent groups. Every rank
-    creates every group, in one order, as ``dist.new_group`` requires."""
+    """The world group and this rank's data group and inner group (its ring
+    or its model group: the ``inner`` consecutive ranks of its grid row).
+    Every rank creates every group, in one order, as ``dist.new_group``
+    requires."""
     world_group = Group(tuple(range(world)), rank, backend, device, dist.group.WORLD)
-    data = world // agent
+    data = world // inner
 
     def make(members_of: list[list[int]]) -> Group:
         mine = None
@@ -164,18 +194,20 @@ def _groups(rank: int, world: int, agent: int, backend: str,
                 mine = Group(tuple(members), members.index(rank), backend, device, pg)
         return mine
 
-    data_group = make([[d * agent + a for d in range(data)] for a in range(agent)])
-    agent_group = make([[d * agent + a for a in range(agent)] for d in range(data)])
-    return world_group, data_group, agent_group
+    data_group = make([[d * inner + a for d in range(data)] for a in range(inner)])
+    inner_group = make([[d * inner + a for a in range(inner)] for d in range(data)])
+    return world_group, data_group, inner_group
 
 
 def init_distributed(*, rank: int, world: int, init_method: str, device: str = "cuda",
-                     agent: int = 1, local_rank: int | None = None,
+                     agent: int = 1, model: int = 1, local_rank: int | None = None,
                      local_world: int | None = None, backend: str | None = None) -> Layout:
     """Join the process group as ``rank`` of ``world`` and return the
-    rank's ``Layout`` (module docstring). ``agent``: ranks per ring (A)."""
+    rank's ``Layout`` (module docstring). ``agent``: ranks per ring (A);
+    ``model``: ranks on the model axis (M)."""
     if world % agent:
         raise ValueError(f"world {world} does not divide into rings of {agent}")
+    model = model_parallel_ranks(world, model, agent)
     local_rank = rank if local_rank is None else local_rank
     local_world = world if local_world is None else local_world
     if device == "cuda":
@@ -192,17 +224,21 @@ def init_distributed(*, rank: int, world: int, init_method: str, device: str = "
     backend, reason = pick_backend(dev.type, local_world, count, backend)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    world_group, data_group, agent_group = _groups(rank, world, agent, backend, dev)
-    layout = Layout(rank, world, agent, backend, dev, world_group, data_group, agent_group)
+    world_group, data_group, inner_group = _groups(rank, world, agent * model, backend, dev)
+    one = Group((rank,), 0, backend, dev)
+    layout = Layout(rank, world, agent, backend, dev, world_group, data_group,
+                    inner_group if model == 1 else one, model,
+                    inner_group if model > 1 else one)
     if rank == 0:
-        line = (f"parallel: {world} rank(s), data {layout.data} x agent {agent}, "
+        axis = f"model {model}" if model > 1 else f"agent {agent}"
+        line = (f"parallel: {world} rank(s), data {layout.data} x {axis}, "
                 f"backend {backend} ({reason}), rank 0 on {dev}")
         print(line, flush=True)
         LOG.info(line)
     return layout
 
 
-def from_environment(device: str = "cuda", agent: int = 1) -> Layout | None:
+def from_environment(device: str = "cuda", agent: int = 1, model: int = 1) -> Layout | None:
     """The ``Layout`` of a ``MAP_COORDINATOR`` launch, or None without one."""
     coord = os.environ.get("MAP_COORDINATOR")
     if not coord:
@@ -213,14 +249,14 @@ def from_environment(device: str = "cuda", agent: int = 1) -> Layout | None:
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     init_method = coord if coord.startswith("file://") else f"tcp://{coord}"
     return init_distributed(rank=rank, world=world, init_method=init_method,
-                            device=device, agent=agent, local_rank=local_rank,
+                            device=device, agent=agent, model=model, local_rank=local_rank,
                             local_world=local_world)
 
 
 def _rank_entry(rank: int, world: int, init_method: str, device: str, agent: int,
-                fn: Callable, args: tuple) -> None:
+                model: int, fn: Callable, args: tuple) -> None:
     layout = init_distributed(rank=rank, world=world, init_method=init_method,
-                              device=device, agent=agent)
+                              device=device, agent=agent, model=model)
     try:
         fn(layout, *args)
     finally:
@@ -228,19 +264,22 @@ def _rank_entry(rank: int, world: int, init_method: str, device: str, agent: int
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), device: str = "cuda",
-          agent: int = 1, timeout_s: float = 3600.0) -> None:
+          agent: int = 1, model: int = 1, timeout_s: float = 3600.0,
+          shared_card: bool = False) -> None:
     """Run ``fn(layout, *args)`` in ``world`` spawned local ranks (a
     ``file://`` rendezvous in a fresh directory) and wait for all of them;
     raise if one fails or outlives ``timeout_s`` (the others are stopped).
-    ``fn`` must be importable by module path."""
-    if device == "cuda" and torch.cuda.device_count() < world:
+    ``fn`` must be importable by module path. On the card each rank takes
+    a card of its own, unless ``shared_card``: then the ranks share the
+    cards there are (gloo)."""
+    if device == "cuda" and not shared_card and torch.cuda.device_count() < world:
         raise RuntimeError(f"{world} ranks need {world} cards, have "
                            f"{torch.cuda.device_count()}")
     work = tempfile.mkdtemp(prefix="map_ranks_")
     init_method = "file://" + os.path.join(work, "rendezvous")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, name=f"rank{r}",
-                         args=(r, world, init_method, device, agent, fn, args))
+                         args=(r, world, init_method, device, agent, model, fn, args))
              for r in range(world)]
     try:
         for p in procs:

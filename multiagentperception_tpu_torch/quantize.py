@@ -10,8 +10,9 @@ the transposed convs of the SegNet decoder and the de-squeezers
 (``models.blocks.ConvTranspose2d``) stay in the network dtype.
 
 - **weights**: symmetric per-output-channel int8 (scale max|w| / 127) of
-  the float32 parameter, quantized once per swap and cached on the
-  module's device; ``Int8Convs.clear`` drops the cache (``Evaluator``
+  the float32 parameter (on the model axis, of the rank's shard: its
+  scales are the slice of the whole weight's), quantized once per swap and
+  cached on the module's device; ``Int8Convs.clear`` drops the cache (``Evaluator``
   does so when it loads weights).
 - **activations**: symmetric per-tensor int8. *Static*: scales from
   ``calibrate_activations`` (max|input| over calibration batches, / 127).
@@ -63,6 +64,8 @@ from multiagentperception_tpu_torch.ops.kernels.int8_conv import (
     quantize_input,
     quantize_weight,
 )
+from multiagentperception_tpu_torch.parallel.collectives import all_reduce_max
+from multiagentperception_tpu_torch.parallel.tensor import ColumnConv2d
 
 __all__ = ["quantize_weight", "quantize_activation", "default_skip", "eligible_convs",
            "Int8Convs", "calibrate_activations", "scales_to_json", "scales_from_json",
@@ -91,9 +94,11 @@ def default_skip(mod: nn.Module, min_features: int = 16) -> bool:
 
 
 def eligible_convs(model: nn.Module, skip: Skip | None = default_skip):
-    """(name, module) of every conv the swap routes through K4."""
+    """(name, module) of every conv the swap routes through K4: a
+    ``Conv2d``, or its output-channel shard on the model axis
+    (``parallel.tensor.ColumnConv2d``)."""
     return [(name, mod) for name, mod in model.named_modules()
-            if type(mod) is Conv2d and not (skip and skip(mod))]
+            if type(mod) in (Conv2d, ColumnConv2d) and not (skip and skip(mod))]
 
 
 class Int8Convs:
@@ -134,6 +139,10 @@ class Int8Convs:
                 s_x = self._scales[name] = torch.full(
                     (), float(self.act_scales[name]), dtype=torch.float32, device=x.device)
         self.calls += 1
+        if isinstance(mod, ColumnConv2d):  # the shard's channels, then every rank's
+            return mod.gather(int8_conv(x, w, s_x, mod.local_bias(), mod.stride, mod.padding,
+                                        mod.dilation, mod.groups,
+                                        out_dtype=mod.compute_dtype or x.dtype))
         bias = None if mod.bias is None else mod.bias.detach()
         return int8_conv(x, w, s_x, bias, mod.stride, mod.padding, mod.dilation, mod.groups,
                          out_dtype=mod.compute_dtype or x.dtype)
@@ -151,13 +160,20 @@ class Int8Convs:
 
 
 def calibrate_activations(model: nn.Module, batches, skip: Skip | None = default_skip,
-                          **forward_kwargs) -> dict:
+                          group=None, **forward_kwargs) -> dict:
     """One-off calibration: eval-mode forwards over ``batches`` (device
     tensors) record the max |input| of every eligible conv in float32 on
     the device, max-reduced across calls and batches, read back once.
     Returns ``{name: max(m / 127, 1e-8)}`` for ``Int8Convs`` /
     ``quantized_apply``. ``model.remat`` needs no remat-free twin here: it
-    acts only in a training forward that records gradients."""
+    acts only in a training forward that records gradients.
+
+    ``group`` (a ``parallel.collectives.Group``): the maxes are reduced
+    over its ranks in one MAX collective before the readback, so ranks that
+    each see a part of the batch (the agent ring's towers) get the scales
+    of the whole, as JAX's recorder takes them over the global arrays. A
+    conv no rank called has no scale."""
+    convs = eligible_convs(model, skip)
     maxes: dict[str, torch.Tensor] = {}
 
     def recorder(name: str):
@@ -166,8 +182,7 @@ def calibrate_activations(model: nn.Module, batches, skip: Skip | None = default
             maxes[name] = m if name not in maxes else torch.maximum(maxes[name], m)
         return hook
 
-    handles = [mod.register_forward_pre_hook(recorder(name))
-               for name, mod in eligible_convs(model, skip)]
+    handles = [mod.register_forward_pre_hook(recorder(name)) for name, mod in convs]
     was_training = model.training
     model.eval()
     try:
@@ -178,10 +193,15 @@ def calibrate_activations(model: nn.Module, batches, skip: Skip | None = default
         for h in handles:
             h.remove()
         model.train(was_training)
-    if not maxes:
-        return {}
-    host = torch.stack(list(maxes.values())).cpu().tolist()
-    return {name: max(m / 127.0, 1e-8) for name, m in zip(maxes, host)}
+    if group is None:
+        names = list(maxes)
+        host = torch.stack(list(maxes.values())).cpu().tolist() if maxes else []
+    else:  # every rank stacks every conv, -1 where it called none
+        names = [name for name, _ in convs]
+        unseen = torch.full((), -1.0, device=group.device)
+        host = all_reduce_max(torch.stack([maxes.get(name, unseen).to(group.device)
+                                           for name in names]), group).cpu().tolist()
+    return {name: max(m / 127.0, 1e-8) for name, m in zip(names, host) if m >= 0.0}
 
 
 def scales_to_json(act_scales: dict) -> dict:

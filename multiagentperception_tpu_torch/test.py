@@ -30,7 +30,10 @@ D ranks on the CPU), each decoding and evaluating its rows of every batch
 prints equal one process's. ``--agent_parallel A`` (or
 ``model.agent_parallel``) runs MIMOcom's fusion as a ring over A ranks;
 with both, D data groups of A ranks each run their own ring (JAX
-test.py:96-116). The ranks' backend, picked once, is printed first.
+test.py:96-116). With ``--int8`` every rank calibrates on the same frames
+and the scales are max-reduced over the ranks (a ring rank's towers see its
+agents alone): JAX's scales over the global arrays. The ranks' backend,
+picked once, is printed first.
 """
 
 from __future__ import annotations

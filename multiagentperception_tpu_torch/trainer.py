@@ -76,10 +76,13 @@ back: model, optimizer, iteration, best mIoU, the guard's counters and the
 stream's position (a file without it starts the stream at its beginning).
 
 With a ``parallel.Layout`` (``layout=``) the trainer is one rank of a
-data-parallel world (JAX's SPMD step over a ('data',) mesh) or of an agent
-ring (``model.agent_parallel_train``); the ring owns its ranks and takes no
-data parallel in training, as in JAX (train.py:195-201). The step equals
-the single-process step on the global batch:
+data-parallel world (JAX's SPMD step over a ('data',) mesh), of a data x
+model grid (the ('data', 'model') mesh of ``make_mesh``, the widest
+weights' output channels sharded over each model group:
+``parallel.tensor``) or of an agent ring (``model.agent_parallel_train``);
+the ring owns its ranks and takes no data parallel in training, as in JAX
+(train.py:195-201). The step equals the single-process step on the global
+batch:
 
 - Each rank takes its rows of every global batch; with
   ``training.shard_data_by_process`` each rank's loader reads its own
@@ -90,8 +93,16 @@ the single-process step on the global batch:
   ``group``), and the gradients are summed over the group once a step, as
   one flat bucket; ``nan_guard`` decides on the summed gradients, so every
   rank drops the same step.
+- On the grid the rows, BatchNorm statistics, loss count and gradient
+  sums are the data group's alone (a model group's ranks hold the same
+  rows); a shard's gradient is then whole, and the replicated parameters'
+  gradients are averaged over the model group, as a dense ring's replicas
+  do below, with the model group's first rank's BatchNorm statistics.
+  ``nan_guard`` decides over the model group's shards together.
 - Ranks start from rank 0's parameters, buffers, optimizer state and
-  counts (broadcast when ``train`` starts).
+  counts (broadcast when ``train`` starts); a shard and its Adam moments
+  from the first rank of its data group. Adam's moments of a shard live on
+  its rank.
 - An agent ring without ``agent_parallel_train`` trains dense: every rank
   of the ring runs the whole step, as each device runs JAX's replicated
   program. The card's arithmetic is not reproducible from run to run, so
@@ -101,7 +112,9 @@ the single-process step on the global batch:
   all-reduce in the CUDA graph under NCCL; under gloo, which no graph can
   hold, it raises.
 - Only rank 0 writes the ``.pkl``, the others wait for it; every rank
-  resumes from it. With ``shard_data_by_process`` ``"data_stream"`` holds
+  resumes from it. On the model axis the shards and their Adam moments are
+  gathered first, so the file is the one-process file, and a resume
+  shards it again. With ``shard_data_by_process`` ``"data_stream"`` holds
   one position per rank, indexed by rank (JAX checkpoint.py:100-154).
 - ``rss_limit_gb`` is disabled, with JAX's warning, when the world is larger
   than 1 (trainer.py:891-898); logs, prints and TensorBoard are rank 0's.
@@ -133,7 +146,7 @@ from multiagentperception_tpu_torch.optimizers import (
     optimizer_tensors,
     set_lr,
 )
-from multiagentperception_tpu_torch.parallel import sync_bn
+from multiagentperception_tpu_torch.parallel import sync_bn, tensor
 from multiagentperception_tpu_torch.parallel.collectives import (
     all_reduce_sum,
     barrier,
@@ -237,10 +250,14 @@ class NanGuard:
         self.last_finite = torch.ones((), dtype=torch.bool, device=device)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=device)
 
-    def decide(self, grads) -> torch.Tensor:
+    def decide(self, grads, group=None) -> torch.Tensor:
         """Count this step's gradients in; returns whether to apply it (a
-        bool tensor on the device)."""
+        bool tensor on the device). ``group``: the ranks that hold the
+        step's gradients between them (a model group's shards), which
+        decide together."""
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if group is not None:
+            finite = all_reduce_sum((~finite).to(torch.float32), group) == 0
         self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
         self.total_notfinite.add_((~finite).to(torch.int32))
         self.last_finite.copy_(finite)
@@ -305,6 +322,8 @@ class Trainer(Evaluator):
         # the whole step and average it (module docstring)
         self.train_group = self.replica_group = None
         self.local_stream = False
+        # the model group whose ranks hold the step's gradients between them
+        self.shard_group = None
         if layout is not None:
             if layout.agent > 1 and layout.data > 1:
                 raise ValueError("the agent ring owns its ranks in training: a layout of "
@@ -312,7 +331,9 @@ class Trainer(Evaluator):
             if layout.agent == 1:
                 self.train_group = layout.data_group
                 sync_bn.attach(self.model, self.train_group)
-                self.local_stream = layout.world > 1 and bool(cfg_t.get("shard_data_by_process"))
+                self.local_stream = layout.data > 1 and bool(cfg_t.get("shard_data_by_process"))
+                if layout.model > 1:  # the replicated parameters' copies stay equal
+                    self.replica_group = self.shard_group = layout.model_group
             elif self.model.ring_train:
                 self.train_group = layout.agent_group
             else:
@@ -374,17 +395,21 @@ class Trainer(Evaluator):
             offset += t.numel()
 
     def _reduce_grads(self) -> None:
-        """Sum the gradients over the train group, or average them over the
-        replicas (module docstring)."""
+        """Sum the gradients over the train group, then average those of
+        the replicated parameters over the replicas (module docstring)."""
         grads = self._grads()
         if grads and self.train_group is not None:
             self._reduce_flat(grads, self.train_group, "sum")
-        elif grads and self.replica_group is not None:
-            self._reduce_flat(grads, self.replica_group, "mean")
+        if self.replica_group is not None:
+            shards = tensor.shard_ids(self.model)
+            replicated = [p.grad for p in self.model.parameters()
+                          if p.grad is not None and id(p) not in shards]
+            if replicated:
+                self._reduce_flat(replicated, self.replica_group, "mean")
 
     def _sync_replicas(self) -> None:
-        """The ring's first rank's BatchNorm statistics on every replica
-        after a step (exact: equal statistics stay as they are)."""
+        """The replica group's first rank's BatchNorm statistics on every
+        replica after a step (exact: equal statistics stay as they are)."""
         if self.replica_group is not None:
             with torch.no_grad():
                 self._reduce_flat([b for b in self.model.buffers() if b.is_floating_point()],
@@ -392,23 +417,28 @@ class Trainer(Evaluator):
 
     def _broadcast_state(self) -> None:
         """Rank 0's parameters, buffers, optimizer state and counts on every
-        rank."""
-        group = self.layout.world_group
+        rank; a shard, and its optimizer state, from the first rank of its
+        data group (the rank of its model index in the first grid row)."""
+        world = self.layout.world_group
+        shards = tensor.shard_ids(self.model)
         with torch.no_grad():
-            tensors = list(self.model.state_dict().values())
+            tensors = [(t, world) for t in self.model.buffers()]
             for p in self.model.parameters():
-                tensors += [v for v in self.optimizer.state.get(p, {}).values()
-                            if isinstance(v, torch.Tensor)]
+                group = self.layout.data_group if id(p) in shards else world
+                tensors += [(p.detach(), group)] + [
+                    (v, group if v.shape == p.shape else world)
+                    for v in self.optimizer.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor)]
             if self.guard is not None:
-                tensors += [self.guard.notfinite_count, self.guard.last_finite,
-                            self.guard.total_notfinite]
-            for t in tensors:
+                tensors += [(self.guard.notfinite_count, world), (self.guard.last_finite, world),
+                            (self.guard.total_notfinite, world)]
+            for t, group in tensors:
                 if t.device == group.device:
                     broadcast(t, group)
                 else:  # Adam's step counts live on the host
                     t.copy_(broadcast(t.to(group.device), group))
-            counts = broadcast(torch.tensor([self.step, self.applied], device=group.device),
-                               group)
+            counts = broadcast(torch.tensor([self.step, self.applied], device=world.device),
+                               world)
         self.step, self.applied = (int(v) for v in counts.cpu())
 
     def _train_rows(self, data_list):
@@ -435,7 +465,7 @@ class Trainer(Evaluator):
         loss = self._loss(images, labels, ids)
         loss.backward()
         self._reduce_grads()
-        if self.guard is None or bool(self.guard.decide(self._grads())):
+        if self.guard is None or bool(self.guard.decide(self._grads(), self.shard_group)):
             self.optimizer.step()
             self.applied = applied + 1
         self._sync_replicas()
@@ -460,7 +490,7 @@ class Trainer(Evaluator):
             self.optimizer.step()
             st["applied"].add_(1)
         else:
-            apply = self.guard.decide(self._grads())
+            apply = self.guard.decide(self._grads(), self.shard_group)
             with torch.no_grad():
                 tensors = optimizer_tensors(self.optimizer)
                 saved = [t.clone() for t in tensors]
@@ -839,12 +869,15 @@ class Trainer(Evaluator):
             keys = ("seed", "epoch", "consumed")
             stream = [dict(zip(keys, v)) for v in gather_ints(
                 [int(stream[k]) for k in keys], self.layout.world_group)]
+        # a model group's shards gathered: the one-process file
+        model_state = tensor.gather_state_dict(self.model)
+        optimizer_state = tensor.gather_optimizer_state(self.optimizer, self.model)
         if not self.primary:
             barrier(self.layout.world_group)
             return path
         os.makedirs(self.logdir, exist_ok=True)
-        blob = {"epoch": i, "model_state": self.model.state_dict(),
-                "optimizer_state": self.optimizer.state_dict(), "best_iou": float(best_iou)}
+        blob = {"epoch": i, "model_state": model_state,
+                "optimizer_state": optimizer_state, "best_iou": float(best_iou)}
         if self.guard is not None:
             blob["nan_guard"] = {**self.guard.state_dict(), "applied": self._applied_count()}
         if stream is not None:
@@ -859,8 +892,10 @@ class Trainer(Evaluator):
         """Model, optimizer, iteration, the guard's counters and the train
         stream's position from a ``.pkl``; returns its best mIoU."""
         blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(blob["model_state"], strict=True)
-        self.optimizer.load_state_dict(blob["optimizer_state"])
+        self.model.load_state_dict(tensor.shard_state_dict(blob["model_state"], self.model),
+                                   strict=True)
+        self.optimizer.load_state_dict(tensor.shard_optimizer_state(
+            blob["optimizer_state"], self.optimizer, self.model))
         make_eager(self.optimizer)  # a graph run's file: its step counts back on the host
         self.step = self.applied = int(blob["epoch"])
         if self.guard is not None and "nan_guard" in blob:

@@ -1,6 +1,7 @@
 """Rank workers for the port's parallel tests (tests/test_torch_parallel*.py).
 
-``run_ranks(name, world, workdir, **kw)`` starts ``world`` processes of
+``run_ranks(name, world, workdir, **kw)`` (or ``start_ranks``, which
+returns the call that waits for them) starts ``world`` processes of
 this file, each of which joins a gloo group on the CPU through a
 ``file://`` rendezvous in ``workdir``, runs ``WORKERS[name](layout,
 workdir, **kw)`` and saves what it returns to ``workdir/<name>_<rank>.pt``;
@@ -17,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -41,8 +43,12 @@ def toy_cfg(agents: int = 4, batch: int = 2, **training) -> dict:
 
 
 def run_ranks(name: str, world: int, workdir, timeout: float = TIMEOUT_S, **kw) -> list:
-    import torch
+    return start_ranks(name, world, workdir, timeout, **kw)()
 
+
+def start_ranks(name: str, world: int, workdir, timeout: float = TIMEOUT_S, **kw):
+    """``run_ranks`` started: returns the call that waits for the ranks and
+    returns their results (the caller works meanwhile)."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
@@ -52,24 +58,33 @@ def run_ranks(name: str, world: int, workdir, timeout: float = TIMEOUT_S, **kw) 
         [sys.executable, __file__, name, str(rank), str(world), str(rendezvous), str(workdir),
          json.dumps(kw)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
-    outputs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            outputs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, out) in enumerate(zip(procs, outputs)):
-        assert p.returncode == 0, f"rank {rank} of {world} failed:\n{out[-6000:]}"
-    results = []
-    for rank in range(world):
-        path = workdir / f"{name}_{rank}.pt"
-        results.append(torch.load(path, weights_only=False))
-        path.unlink()
-    return results
+    started = time.monotonic()
+
+    def wait() -> list:
+        import torch
+
+        outputs = []
+        try:
+            for p in procs:
+                left = max(1.0, timeout - (time.monotonic() - started))
+                out, _ = p.communicate(timeout=left)
+                outputs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, out) in enumerate(zip(procs, outputs)):
+            assert p.returncode == 0, f"rank {rank} of {world} failed:\n{out[-6000:]}"
+        results = []
+        for rank in range(world):
+            path = workdir / f"{name}_{rank}.pt"
+            results.append(torch.load(path, weights_only=False))
+            path.unlink()
+        return results
+
+    wait.procs = procs  # a caller that never waits stops them
+    return wait
 
 
 def fake_layout(agent: int = 2, world: int = 2):
@@ -315,8 +330,117 @@ def failing_rank(layout) -> None:
     raise RuntimeError(f"rank {layout.rank} fails on purpose")
 
 
+def _gathered(model, tensors: dict) -> dict:
+    """``tensors`` (named as ``model``'s parameters) with the shards of the
+    model axis gathered over their model group: the one-process tensors."""
+    from multiagentperception_tpu_torch.parallel import tensor
+    from multiagentperception_tpu_torch.parallel.collectives import all_gather_cat
+
+    layers = tensor.sharded(model)
+    return {k: all_gather_cat(v, layers[k].group, layers[k].shard_dim) if k in layers
+            else v for k, v in tensors.items()}
+
+
+def _sharded_load(model, state: str) -> None:
+    import torch
+
+    from multiagentperception_tpu_torch.parallel import tensor
+
+    full = torch.load(state, weights_only=True)
+    model.load_state_dict(tensor.shard_state_dict(full, model), strict=True)
+
+
+def _int8_eval(ev, calib: list, batches: list, mode: str) -> dict:
+    """``ev.evaluate(int8=True)`` over ``batches`` calibrated on ``calib``
+    (global batches), then the class maps of its rows / agents of the first
+    batch under the same swap: the scales, maps, swapped convs a forward,
+    confusion matrix and bandwidth."""
+    import torch
+
+    ev.evaluate(_Batches(batches), inference_mode=mode, int8=True,
+                calib_loader=_Batches(calib))
+    m, swap = ev.last_eval_metrics, ev.int8_convs
+    before = swap.calls
+    with swap:
+        maps = ev.predict(batches[0][0], mode)[0]
+    return {"scales": swap.act_scales, "maps": maps.to(torch.uint8),
+            "calls": swap.calls - before, "hist": m.confusion_matrix,
+            "bandwidth": m.get_avg_bandW()}
+
+
+def ring_int8(layout, workdir, agents: int, state: str, data: str, mode: str):
+    """The ring's int8 eval (``_int8_eval``: the scales calibrated over the
+    ring, the class maps of this rank's agents) on the seeded batches in
+    ``data``; and ``all_reduce_max`` of a seeded tensor."""
+    import torch
+
+    from multiagentperception_tpu_torch.evaluate import Evaluator
+    from multiagentperception_tpu_torch.parallel.collectives import all_reduce_max
+
+    blob = torch.load(data, weights_only=False)
+    ev = Evaluator(toy_cfg(agents, 2), layout=layout, graphs=False)
+    ev.load_weight(state)
+    return {**_int8_eval(ev, blob["calib"], blob["eval"], mode),
+            "max": all_reduce_max(_seeded(20 + layout.rank, 3, 5), layout.world_group)}
+
+
+def grid_run(layout, workdir, agents: int, batch: int, state: str, batches: str,
+             data: str):
+    """The data x model grid, in float64 from ``state``: the ``activated``
+    eval with the loss (confusion matrix and bandwidth), 2 train steps on
+    this rank's rows (the losses summed over the data group, the first
+    step's gradients and each step's state gathered over the model group),
+    the ``.pkl`` after step 1, step 2 again after resuming from it; then
+    the float32 int8 eval from ``state`` (scales, class maps, confusion
+    matrix, bandwidth). Rank 0 returns everything, the others what they
+    hold."""
+    import torch
+
+    from multiagentperception_tpu_torch.evaluate import Evaluator, _bandwidth
+    from multiagentperception_tpu_torch.loss import get_loss_function
+    from multiagentperception_tpu_torch.parallel import tensor
+    from multiagentperception_tpu_torch.parallel.collectives import all_reduce_sum
+    from multiagentperception_tpu_torch.trainer import Trainer
+
+    cfg = toy_cfg(agents, batch)
+    tr = Trainer(cfg, None, get_loss_function(cfg), None, None, layout=layout,
+                 logdir=os.path.join(workdir, "grid_ckpt"))
+    tr.model.to(torch.float64)
+    _sharded_load(tr.model, state)
+    out = {"losses": [], "states": [], "shards": sorted(tensor.sharded(tr.model))}
+    tr.model.eval()
+    blob = torch.load(data, weights_only=False)
+    images, labels, cl = blob["eval"][0]
+    rows, whole = tr._shard_rows((images.astype("float64"), labels, cl))
+    res = tr.eval_step(*rows, inference="activated", with_loss=True, rows=whole)
+    out["eval"] = {"hist": res["hist"].numpy(), "loss": float(res["loss"]), "bandwidth": float(
+        _bandwidth(res["num_connect_parts"].numpy(), agents))}
+    host = torch.load(batches, weights_only=False)
+    for k, (x, y) in enumerate(host):
+        rows = tr._train_rows((x.astype("float64"), y))
+        loss = tr.train_step(*tr._batch(*rows))
+        if k == 0:
+            out["grads"] = _gathered(tr.model, {n: p.grad.clone()
+                                                for n, p in tr.model.named_parameters()})
+            out["ckpt"] = tr._save_ckpt("latest", 1, 0.0)
+        out["losses"].append(float(all_reduce_sum(loss, layout.data_group)))
+        out["states"].append({k2: v.clone()
+                              for k2, v in tensor.gather_state_dict(tr.model).items()})
+    tr._restore_full(out["ckpt"])  # resume after step 1, then step 2 again
+    tr.train_step(*tr._batch(*tr._train_rows((host[1][0].astype("float64"), host[1][1]))))
+    out["resumed"] = {k: v.clone() for k, v in tensor.gather_state_dict(tr.model).items()}
+    del tr
+    ev = Evaluator(cfg, layout=layout, graphs=False)
+    ev.load_weight(state)
+    out["int8"] = _int8_eval(ev, blob["calib"], blob["eval"], "activated")
+    if layout.rank:
+        out = {"losses": out["losses"], "int8": out["int8"], "eval": out["eval"]}
+    return out
+
+
 WORKERS = {f.__name__: f for f in (comm_step, mimocom_ring, ring_train, dp_train,
-                                    ring_replicas, sync_bn_stats, dp_eval)}
+                                    ring_replicas, sync_bn_stats, dp_eval, ring_int8,
+                                    grid_run)}
 
 
 def _main(argv) -> None:
@@ -328,7 +452,8 @@ def _main(argv) -> None:
     rank, world, kw = int(rank), int(world), json.loads(kw)
     torch.set_num_threads(1)
     layout = init_distributed(rank=rank, world=world, init_method=f"file://{rendezvous}",
-                              device="cpu", agent=int(kw.pop("agent", 1)))
+                              device="cpu", agent=int(kw.pop("agent", 1)),
+                              model=int(kw.pop("model", 1)))
     try:
         result = WORKERS[name](layout, workdir, **kw)
         torch.save(result, os.path.join(workdir, f"{name}_{rank}.pt"))

@@ -207,7 +207,7 @@ and the script exits non-zero:
    through graphs and eagerly (``Evaluator(graphs=False)``) in float32,
    bf16 and int8: class maps, confusion matrices, actions and bandwidth
    equal bit for bit, K1, K2 and K4 counted exactly a batch under replay,
-   5 alternated pairs of 16-batch windows (frames/s), one traced window
+   3 alternated pairs of 16-batch windows (frames/s), one traced window
    each (busy share; K1, K2 and K4 inside the replays). Last, the
    capture-safe confusion matrix against its ``torch.bincount`` form.
 14. The loader (``data/``, ``native.py``, ``bench_train_pipeline.py``).
@@ -316,6 +316,39 @@ and the script exits non-zero:
    most records; the counters are exact. ``phase17_seconds`` times its
    parts.
 
+18. MIMOcom beyond 16 agents: K2's wide design (``csrc/comm_fusion.cu``:
+   a graph kernel in float64 sums, a fusion kernel; any N) and the
+   agent-count sweep ``bench_agents``. (a) ``checks.check_comm_fusion_wide``
+   at N = 17, 24, 32, 33, 48, 64 and 200 on the sweep's 256x256 value maps
+   (512 x 8 x 8) and a ragged M of 1000, every type and mode (graphs within
+   1e-6 of float64, masks equal with links kept and argmax ties to the
+   lowest key, fused within rtol/atol 1e-5 in float32 and the 16-bit rule);
+   ``check_comm_fusion_every_n`` at every N from 1 to 200 in every type,
+   each call's design counted (``cluster`` up to 16 agents, ``wide``
+   above); the wide records timed (float32 at (d)'s shape, 16-bit at the
+   sweep's N = 48) beside ``bmm``/``softmax``, with each of the two kernels
+   alone by CUPTI; K1 at wide logits (``checks.check_upsample_argmax_wide``:
+   C = 11 at w = 70 and 96, C = 32 at w = 32, 16 rows opted in beyond 48 KB;
+   8, 4, 2 and 1 rows at w = 1815 (C = 2) and 1320, 2640, 5282 (C = 11); C
+   = 64 at w = 1024, the direct kernel) in every type. (b)
+   ``bench_agents.sweep`` at its defaults (256x256, B*N = 96, N = 6, 12,
+   24, 48, bf16) and at N = 24 in float16: per N, K1 and K2 once a step,
+   K2 on ``cluster`` at 6 and 12 and ``wide`` at 24 and 48, finite logits;
+   the table printed, no rate gated. (c) Card against CPU: MIMOcom at full
+   width, N = 24 and 48 at 128x128, batch 1, float32 with TF32 off, one set
+   of seeded weights (its graph peaked at these frames), ``activated`` and
+   ``argmax_test``: actions and bandwidth equal, class maps on at least
+   99.99% of pixels, a link kept; K2 on the card's own Q', K and V held to
+   float64 (``checks.check_comm_fusion_against_float64``); the whole
+   model's graph gaps from the CPU's float64 model printed (not gated: its
+   logits reach ~250, and the CPU's own float32 graph lies ~2e-5 off). (d)
+   ``bench.bench_eval`` at batch 2, 24 agents, 512x512, float32 (K2's wide
+   design once a step): eval ms and K2's device ms a call on the path; then
+   3 seeded batches through ``Evaluator`` with CUDA graphs (the third a
+   replay) against eager, bit for bit, launches exact. Phase 18 runs right
+   after phase 9, while traces still hold their records; ``phase18_seconds``
+   times its parts.
+
 Phase 16 runs right after phase 8, its bf16 counterpart. Kineto files
 some of a trace window's kernel records as outside its capture window
 ("Out-of-range" in its log), more the longer the process has run, and not
@@ -353,7 +386,11 @@ phase 14's noisy ``test``, ``phase14_launches``, and per rank in phase 15's
 ``comm_fusion_f16`` and ``int8_conv_f16`` are the float16 routes with their
 launches on phase 16's paths; K1's, K2's and ``int8_conv``'s records hold
 their launches per rank on phase 17's ring and grid, ``phase17_launches``,
-and ``int8_conv`` its times at the shards' geometries, ``phase17_shapes``),
+and ``int8_conv`` its times at the shards' geometries, ``phase17_shapes``;
+``comm_fusion_wide``, ``comm_fusion_wide_bf16`` and ``comm_fusion_wide_f16``
+are K2's wide design by type, with their launches on phase 18's paths (d),
+the bf16 sweep and the float16 sweep, and K1's records and
+``comm_fusion_bf16`` their launches there, ``phase18_launches``),
 and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -376,7 +413,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from multiagentperception_tpu_torch import bench
+from multiagentperception_tpu_torch import bench, bench_agents
 from multiagentperception_tpu_torch import bench_fused_block as k3_bench
 from multiagentperception_tpu_torch.bench_kernels import K4_SHAPES
 from multiagentperception_tpu_torch.bench_kernels import time_ms as _time_ms
@@ -544,7 +581,17 @@ def check_comm_fusion(gen, dtype: torch.dtype = torch.float32) -> dict:
     v = torch.randn(b, n, c, h, w, generator=gen).to("cuda", dtype)
     max_err = max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS, THRES)
                   for mode in ("softmax", "activated", "argmax"))
+    return comm_fusion_record("comm_fusion" + _suffix(dtype), q, k, v, max_err)
 
+
+def comm_fusion_record(name: str, q, k, v, max_err: float, cupti: str = "comm_fusion_kernel"
+                       ) -> dict:
+    """K2's record at these inputs: the kernel, its plain version and the
+    ``bmm``/``softmax`` yardstick timed in ``activated``, the byte and
+    operation bounds; ``cupti``: the kernel's name for a CUPTI reading
+    alone (None: none; the wide design launches two kernels a call)."""
+    b, n, d = k.shape
+    dtype = v.dtype
     flat = v.reshape(b, n, -1)
     bias = DIAG_BIAS * torch.eye(n, device="cuda")
 
@@ -553,25 +600,33 @@ def check_comm_fusion(gen, dtype: torch.dtype = torch.float32) -> dict:
         coef = torch.where(soft > THRES, soft, torch.zeros_like(soft))
         return torch.bmm(coef.transpose(1, 2).to(dtype), flat)
 
-    m = c * h * w
+    m = flat.shape[2]
     bytes_moved = ((q.numel() + k.numel() + 2 * v.numel()) * v.element_size()
                    + 2 * b * n * n * 4)  # coef and soft are float32
     flops = 2 * b * n * n * d + 2 * b * n * n * m
     bound_ms, bound_by = _bound(bytes_moved, flops)
     run = lambda: k2.comm_fusion(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
     plain = lambda: k2.comm_fusion_plain(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
-    return {
-        "name": "comm_fusion" + _suffix(dtype), "route": "cuda",
+    rec = {
+        "name": name, "route": "cuda",
         "source": "multiagentperception_tpu_torch/csrc/comm_fusion.cu",
         "replaces": "multiagentperception_tpu/ops/pallas/comm_fusion.py:73",
-        "max_abs_err": max_err,
-        "ms": _time_ms(run), "cupti_warm_ms": _traced_ms(run, "comm_fusion_kernel"),
+        "design": k2.plan(b, n, d, m, dtype), "max_abs_err": max_err,
+        "ms": _time_ms(run),
         "plain_ms": _time_ms(plain),
         "library_ms": _time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"q', k ({b}, {n}, {d}); V ({b}, {n}, {c}, {h}, {w}) {_route(dtype)}, "
-                 "activated",
+        "shape": f"q', k ({b}, {n}, {d}); V {tuple(v.shape)} {_route(dtype)}, activated",
     }
+    if cupti:
+        rec["cupti_warm_ms"] = _traced_ms(run, cupti)
+    else:  # the wide design: each of its two kernels alone, by CUPTI
+        run()
+        events = _trace_window(run, "comm_fusion_wide", 50)
+        rec["cupti_warm_ms_by_kernel"] = {
+            part: sum(e.self_device_time_total for e in events if part in e.key) / 50 / 1e3
+            for part in ("comm_fusion_wide_graph", "comm_fusion_wide_fuse")}
+    return rec
 
 
 K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): the flagship's stride-1 blocks at the
@@ -861,13 +916,7 @@ def profile_window(ev, batches, wall_s: float, kernels, out: Path = PROFILE_OUT)
         sort_by="self_device_time_total", row_limit=40))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     per_batch = len(batches)
-    path_ms = {}
-    for kern in kernels:
-        hits = [e for e in events if f"{kern.__name__}_kernel" in e.key]
-        calls = sum(e.count for e in hits)
-        if not calls:
-            raise AssertionError(f"the trace holds no launch of {kern.__name__}")
-        path_ms[kern.__name__] = sum(e.self_device_time_total for e in hits) / calls / 1e3
+    path_ms = {kern.__name__: bench.device_ms_per_call(events, kern) for kern in kernels}
     htod_ms = sum(e.self_device_time_total for e in events if "Memcpy HtoD" in e.key) / 1e3
     return {"device_ms_per_batch": device_ms / per_batch,
             "htod_device_ms_per_batch": htod_ms / per_batch,
@@ -2236,10 +2285,10 @@ SERVE_GRAPH_ATOL = 1e-6
 SERVE_TIMED = 10  # CUDA-event runs a timing, after the helper's warm-up
 QUANTIZE_NODES = ("aten.round.default", "aten.amax.default", "aten.abs.default")
 SERVE_TIMED_FRAMES = 240  # a timed pass of the serve loop: 30 batches of 8
-SERVE_TIMED_PASSES = 2  # after the 19-frame pass, which warms the loop up
-DISPATCH_PAIRS = 5  # alternated pairs of windows (ops, direct / direct, ops)
+SERVE_TIMED_PASSES = 1  # after the 19-frame pass, which warms the loop up
+DISPATCH_PAIRS = 3  # alternated pairs of windows (ops, direct / direct, ops)
 DISPATCH_CALLS = 20000  # op calls a window of the hot loop (~0.1-0.3 s)
-DISPATCH_AB_REPEATS = 34  # the 6 timed batches 34 times: 204 batches a window (~3-5 s)
+DISPATCH_AB_REPEATS = 17  # the 6 timed batches 17 times: 102 batches a window (~2 s)
 
 
 def seeded_images(count: int, b: int, n: int, size: int, seed: int) -> list[torch.Tensor]:
@@ -2431,7 +2480,7 @@ def direct_launches():
 def dispatch_ab() -> dict:
     """What the dispatcher costs end to end where the host bounds the
     step: the flagship's int8 eval through ``Evaluator`` at the YAML's batch
-    (phase 10's path: 98 op calls a batch), frames/s over windows of 204
+    (phase 10's path: 98 op calls a batch), frames/s over windows of 102
     batches, DISPATCH_PAIRS pairs alternated (ops, direct / direct, ops),
     through the ops and with their CUDA implementations called directly."""
     cfg = load_config(str(FLAGSHIP))
@@ -2522,7 +2571,7 @@ GRAPH_ITERS = 24
 GRAPH_BAD_ITER = 7  # the injected non-finite step: a replay in the second chunk
 GRAPH_PROFILE = (8, 12)  # training.profile_range: the chunks 5-8 and 9-12
 GRAPH_EVAL_BATCHES = 16  # a timed window
-GRAPH_PAIRS = 5  # alternated pairs of windows (graph, eager / eager, graph)
+GRAPH_PAIRS = 3  # alternated pairs of windows (graph, eager / eager, graph)
 MARK = 249  # a label value that makes its step's loss non-finite (the loss clears it)
 
 
@@ -3902,6 +3951,206 @@ def run_phase16(records: list, lap) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 18
+
+P18_EVERY_N = range(1, 201)  # every agent count K2 takes on the card in (a), all types
+P18_F16_AGENTS = (24,)  # the float16 leg of the sweep
+P18_CPU_AGENTS, P18_CPU_SIZE = (24, 48), 128  # (c): card against CPU, batch 1
+P18_CPU_MODES = ("activated", "argmax_test")
+P18_AGREEMENT = 0.9999
+P18_FULL = {"batch": 2, "img": 512, "agents": 24, "dtype": "float32"}  # (d)
+P18_GRAPH_BATCHES = 3  # (d): warm-up, capture, replay
+# the wide records' shapes: float32 at (d)'s, 16-bit at the sweep's N = 48
+P18_RECORD_SHAPES = {torch.float32: (2, 24, (512, 16, 16)),
+                     torch.bfloat16: (2, 48, (512, 8, 8)), torch.float16: (2, 48, (512, 8, 8))}
+
+
+def _designs() -> dict:
+    return dict(k2.comm_fusion.design_launches)
+
+
+def _zero_designs() -> None:
+    k2.comm_fusion.design_launches.update(dict.fromkeys(k2.comm_fusion.design_launches, 0))
+
+
+def p18_kernels(gen) -> tuple[list[dict], dict]:
+    """(a): K2's wide design against its plain version (``checks``) at
+    WIDE_AGENTS x WIDE_MAPS in every type and mode, every N of P18_EVERY_N in
+    every type (one mode each), each call's design counted (the cluster
+    design alone up to 16 agents); the wide records, timed; K1 at the wide
+    logits of ``checks.K1_WIDE_SHAPES`` in every type."""
+    out = {"wide": {}, "k1_wide": {}}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        out["wide"][_route(dtype)] = checks.check_comm_fusion_wide(gen, "cuda", dtype)
+        out["k1_wide"][_route(dtype)] = checks.check_upsample_argmax_wide(gen, "cuda", dtype)
+    out["every_n"] = {_route(dtype): checks.check_comm_fusion_every_n(gen, "cuda", dtype,
+                                                                     P18_EVERY_N)
+                      for dtype in (torch.float32, torch.bfloat16, torch.float16)}
+    records = []
+    for dtype, (b, n, rest) in P18_RECORD_SHAPES.items():
+        q, k, v = checks.wide_comm_inputs(gen, b, n, checks.WIDE_KEY, rest, dtype, "cuda")
+        err = max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS, THRES) for mode in k2.MODES)
+        records.append(comm_fusion_record("comm_fusion_wide" + _suffix(dtype), q, k, v, err,
+                                          cupti=None))
+    return records, out
+
+
+def p18_sweep(dtype: str, agents) -> dict:
+    """(b): ``bench_agents.sweep`` (256x256, B*N = 96) on the card, each N's
+    launches held there (K1 and K2 once a step, K2 on its planned design
+    alone: ``cluster`` up to 16 agents, ``wide`` above) and its logits
+    finite; here also that no N failed and the designs by N. Returns the
+    rows and the launches summed over them by kernel, route and design."""
+    rows = bench_agents.sweep(dtype=dtype, agents=agents)
+    failed = [r for r in rows if not r["ok"]]
+    if failed:
+        raise AssertionError(f"bench_agents {dtype}: {failed}")
+    for r in rows:
+        want = "cluster" if r["agents"] <= k2.CLUSTER_AGENTS else "wide"
+        if r["design"] != want:
+            raise AssertionError(f"bench_agents {dtype} N={r['agents']}: design {r['design']}")
+    sums = {"upsample_argmax": sum(r["launches"]["upsample_argmax"] for r in rows),
+            "comm_fusion": {design: sum(r["designs"][design] for r in rows)
+                            for design in k2.DESIGNS}}
+    return {"dtype": dtype, "rows": [{k_: v for k_, v in r.items() if k_ != "step_s"}
+                                     for r in rows], "launches": sums}
+
+
+@_no_tf32()
+def p18_card_vs_cpu() -> dict:
+    """(c): MIMOcom at full width, P18_CPU_AGENTS agents at 128x128, batch 1,
+    float32 with TF32 off, one set of seeded weights (``bench._build``: at
+    these frames its graph is peaked, so links survive ``activated``), on
+    the card (K2's wide design, counted) and on the CPU: actions and
+    bandwidth equal, class maps (K1 on the card, its plain version on the
+    CPU) on at least P18_AGREEMENT of the pixels, and a link kept. The
+    graph and the fused maps K2 forms on the card from the card's own Q',
+    K and V are held to the function in float64 of those values
+    (``checks.check_comm_fusion_against_float64``: graph 1e-6, masks equal,
+    fused rtol/atol 1e-5; at these logits the plain version's float32
+    sums lie beyond 1e-6 from float64's, so it is no reference here). The whole
+    model's graph is not held to a bound: its logits reach ~250, so the
+    towers' float32 sums move it (the CPU's float32 graph lies ~2e-5 from
+    its float64 one); the card's and the CPU's distances from the CPU's
+    float64 model are printed."""
+    cpu, size = torch.device("cpu"), P18_CPU_SIZE
+    out = {}
+    for n in P18_CPU_AGENTS:
+        model = bench._build(size, n, "float32", cpu)
+        card, model64 = copy.deepcopy(model).to("cuda"), copy.deepcopy(model).double()
+        x = bench._inputs(1, size, n, torch.float32, cpu)[0]
+        for mode in P18_CPU_MODES:
+            _zero_designs()
+            with torch.inference_mode():
+                c_pre, c_prob, c_act, c_nc = model(x, inference=mode, full_res=False)
+                g_pre, g_prob, g_act, g_nc = card(x.to("cuda"), inference=mode, full_res=False)
+                x_prob = model64(x.double(), inference=mode, full_res=False)[1]
+                c_cls = k1.upsample_argmax(c_pre, size, size)
+                g_cls = k1.upsample_argmax(g_pre, size, size).cpu()
+            if _designs() != {"cluster": 0, "wide": 1}:
+                raise AssertionError(f"card vs CPU N={n} {mode}: K2 designs {_designs()}")
+            agree = (g_cls == c_cls).float().mean().item()
+            row = {"pixel_agreement": agree, "num_connect": float(c_nc),
+                   "card_num_connect": float(g_nc),
+                   "graph_card_vs_cpu": float((g_prob.cpu() - c_prob).abs().max()),
+                   "graph_card_vs_float64": float((g_prob.cpu().double() - x_prob).abs().max()),
+                   "graph_cpu_vs_float64": float((c_prob.double() - x_prob).abs().max())}
+            if not torch.equal(g_act.cpu(), c_act) or float(g_nc) != float(c_nc) or \
+                    agree < P18_AGREEMENT or not float(c_nc) > 0:
+                raise AssertionError(f"card vs CPU N={n} {mode}: {row}, actions equal "
+                                     f"{torch.equal(g_act.cpu(), c_act)}")
+            with torch.inference_mode():
+                val, keys, query = card._towers(x.to("cuda"))
+                err = checks.check_comm_fusion_against_float64(
+                    card.attention_net.project(query), keys, val,
+                    "argmax" if mode == "argmax_test" else "activated", DIAG_BIAS, THRES)
+            row["k2_on_card_inputs_max_abs_err"] = err
+            out[f"{n}_{mode}"] = row
+        del model, card, model64
+    return out
+
+
+def p18_full_width() -> dict:
+    """(d): ``bench.bench_eval`` at P18_FULL (the flagship's widths, 24
+    agents at 512x512, float32: K2's wide design, its launches and designs
+    held once a step), eval ms and K2's device ms a call on the path; then
+    P18_GRAPH_BATCHES seeded batches through ``Evaluator`` with CUDA graphs
+    (``graphs.GraphCache``: the last batch a replay) and eagerly, their
+    class maps, graphs, actions and bandwidth equal bit for bit."""
+    _zero_designs()
+    r = bench.bench_eval(count=False, **P18_FULL)
+    if _designs() != {"cluster": 0, "wide": r["steps"]}:
+        raise AssertionError(f"bench_eval at {P18_FULL}: K2 designs {_designs()}, "
+                             f"{r['steps']} steps")
+    out = {"eval_ms": r["step_s"] * 1e3, "frames_per_s": r["fps"], "steps": r["steps"],
+           "device_ms": r["device_ms"], "busy": r["busy"],
+           "k2_path_device_ms": r["kernel_device_ms"]["comm_fusion"],
+           "k1_path_device_ms": r["kernel_device_ms"]["upsample_argmax"],
+           "route_launches": r["route_launches"], "designs": _designs()}
+    cfg = bench._config(P18_FULL["img"], P18_FULL["agents"], P18_FULL["dtype"])
+    cfg["training"]["batch_size"] = P18_FULL["batch"]
+    state = bench._build(P18_FULL["img"], P18_FULL["agents"], "float32",
+                         torch.device("cpu")).state_dict()
+    batches = seeded_batches(P18_GRAPH_BATCHES, P18_FULL["batch"], P18_FULL["agents"],
+                             P18_FULL["img"], SEED + 180, "None")
+    evs = {True: Evaluator(cfg), False: Evaluator(cfg, graphs=False)}
+    for ev in evs.values():
+        ev.model.load_state_dict(state)
+    with contextlib.redirect_stdout(io.StringIO()):
+        runs = _graph_eval_runs(evs, batches)
+    for r_graph, r_eager in zip(runs[True]["res"], runs[False]["res"]):
+        for key, value in r_eager.items():
+            if not torch.equal(r_graph[key], value):
+                raise AssertionError(f"N={P18_FULL['agents']}: graph eval {key} differs "
+                                     "from eager")
+    want = {"upsample_argmax": P18_GRAPH_BATCHES, "comm_fusion": P18_GRAPH_BATCHES,
+            "int8_conv": 0}
+    if any(run["launches"] != want for run in runs.values()):
+        raise AssertionError(f"graph against eager at N={P18_FULL['agents']}: launches "
+                             f"{[run['launches'] for run in runs.values()]}, want {want}")
+    out["graph_equals_eager"] = {"batches": P18_GRAPH_BATCHES, "launches": want,
+                                 "compared": sorted(runs[True]["res"][0])}
+    return out
+
+
+def run_phase18(records: list) -> dict:
+    """Phase 18: MIMOcom beyond 16 agents (the module docstring's (a)-(d)).
+    Adds the wide design's records to ``records`` and the sweep's launches
+    to K1's and K2's; prints ``phase18_seconds``."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
+    wide, out = p18_kernels(torch.Generator().manual_seed(SEED + 18))
+    print("phase18_kernels " + json.dumps(out))
+    lap("a_kernels")
+    sweep = {"bf16": p18_sweep("bfloat16", bench_agents.AGENTS),
+             "f16": p18_sweep("float16", P18_F16_AGENTS)}
+    print("phase18_sweep " + json.dumps(sweep))
+    lap("b_sweep")
+    print("phase18_card_vs_cpu " + json.dumps(p18_card_vs_cpu()))
+    lap("c_card_vs_cpu")
+    full = p18_full_width()
+    print("phase18_full_width " + json.dumps(full))
+    lap("d_full_width")
+    wide[0]["launches"] = full["designs"]["wide"]
+    wide[0]["path_device_ms"] = full["k2_path_device_ms"]
+    for rec, leg in zip(wide[1:], ("bf16", "f16")):
+        rec["launches"] = sweep[leg]["launches"]["comm_fusion"]["wide"]
+    by_name = {rec["name"]: rec for rec in records}
+    for leg in ("bf16", "f16"):
+        by_name[f"upsample_argmax_{leg}"]["phase18_launches"] = \
+            sweep[leg]["launches"]["upsample_argmax"]
+    by_name["comm_fusion_bf16"]["phase18_launches"] = \
+        sweep["bf16"]["launches"]["comm_fusion"]["cluster"]  # N = 6 and 12
+    by_name["upsample_argmax"]["phase18_launches"] = \
+        full["route_launches"]["upsample_argmax"]["f32"]
+    records += wide
+    print("phase18_seconds " + json.dumps(seconds))
+    return {"kernels": out, "sweep": sweep, "full_width": full, "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8-draws", type=int, default=0, metavar="N",
@@ -4024,6 +4273,8 @@ def main() -> int:
         rec["path_device_ms_bench_b20"] = run["eval_kernel_device_ms"][kern.__name__]
     print("remat " + json.dumps(remat_pair()))
     lap("9_bench")
+    run_phase18(records)  # beside the bench, while traces still hold their records
+    lap("18_agents")
 
     k4_records = check_int8_conv(torch.Generator().manual_seed(SEED + 40))
     print("int8 kernel checks passed; " + json.dumps(k4_records))

@@ -91,12 +91,13 @@ SEED = 0
 BATCH = 20  # the JAX bench's main() batch for eval and training (bench.py:382, :208)
 LR = 1e-5
 # published dense peaks by torch.cuda.get_device_name (NVIDIA data sheet, SXM
-# part at 700 W): bf16 tensor cores, and TF32 for float32, whose convolutions
-# cuDNN runs in TF32 (PyTorch's default)
-PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 495e12}}
+# part at 700 W): bf16 and float16 tensor cores, and TF32 for float32, whose
+# convolutions cuDNN runs in TF32 (PyTorch's default)
+PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float16": 989e12,
+                                         "float32": 495e12}}
 # the kernels of the eval step, each with the route of each dtype
 EVAL_KERNELS = (k1.upsample_argmax, k2.comm_fusion)
-ROUTE = {"bfloat16": "bf16", "float32": "f32"}
+ROUTE = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}
 # keys only a card can give: absent from a CPU run's JSON line
 DEVICE_ONLY_KEYS = ("peak_tflops", "power_limit_w", "eval_mfu_pct", "eval_device_ms",
                     "eval_busy_pct", "eval_peak_gb", "eval_route_launches",
@@ -191,17 +192,30 @@ def _trace(run, k: int, device: torch.device, kernels=()) -> dict:
               and not getattr(e, "is_user_annotation", False)]
     if not events:
         raise RuntimeError("the profiler recorded no device time")
-    per_launch = {}
-    for kern in kernels:
-        hits = [e for e in events if f"{kern.__name__}_kernel" in e.key]
-        calls = sum(e.count for e in hits)
-        if not calls:
-            raise RuntimeError(f"the trace holds no launch of {kern.__name__}")
-        per_launch[kern.__name__] = sum(e.self_device_time_total for e in hits) / calls / 1e3
+    per_launch = {kern.__name__: device_ms_per_call(events, kern) for kern in kernels}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:TOP_KERNELS]
     return {"device_ms": sum(e.self_device_time_total for e in events) / 1e3 / k,
             "kernel_device_ms": per_launch,
             "top_device_ms": {e.key[:80]: e.self_device_time_total / 1e3 / k for e in top}}
+
+
+def device_ms_per_call(events, kern) -> float:
+    """Device ms per call of the kernel wrapper ``kern`` in a trace's device
+    events: the time of every kernel one call launches over the calls. A
+    call launches ``<wrapper>_kernel`` (csrc) unless the wrapper names its
+    kernels in ``device_kernels``, each with 1 where it runs once a call on
+    its own path (K2's wide design launches a graph and a fusion kernel):
+    the calls are counted by those. Raises if the trace holds no call."""
+    names = getattr(kern, "device_kernels", {f"{kern.__name__}_kernel": 1})
+    ms = calls = 0.0
+    for e in events:
+        weight = next((w for name, w in names.items() if name in e.key), None)
+        if weight is not None:
+            ms += e.self_device_time_total / 1e3
+            calls += weight * e.count
+    if not calls:
+        raise RuntimeError(f"the trace holds no launch of {kern.__name__}")
+    return ms / calls
 
 
 # ------------------------------------------------------------------ FLOPs

@@ -11,15 +11,17 @@ as the host's.
 Run as a script on the card, it times K4 ``int8_conv`` at each of the
 flagship's 16 int8 conv shapes (``K4_SHAPES``, batch 20 x 6, float32, bf16
 and float16 networks), K1 ``upsample_argmax`` and K2 ``comm_fusion``
-(float32, bf16 and float16) at the shapes ``chip_smoke.py`` times them,
-each with the lead and without it:
+(float32, bf16 and float16) at the shapes ``chip_smoke.py`` times them, and
+K2 at the agent-count sweep's N = 24 and 48 (``bench_agents``: 256x256,
+B*N = 96; the wide design), each with the lead and without it:
 
     python -m multiagentperception_tpu_torch.bench_kernels [--iters 20] [--label NAME]
 
 It calls only the kernels' public wrappers, so it also times an earlier
 checkout of the port: copy this file into that checkout's package and run
 it there. A network dtype that the checkout's K1, K2 or K4 route tables
-lack is skipped, with a line that says so.
+lack is skipped, with a line that says so, and so is K2 beyond 16 agents
+in a checkout whose K2 has no ``plan`` (it took at most 16).
 
 It prints one JSON line per (kernel, network dtype, shape) with both
 times, then one line per K4 network dtype with the sums over an eval
@@ -54,6 +56,7 @@ K4_SHAPES = (
     (256, 256, 16, 3, 2, 1, True, 1), (256, 256, 8, 3, 1, 1, True, 1),
     (256, 256, 8, 3, 2, 1, True, 1))      # PolicyNet4 conv3-5
 NETWORKS = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+SWEEP_AGENTS, SWEEP_FRAMES = (24, 48), 96  # K2 beyond 16 agents, as bench_agents runs it
 
 
 def time_ms(fn, iters: int = 50, lead_cycles: int = HOST_LEAD_CYCLES) -> float:
@@ -142,6 +145,20 @@ def main(argv: list[str] | None = None) -> int:
         emit({"kernel": "comm_fusion", "network": network,
               "shape": "q', k (2, 6, 1024); V (2, 6, 512, 16, 16), activated",
               **_both(lambda: k2.comm_fusion(q, kk, v, mode="activated", diag_bias=0.001), 50)})
+        for agents in SWEEP_AGENTS:
+            b = SWEEP_FRAMES // agents
+            q = torch.randn(b, agents, 1024, generator=gen).to("cuda", dtype)
+            kk = (torch.randn(b, agents, 1024, generator=gen) * 4 / 32).to("cuda", dtype)
+            v = torch.randn(b, agents, 512, 8, 8, generator=gen).to("cuda", dtype)
+            row = {"kernel": "comm_fusion", "network": network,
+                   "shape": f"q', k ({b}, {agents}, 1024); V ({b}, {agents}, 512, 8, 8), "
+                            "activated"}
+            if not hasattr(k2, "plan"):  # an earlier checkout: K2 took at most 16 agents
+                emit({**row, "skipped": "this checkout's K2 takes at most 16 agents"})
+                continue
+            emit({**row, "design": k2.plan(b, agents, 1024, 512 * 64, dtype),
+                  **_both(lambda: k2.comm_fusion(q, kk, v, mode="activated",
+                                                 diag_bias=0.001), 50)})
     print(card())
     return 0
 

@@ -43,8 +43,32 @@
 // softmax on N threads, left the V stream waiting ~7 us behind chains of
 // dependent round trips; a block-wide graph of register sums still spent
 // ~4 us reading all of Q' and K in every block.
-// Block (0, b) also writes coef and soft. N <= kMaxAgents (16).
+// Block (0, b) also writes coef and soft. The cluster design takes
+// N <= kMaxAgents (16).
 //
+// The wide design, N > kMaxAgents (a MIMOcom of 24 or 48 agents; any N):
+// two kernels, no workspace, nothing sized by N in shared memory.
+// 1. comm_fusion_wide_graph, grid (tiles of kWideQ queries, B): each warp
+//    takes keys w, w + 8, ... and forms their logits against the tile's
+//    queries over all of D in float64 (a float32 product is exact there;
+//    the lanes' sums meet by an xor butterfly), and stores each logit as
+//    a float32 pair, hi into soft and the rest into coef: the two outputs
+//    hold the N x tile logits whatever N is. Then one warp per query reads
+//    its column back, forms the softmax over keys in float64 (max, sum of
+//    exp), adds diag_bias on the diagonal, rounds soft to float32 once and
+//    masks it: activated keeps soft > thres, argmax the first key of the
+//    largest soft. The graph is that of the float32 values of Q' and K in
+//    every type, as the cluster design's (both lie within 1e-6 of the
+//    graph in float64; this one within float32 rounding of it).
+// 2. comm_fusion_wide_fuse, grid (tiles of queries, tiles of 256 packs of
+//    M, B): each CTA stages kWideKeys keys of its queries' coef at a time in
+//    shared memory and streams those keys' V rows of its columns (16-byte
+//    packs, kWideUnroll in flight), summing coef x V in float32 registers
+//    in key order (64 values a thread: 16 queries of 4 floats, 8 of 8
+//    16-bit values), and rounds fused to V's type once. The query tiles of
+//    one column tile are neighbours in the grid, so V's re-reads hit L2.
+// Bound: the same bytes as the cluster design (V read once and fused
+// written once: 12.6 MB at the sweep's B.N = 96 in bf16, 3.75 us).
 // Types: comm_fusion_f32 takes float32 Q', K and V; comm_fusion_bf16 and
 // comm_fusion_f16 take bfloat16 or float16 ones (the mixed-precision
 // MIMOcom's), as the TPU kernel does (comm_fusion.py:42-43, 63-67): Q' and
@@ -496,10 +520,200 @@ int launch(const T* q, const T* k, const T* v, T* fused, float* coef, float* sof
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the wide design
+
+constexpr int kWideQ = kWarps;  // queries of a graph CTA: one warp each in the softmax
+constexpr int kWideKeys = 64;   // keys of coef a fusion CTA stages at once
+constexpr int kWideUnroll = 4;  // V packs a fusion thread has in flight
+
+// Sums v over the warp's lanes; every lane ends with the same bits (each
+// exchange adds the same two values, in either order).
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// soft[b][key][query] and coef: the graph of queries q0 .. q0 + kWideQ - 1
+// (see the note at the top). The logits pass through soft (hi) and coef (lo),
+// which other threads of the block read back: no __restrict__ on them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+comm_fusion_wide_graph(const T* __restrict__ q, const T* __restrict__ k, float* coef_out,
+                       float* soft_out, int n, int d, int mode, float diag_bias,
+                       float thres) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, q0 = blockIdx.x * kWideQ;
+  const int nq = min(kWideQ, n - q0);
+  const T* const kb = k + (size_t)b * n * d;
+  const T* qrow[kWideQ];  // past the last query: its row again, the sums unused
+#pragma unroll
+  for (int qq = 0; qq < kWideQ; ++qq)
+    qrow[qq] = q + ((size_t)b * n + min(q0 + qq, n - 1)) * d;
+  float* const hi = soft_out + (size_t)b * n * n;
+  float* const lo = coef_out + (size_t)b * n * n;
+
+  // 1. the logits, K's rows against the tile's queries, in float64
+  for (int key = warp; key < n; key += kWarps) {
+    const T* const kr = kb + (size_t)key * d;
+    double acc[kWideQ];
+#pragma unroll
+    for (int qq = 0; qq < kWideQ; ++qq) acc[qq] = 0.0;
+#pragma unroll 4
+    for (int i = lane; i < d; i += 32) {
+      const double kv = to_float(kr[i]);
+#pragma unroll
+      for (int qq = 0; qq < kWideQ; ++qq) acc[qq] += kv * (double)to_float(qrow[qq][i]);
+    }
+#pragma unroll
+    for (int qq = 0; qq < kWideQ; ++qq) {
+      const double l = warp_sum(acc[qq]);
+      if (lane == qq && qq < nq) {
+        const float h = (float)l;
+        hi[(size_t)key * n + q0 + qq] = h;
+        lo[(size_t)key * n + q0 + qq] = (float)(l - (double)h);
+      }
+    }
+  }
+  __syncthreads();  // the block's global writes are visible to the block
+
+  // 2. one warp per query: the softmax over keys, the bias, the mask
+  if (warp >= nq) return;
+  const int qc = q0 + warp;
+  double mx = -INFINITY;
+  for (int key = lane; key < n; key += 32) {
+    const size_t at = (size_t)key * n + qc;
+    mx = fmax(mx, (double)hi[at] + (double)lo[at]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  double sum = 0.0;
+  for (int key = lane; key < n; key += 32) {
+    const size_t at = (size_t)key * n + qc;
+    sum += exp((double)hi[at] + (double)lo[at] - mx);
+  }
+  sum = warp_sum(sum);
+  // soft of one key, rounded once; the same bits in both passes below
+  auto soft_of = [&](int key) {
+    const size_t at = (size_t)key * n + qc;
+    const double s = exp((double)hi[at] + (double)lo[at] - mx) / sum;
+    return (float)(key == qc ? s + (double)diag_bias : s);
+  };
+  float best = -INFINITY;  // the column's argmax; ties keep the lowest key
+  int first = n;
+  if (mode == kArgmax) {
+    for (int key = lane; key < n; key += 32) {
+      const float s = soft_of(key);
+      if (s > best) {  // keys ascend in a lane: strict '>' keeps its lowest
+        best = s;
+        first = key;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int of = __shfl_xor_sync(0xffffffffu, first, off);
+      if (ob > best || (ob == best && of < first)) {
+        best = ob;
+        first = of;
+      }
+    }
+  }
+  for (int key = lane; key < n; key += 32) {
+    const float s = soft_of(key);  // reads (key, qc) before it is written
+    float c = s;
+    if (mode == kActivated) c = s > thres ? s : 0.f;
+    if (mode == kArgmax) c = key == first ? 1.f : 0.f;
+    hi[(size_t)key * n + qc] = s;
+    lo[(size_t)key * n + qc] = c;
+  }
+}
+
+// fused[b][query] = sum over keys of coef[b][key][query] V[b][key], for a
+// tile of kQ queries and the 16-byte packs j of every column tile of this
+// CTA (grid-strided along M); mp: packs of V per agent row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+comm_fusion_wide_fuse(const uint4* __restrict__ v, uint4* __restrict__ fused,
+                      const float* __restrict__ coef, int n, long long mp) {
+  constexpr int kE = Pack<T>::kElems;
+  constexpr int kQ = 64 / kE;  // 64 float32 sums a thread
+  __shared__ float cs[kWideKeys][kQ];
+  const int b = blockIdx.z, q0 = blockIdx.x * kQ;
+  const int nq = min(kQ, n - q0);
+  const uint4* const vb = v + (size_t)b * n * mp;
+  const float* const cb = coef + (size_t)b * n * n;
+  for (long long j0 = (long long)blockIdx.y * kThreads; j0 < mp;
+       j0 += (long long)gridDim.y * kThreads) {
+    const long long j = j0 + threadIdx.x;
+    float acc[kQ][kE];
+#pragma unroll
+    for (int qq = 0; qq < kQ; ++qq)
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[qq][e] = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kWideKeys) {
+      const int nk = min(kWideKeys, n - k0);
+      __syncthreads();  // the previous keys' coef is read
+      for (int i = threadIdx.x; i < kWideKeys * kQ; i += kThreads) {
+        const int kk = i / kQ, qq = i % kQ;
+        cs[kk][qq] = kk < nk && qq < nq ? cb[(size_t)(k0 + kk) * n + q0 + qq] : 0.f;
+      }
+      __syncthreads();
+      if (j < mp) {
+        for (int kk = 0; kk < nk; kk += kWideUnroll) {
+          uint4 vals[kWideUnroll];
+#pragma unroll
+          for (int u = 0; u < kWideUnroll; ++u)
+            if (kk + u < nk) vals[u] = vb[(size_t)(k0 + kk + u) * mp + j];
+#pragma unroll
+          for (int u = 0; u < kWideUnroll; ++u) {
+            if (kk + u < nk) {
+              float x[kE];
+              Pack<T>::unpack(vals[u], x);
+#pragma unroll
+              for (int qq = 0; qq < kQ; ++qq) {
+                const float c = cs[kk + u][qq];
+#pragma unroll
+                for (int e = 0; e < kE; ++e) acc[qq][e] += c * x[e];
+              }
+            }
+          }
+        }
+      }
+    }
+    if (j < mp) {
+#pragma unroll
+      for (int qq = 0; qq < kQ; ++qq)
+        if (qq < nq) __stcs(fused + ((size_t)b * n + q0 + qq) * mp + j, Pack<T>::pack(acc[qq]));
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const T* q, const T* k, const T* v, T* fused, float* coef, float* soft, int B,
+                int N, int D, long long M, int mode, float diag_bias, float thres,
+                cudaStream_t stream) {
+  constexpr int kQ = 64 / Pack<T>::kElems;
+  const long long mp = M / Pack<T>::kElems;
+  const dim3 graph((N + kWideQ - 1) / kWideQ, B);
+  comm_fusion_wide_graph<T><<<graph, kThreads, 0, stream>>>(q, k, coef, soft, N, D, mode,
+                                                             diag_bias, thres);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long cols = (mp + kThreads - 1) / kThreads;
+  const dim3 fuse((N + kQ - 1) / kQ, (unsigned)(cols < 65535 ? cols : 65535), B);
+  comm_fusion_wide_fuse<T><<<fuse, kThreads, 0, stream>>>(
+      reinterpret_cast<const uint4*>(v), reinterpret_cast<uint4*>(fused), coef, N, mp);
+  return (int)cudaGetLastError();
+}
+
+// the design by N: the cluster kernel up to kMaxAgents, the wide one above
 template <typename T>
 int launch_n(const T* q, const T* k, const T* v, T* fused, float* coef, float* soft, int B,
              int N, int D, long long M, int mode, float diag_bias, float thres, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (N > kMaxAgents)
+    return launch_wide<T>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
   if (N <= 8)
     return launch<T, 8>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres, st);
   return launch<T, kMaxAgents>(q, k, v, fused, coef, soft, B, N, D, M, mode, diag_bias, thres,
@@ -510,7 +724,8 @@ int launch_n(const T* q, const T* k, const T* v, T* fused, float* coef, float* s
 
 // q, k: (B, N, D); v, fused: (B, N, M) with 16-byte aligned rows, M % 4 == 0
 // (f32) or M % 8 == 0 (bf16, f16); coef, soft: (B, N, N) f32. mode: 0 softmax,
-// 1 activated, 2 argmax. Returns a cudaError_t.
+// 1 activated, 2 argmax. Any N >= 1: the cluster design up to 16 agents, the
+// wide one above. Returns a cudaError_t.
 extern "C" int comm_fusion_f32(const float* q, const float* k, const float* v,
                                float* fused, float* coef, float* soft, int B, int N,
                                int D, long long M, int mode, float diag_bias,

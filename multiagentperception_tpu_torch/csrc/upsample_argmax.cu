@@ -14,10 +14,15 @@
 // 1.755 GHz over 132 SMs), which the stores hide behind.
 //
 // Design: one block per (image, kRows output rows), 384 blocks of 128
-// threads at the flagship. Phase 1 does the vertical interpolation of the
-// block's rows for every class into shared memory ([kRows][w][C] floats,
-// 11 KB at 16x16 logits), without dividing by a run-time value per value.
-// Phase 2 gives each warp kRows/kWarps rows, one after another. Rows
+// threads at the flagship (kRows = 16). Phase 1 does the vertical
+// interpolation of the block's rows for every class into shared memory
+// ([kRows][w][C] floats, 11 KB at 16x16 logits), without dividing by a
+// run-time value per value. Phase 2 gives each warp ceil(kRows / kWarps)
+// rows, one after another. kRows is the largest of 16, 8, 4, 2 and 1 whose
+// rows fit in the block's shared memory (the wrapper's plan, up to the
+// 227 KB a block may opt in to: 16 rows hold C * w up to 3,628 floats, one
+// row 58,108); where even one row does not fit, the direct kernel reads
+// each pixel's four source values from device memory instead. Rows
 // first, then columns: the order of the plain version's two matmuls. Every
 // output row and column has at most two taps; the host passes their
 // indices and weights, taken from the same _weight_matrix as the plain
@@ -51,8 +56,7 @@
 
 namespace {
 
-constexpr int kRows = 16;   // output rows a block
-constexpr int kWarps = 4;   // a warp takes kRows / kWarps consecutive rows, one after another
+constexpr int kWarps = 4;   // a warp takes ceil(kRows / kWarps) consecutive rows, in turn
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = 4;     // runs of 4 columns a lane keeps in flight on the span path
 constexpr int kClasses = 11;   // the model's classes: the span path's class loop is unrolled
@@ -62,8 +66,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // kC > 0: C == kC, known to the compiler (the span path runs at the model's
-// kClasses only); kC == 0: any C.
-template <typename T, bool kSpan4, int kC>
+// kClasses only); kC == 0: any C. kRows: output rows a block.
+template <typename T, bool kSpan4, int kC, int kRows>
 __global__ void __launch_bounds__(kThreads)
 upsample_argmax_kernel(const T* __restrict__ x, int C, int h, int w,
                        const int* __restrict__ ytap, const float* __restrict__ ywt,
@@ -123,9 +127,10 @@ upsample_argmax_kernel(const T* __restrict__ x, int C, int h, int w,
   // Phase 2: the horizontal taps and the class argmax. A warp takes its
   // rows one after another, so that a row's stores drain while the next
   // row computes.
+  constexpr int kWarpRows = (kRows + kWarps - 1) / kWarps;
   const int lane = tid % 32;
-  const int r_begin = (tid / 32) * (kRows / kWarps);
-  const int r_end = min(r_begin + kRows / kWarps, nrows);
+  const int r_begin = (tid / 32) * kWarpRows;
+  const int r_end = min(r_begin + kWarpRows, nrows);
   int32_t* const oimg = out + ((size_t)img * H + row0) * W;
   if (kSpan4) {
     for (int g0 = lane; g0 < W / 4; g0 += 32 * kGroups) {
@@ -197,47 +202,113 @@ upsample_argmax_kernel(const T* __restrict__ x, int C, int h, int w,
   }
 }
 
+// The class map with nothing staged, for logits too wide for one staged row:
+// a thread per output pixel reads its (at most) four source values of every
+// class from device memory, each as phase 1 and the per-pixel path would
+// combine them: rows first, then columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+upsample_argmax_direct(const T* __restrict__ x, int C, int h, int w,
+                       const int* __restrict__ ytap, const float* __restrict__ ywt,
+                       const int* __restrict__ xtap, const float* __restrict__ xwt, int H,
+                       int W, int32_t* __restrict__ out) {
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= (long long)H * W) return;
+  const int img = blockIdx.y, o = (int)(p / W), col = (int)(p % W);
+  const T* xi = x + (size_t)img * C * h * w;
+  const int y0 = ytap[2 * o] * w, y1 = ytap[2 * o + 1] * w;
+  const int x0 = xtap[2 * col], x1 = xtap[2 * col + 1];
+  const float t0 = ywt[2 * o], t1 = ywt[2 * o + 1], u0 = xwt[2 * col], u1 = xwt[2 * col + 1];
+  float best = 0.f;
+  int best_c = 0;
+  for (int c = 0; c < C; ++c) {
+    const T* xc = xi + (size_t)c * h * w;
+    const float a = t0 * to_float(xc[y0 + x0]) + t1 * to_float(xc[y1 + x0]);
+    const float b = t0 * to_float(xc[y0 + x1]) + t1 * to_float(xc[y1 + x1]);
+    const float v = u0 * a + u1 * b;
+    if (c == 0 || v > best) {  // strict: ties keep the lowest class
+      best = v;
+      best_c = c;
+    }
+  }
+  out[(size_t)img * H * W + p] = best_c;
+}
+
+template <typename T, int kRows>
+int launch_rows(const T* x, int n_img, int C, int h, int w, const int* ytap, const float* ywt,
+                const int* xtap, const float* xwt, int H, int W, int span4, int32_t* out,
+                cudaStream_t st) {
+  const dim3 grid((H + kRows - 1) / kRows, n_img);
+  const size_t smem = (size_t)kRows * C * w * sizeof(float);  // fits: the wrapper's plan
+  auto kernel = upsample_argmax_kernel<T, false, 0, kRows>;
+  if (span4 && C == kClasses) kernel = upsample_argmax_kernel<T, true, kClasses, kRows>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kThreads, smem, st>>>(x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
+  return (int)cudaGetLastError();
+}
+
+// rows: output rows a block stages (16, 8, 4, 2 or 1), or 0 for the direct kernel
 template <typename T>
 int launch(const T* x, int n_img, int C, int h, int w, const int* ytap, const float* ywt,
-           const int* xtap, const float* xwt, int H, int W, int span4, int32_t* out,
+           const int* xtap, const float* xwt, int H, int W, int span4, int rows, int32_t* out,
            cudaStream_t st) {
-  const dim3 grid((H + kRows - 1) / kRows, n_img);
-  const size_t smem = (size_t)kRows * C * w * sizeof(float);  // <= 48 KB, checked by the wrapper
-  if (span4 && C == kClasses)
-    upsample_argmax_kernel<T, true, kClasses><<<grid, kThreads, smem, st>>>(
-        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
-  else
-    upsample_argmax_kernel<T, false, 0><<<grid, kThreads, smem, st>>>(
-        x, C, h, w, ytap, ywt, xtap, xwt, H, W, out);
-  return (int)cudaGetLastError();
+  switch (rows) {
+    case 16:
+      return launch_rows<T, 16>(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out, st);
+    case 8:
+      return launch_rows<T, 8>(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out, st);
+    case 4:
+      return launch_rows<T, 4>(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out, st);
+    case 2:
+      return launch_rows<T, 2>(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out, st);
+    case 1:
+      return launch_rows<T, 1>(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out, st);
+    case 0: {
+      const dim3 grid((unsigned)(((long long)H * W + kThreads - 1) / kThreads), n_img);
+      upsample_argmax_direct<T><<<grid, kThreads, 0, st>>>(x, C, h, w, ytap, ywt, xtap, xwt,
+                                                            H, W, out);
+      return (int)cudaGetLastError();
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x: (n_img, C, h, w) f32, bf16 or f16; taps: (H, 2) / (W, 2) int32 indices and
 // f32 weights; span4: 1 if W % 4 == 0 and every aligned run of 4 output
-// columns shares one tap pair, else 0; out: (n_img, H, W) int32, 16-byte
-// aligned when span4. Returns cudaGetLastError().
+// columns shares one tap pair, else 0; rows: the output rows a block stages
+// (16, 8, 4, 2 or 1; rows * C * w floats fit in its shared memory), or 0
+// for the direct kernel; out: (n_img, H, W) int32, 16-byte aligned when
+// span4. Returns a cudaError_t.
 extern "C" int upsample_argmax_f32(const float* x, int n_img, int C, int h, int w,
                                    const int* ytap, const float* ywt,
                                    const int* xtap, const float* xwt,
-                                   int H, int W, int span4, int32_t* out, void* stream) {
-  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                                   int H, int W, int span4, int rows, int32_t* out,
+                                   void* stream) {
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, rows, out,
                 (cudaStream_t)stream);
 }
 
 extern "C" int upsample_argmax_bf16(const __nv_bfloat16* x, int n_img, int C, int h, int w,
                                     const int* ytap, const float* ywt,
                                     const int* xtap, const float* xwt,
-                                    int H, int W, int span4, int32_t* out, void* stream) {
-  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                                    int H, int W, int span4, int rows, int32_t* out,
+                                    void* stream) {
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, rows, out,
                 (cudaStream_t)stream);
 }
 
 extern "C" int upsample_argmax_f16(const __half* x, int n_img, int C, int h, int w,
                                    const int* ytap, const float* ywt,
                                    const int* xtap, const float* xwt,
-                                   int H, int W, int span4, int32_t* out, void* stream) {
-  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, out,
+                                   int H, int W, int span4, int rows, int32_t* out,
+                                   void* stream) {
+  return launch(x, n_img, C, h, w, ytap, ywt, xtap, xwt, H, W, span4, rows, out,
                 (cudaStream_t)stream);
 }

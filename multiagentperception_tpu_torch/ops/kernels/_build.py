@@ -34,7 +34,7 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 
-_K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, P, P]
+_K1_ARGS = [P, I32, I32, I32, I32, P, P, P, P, I32, I32, I32, I32, P, P]
 _K2_ARGS = [P, P, P, P, P, P, I32, I32, I32, I64, I32, F32, F32, P]
 _K4_QUANTIZE_ARGS = [P, P, I32, I32, I32, I32, P, P]
 _K4_ARGS = [P, P, P, P, P, P] + [I32] * 22 + [P]

@@ -25,6 +25,15 @@ Tolerances:
   float16 ulp plus 1e-5 of the plain version and of ``coef``^T V in
   float64 (both rounded once from a sum within float32 rounding of the
   exact one).
+  On a model's own Q', K and V, whose logits reach ~250, the plain
+  version's float32 sums lie beyond 1e-6 from float64's graph, so there
+  ``check_comm_fusion_against_float64`` holds every output to the function
+  in float64 with the same tolerances. Beyond 16 agents
+  (``check_comm_fusion_wide``, the wide design) the same tolerances hold,
+  on inputs whose graph is peaked (``wide_comm_inputs``: links survive
+  ``activated`` at any N) and whose argmax ties.
+- K1 at wide logits (``check_upsample_argmax_wide``): the same rule, where
+  a block stages fewer than 16 rows or none (``upsample_argmax.plan``).
 - K3 (``fused_basic_block``), with TF32 off for the plain version's
   convolutions: float32 within rtol/atol 1e-4 (tests/test_fused_block.py's
   bound). bfloat16: both sides form exact bf16 products and sum them in
@@ -158,6 +167,31 @@ def check_comm_fusion(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: s
                (coef.double() - x_coef).abs().max().item())
 
 
+def check_comm_fusion_against_float64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      mode: str, diag_bias: float, thres: float = 0.2,
+                                      fn=k2.comm_fusion) -> float:
+    """K2 in one mode held to the function in float64 on the same values,
+    for inputs whose logits are large (a trained or seeded model's, ~250):
+    there the plain version's float32 sums put its graph beyond 1e-6 of
+    float64's, and its fused maps follow it, so it is no reference. Masks equal to
+    float64's; ``coef`` and ``soft`` within K2_GRAPH_ATOL; fused within
+    rtol/atol K2_ATOL of ``coef64``^T V in float64 (16-bit: one ulp of the
+    type + K2_ATOL). Returns the largest error over fused and the graph."""
+    fused, coef, soft = fn(q, k, v, mode, diag_bias, thres)
+    x_fused, x_coef, x_soft = k2.comm_fusion_plain(q.double(), k.double(), v.double(),
+                                                   mode=mode, diag_bias=diag_bias, thres=thres)
+    if not torch.equal(coef != 0, x_coef != 0):
+        raise AssertionError(f"K2 {mode}: masks differ from float64's")
+    torch.testing.assert_close(coef.double(), x_coef, rtol=0, atol=K2_GRAPH_ATOL)
+    torch.testing.assert_close(soft.double(), x_soft, rtol=0, atol=K2_GRAPH_ATOL)
+    if v.dtype in (torch.bfloat16, torch.float16):
+        assert_within_ulp(fused, x_fused, K2_ATOL, v.dtype)
+    else:
+        torch.testing.assert_close(fused.double(), x_fused, rtol=K2_ATOL, atol=K2_ATOL)
+    return max((fused.double() - x_fused).abs().max().item(),
+               (coef.double() - x_coef).abs().max().item())
+
+
 # K2 at the value maps of model.feat_squeezer 2 and 4 at 512x512: (B, N, D, C, h, w)
 SQUEEZED_COMM_SHAPES = ((2, 6, 1024, 512, 8, 8), (2, 6, 1024, 512, 4, 4))
 
@@ -175,6 +209,108 @@ def check_comm_fusion_squeezed(gen: torch.Generator, device, dtype=torch.float32
         v = torch.randn(b, n, c, h, w, generator=gen).to(device, dtype)
         errs[f"{h}x{w}"] = max(check_comm_fusion(q, k, v, mode, 0.001) for mode in k2.MODES)
     return errs
+
+
+# K2 beyond 16 agents: the agent counts, and the value maps (C, h, w) of the
+# agent-count sweep at 256x256 and a ragged M (no multiple of a CTA's columns)
+WIDE_AGENTS = (17, 24, 32, 33, 48, 64, 200)
+WIDE_MAPS = ((512, 8, 8), (1000,))
+WIDE_FRAMES = 96  # the sweep's B*N: batch max(96 // N, 1)
+WIDE_KEY = 1024  # the flagship's key_size
+WIDE_LINKS = (9.0, 6.0)  # weights of the two keys each query lies along
+
+
+def wide_comm_inputs(gen: torch.Generator, b: int, n: int, d: int, rest: tuple,
+                     dtype: torch.dtype, device) -> tuple:
+    """Q' (B, N, D), K (B, N, D) and V (B, N, *rest) for K2 beyond 16 agents,
+    drawn from ``gen``, with a peaked graph at any N: K's rows have norm ~1,
+    and query q lies along keys q + 1 and q + 2 (mod N) with weights
+    WIDE_LINKS, so its soft graph holds ~0.86 and ~0.12 there and the rest
+    is noise (``activated`` keeps a link a query, none near the threshold).
+    Keys N//2 .. N//2 + 3 repeat keys 0 .. 3 exactly, so a query that points
+    at one of them ties two keys at its largest soft (~0.46 each): the
+    argmax must keep the lower."""
+    keys = torch.randn(b, n, d, generator=gen) / d ** 0.5
+    dup = min(4, n // 2)
+    keys[:, n // 2:n // 2 + dup] = keys[:, :dup]
+    idx = torch.arange(n)
+    q = (WIDE_LINKS[0] * keys[:, (idx + 1) % n] + WIDE_LINKS[1] * keys[:, (idx + 2) % n]
+         + torch.randn(b, n, d, generator=gen) / d ** 0.5)
+    v = torch.randn(b, n, *rest, generator=gen)
+    return q.to(device, dtype), keys.to(device, dtype), v.to(device, dtype)
+
+
+def check_comm_fusion_wide(gen: torch.Generator, device, dtype=torch.float32,
+                           agents=WIDE_AGENTS, maps=WIDE_MAPS, d: int = WIDE_KEY,
+                           fn=k2.comm_fusion) -> dict:
+    """``check_comm_fusion`` in every mode at each of ``agents`` (each above
+    16, the wide design's) and each value map of ``maps``, at the sweep's
+    batch ``max(96 // N, 1)``, on ``wide_comm_inputs``: links survive
+    ``activated`` and the argmax has exact ties (checked on the plain
+    graph). Returns the largest error by ``N x M``; launches K2 three times
+    at each."""
+    errs = {}
+    for n in agents:
+        for rest in maps:
+            b = max(WIDE_FRAMES // n, 1)
+            m = int(torch.Size(rest).numel())
+            if k2.plan(b, n, d, m, dtype) != "wide":
+                raise AssertionError(f"K2 at N={n}: plan {k2.plan(b, n, d, m, dtype)}, not wide")
+            q, k, v = wide_comm_inputs(gen, b, n, d, rest, dtype, device)
+            soft = k2.comm_fusion_plain(q, k, v.flatten(2)[..., :1])[2]
+            if not bool(((soft == soft.amax(1, keepdim=True)).sum(1) > 1).any()):
+                raise AssertionError(f"K2 wide check input at N={n}: no tied argmax")
+            errs[f"{n}x{m}"] = max(check_comm_fusion(q, k, v, mode, 0.001, fn=fn)
+                                   for mode in k2.MODES)
+    return errs
+
+
+def check_comm_fusion_every_n(gen: torch.Generator, device, dtype=torch.float32,
+                              agents=range(1, 201), d: int = WIDE_KEY, m: int = 64) -> dict:
+    """``check_comm_fusion`` at every N of ``agents`` (batch 1, value rows of
+    ``m``) on ``wide_comm_inputs``, one mode each in turn (a lone agent has
+    no link: softmax or argmax). On the card each call must launch one
+    design, the one ``plan`` names: the cluster design up to CLUSTER_AGENTS,
+    the wide one above. Returns the largest error and the launches by
+    design."""
+    err, designs = 0.0, dict.fromkeys(k2.DESIGNS, 0)
+    for n in agents:
+        q, k, v = wide_comm_inputs(gen, 1, n, d, (m,), dtype, device)
+        modes = ("softmax", "argmax") if n == 1 else k2.MODES
+        before = dict(k2.comm_fusion.design_launches)
+        err = max(err, check_comm_fusion(q, k, v, modes[n % len(modes)], 0.001))
+        got = {key: k2.comm_fusion.design_launches[key] - before[key] for key in before}
+        want = dict.fromkeys(k2.DESIGNS, 0)
+        if v.is_cuda:
+            want[k2.plan(1, n, d, m, dtype)] = 1
+        if got != want:
+            raise AssertionError(f"K2 at N={n} {dtype}: launches by design {got}, want {want}")
+        designs = {key: designs[key] + got[key] for key in designs}
+    return {"max_abs_err": err, "designs": designs}
+
+
+# K1 at logits too wide for 16 staged rows in the default 48 KB: (n, C, h, w,
+# out_h, out_w). 11 classes 70 and 96 columns wide (16 rows of 49 and 67 KB,
+# opted in), 32 classes 32 wide (64 KB); logits wide enough for a block to
+# stage 8, 4, 2 and 1 rows (each resized down to 64 columns, which keeps the
+# plain version's weight matrix small); 64 classes 1024 wide (one row alone
+# is 256 KB: the direct kernel)
+K1_WIDE_SHAPES = ((2, 11, 8, 70, 256, 2240), (2, 11, 8, 96, 256, 3072),
+                  (2, 32, 8, 32, 256, 1024), (1, 2, 4, 1815, 8, 64),
+                  (1, 11, 4, 1320, 8, 64), (1, 11, 4, 2640, 8, 64),
+                  (1, 11, 4, 5282, 8, 64), (1, 64, 2, 1024, 4, 2048))
+
+
+def check_upsample_argmax_wide(gen: torch.Generator, device, dtype=torch.float32,
+                               shapes=K1_WIDE_SHAPES, fn=k1.upsample_argmax) -> dict:
+    """``check_upsample_argmax`` at each of ``shapes``; returns each shape's
+    rows a block stages (``upsample_argmax.plan``) and its result. Launches
+    K1 twice a shape."""
+    out = {}
+    for n, c, h, w, out_h, out_w in shapes:
+        x = torch.randn(n, c, h, w, generator=gen).to(device, dtype)
+        out[f"C{c}_w{w}"] = {"rows": k1.plan(c, w), **check_upsample_argmax(x, out_h, out_w, fn)}
+    return out
 
 
 # a 16-bit type's (stored significand bits, least normal exponent)

@@ -14,11 +14,14 @@ to V's dtype. On CUDA tensors ``comm_fusion`` launches
 ``comm_fusion.route_launches``); on CPU tensors it runs
 ``comm_fusion_plain``, the same function in plain PyTorch, and so it does
 on ``meta`` tensors, which compute nothing (the bench counts the model's
-FLOPs on them). On CPU and CUDA tensors the wrapper calls the custom op
-``when2com::comm_fusion`` (``torch.library``): its CPU implementation is
-the plain version, its CUDA one the launch (which counts), and its fake one
-only allocates the three outputs, so ``torch.export`` keeps the op as one
-node of the graph.
+FLOPs on them). ``plan`` picks the kernel's design by the agent count: the
+cluster design up to ``CLUSTER_AGENTS`` (16) agents, the wide design above,
+for any N (``comm_fusion.design_launches`` counts each; one launch of the
+wrapper is one call, whatever the design). On CPU and CUDA tensors the
+wrapper calls the custom op ``when2com::comm_fusion`` (``torch.library``):
+its CPU implementation is the plain version, its CUDA one the launch
+(which counts), and its fake one only allocates the three outputs, so
+``torch.export`` keeps the op as one node of the graph.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from multiagentperception_tpu_torch.ops.comm import fuse_values, one_hot_argmax
 from multiagentperception_tpu_torch.ops.kernels import _build
 
 MODES = ("softmax", "activated", "argmax")
-MAX_AGENTS = 16  # kMaxAgents in csrc/comm_fusion.cu
+CLUSTER_AGENTS = 16  # kMaxAgents in csrc/comm_fusion.cu: the cluster design's most
+DESIGNS = ("cluster", "wide")
+MAX_GRID_Y = 65535  # the CUDA grid's y and z extents: batch elements
 # dtype: (route, C entry point, elements of V in one 16-byte load)
 ROUTES = {torch.float32: ("f32", "comm_fusion_f32", 4),
           torch.bfloat16: ("bf16", "comm_fusion_bf16", 8),
@@ -90,6 +95,24 @@ def _fake(query_proj, keys, vals, mode, diag_bias, thres):
     return torch.empty_like(vals), graph, torch.empty_like(graph)
 
 
+def plan(b: int, n: int, d: int, m: int, dtype: torch.dtype) -> str:
+    """The design of the kernel for ``b`` batch elements of ``n`` agents,
+    keys of ``d`` and value rows of ``m`` elements of ``dtype``:
+    ``"cluster"`` (clusters of CTAs sharing one graph through distributed
+    shared memory, up to CLUSTER_AGENTS agents) or ``"wide"`` (a graph
+    kernel and a fusion kernel, any number of agents). Raises on what
+    neither takes."""
+    if dtype not in ROUTES:
+        raise TypeError(f"comm_fusion kernel takes float32, bfloat16 or float16, got {dtype}")
+    if not (0 < b <= MAX_GRID_Y) or n <= 0 or d <= 0 or m <= 0:
+        raise ValueError(f"comm_fusion kernel: unsupported B={b}, N={n}, D={d}, M={m}")
+    pack = ROUTES[dtype][2]
+    if m % pack:
+        raise ValueError(f"comm_fusion kernel streams {dtype} V in 16-byte loads of "
+                         f"{pack}: needs M % {pack} == 0 and a 16-byte aligned V (M={m})")
+    return "cluster" if n <= CLUSTER_AGENTS else "wide"
+
+
 def _launch(query_proj, keys, vals, mode, diag_bias, thres):
     """The op's CUDA implementation: the kernel, or an error."""
     for name, t in (("query_proj", query_proj), ("keys", keys), ("vals", vals)):
@@ -108,13 +131,10 @@ def _launch(query_proj, keys, vals, mode, diag_bias, thres):
     if query_proj.shape != (b, n, d) or keys.shape != (b, n, d):
         raise ValueError(f"shape mismatch: query_proj {tuple(query_proj.shape)}, "
                          f"keys {tuple(keys.shape)}, vals {tuple(vals.shape)}")
-    m = vals[0, 0].numel()
-    if not (0 < n <= MAX_AGENTS):
-        raise ValueError(f"comm_fusion kernel takes 1..{MAX_AGENTS} agents, got {n}")
-    if not (0 < b <= 65535) or d == 0 or m == 0:
-        raise ValueError(f"comm_fusion kernel: unsupported B={b}, D={d}, M={m}")
+    m = vals[0, 0].numel() if b and n else 0
+    design = plan(b, n, d, m, vals.dtype)
     route, entry, pack = ROUTES[vals.dtype]
-    if m % pack or vals.data_ptr() % 16:
+    if vals.data_ptr() % 16:
         raise ValueError(f"comm_fusion kernel streams {vals.dtype} V in 16-byte loads of "
                          f"{pack}: needs M % {pack} == 0 and a 16-byte aligned V (M={m})")
     fused = torch.empty_like(vals)
@@ -131,6 +151,7 @@ def _launch(query_proj, keys, vals, mode, diag_bias, thres):
     if rc != 0:
         raise RuntimeError(f"comm_fusion kernel launch failed: CUDA error {rc}")
     comm_fusion.route_launches[route] += 1
+    comm_fusion.design_launches[design] += 1
     comm_fusion.launches += 1
     return fused, coef, soft
 
@@ -141,3 +162,8 @@ OP = torch.ops.when2com.comm_fusion.default  # what the wrapper calls
 
 comm_fusion.launches = 0
 comm_fusion.route_launches = {route: 0 for route, _, _ in ROUTES.values()}
+comm_fusion.design_launches = dict.fromkeys(DESIGNS, 0)
+# the device kernels of one call (csrc names), with 1 where the kernel runs
+# once a call on its own design's path: a trace counts calls by those
+comm_fusion.device_kernels = {"comm_fusion_kernel": 1, "comm_fusion_wide_graph": 0,
+                              "comm_fusion_wide_fuse": 1}

@@ -20,7 +20,11 @@ one the launch (which counts), and its fake one only allocates the class
 map, so ``torch.export`` keeps the op as one node of the graph. The kernel
 takes its span path (a lane per run of ``SPAN`` output columns, the class
 loop unrolled) where ``shared_spans`` holds for the output width and the
-logits have the model's 11 classes, and its per-pixel path elsewhere.
+logits have the model's 11 classes, and its per-pixel path elsewhere. A
+block stages ``plan(C, w)`` output rows of the vertical interpolation in
+shared memory: 16 (the flagship's), or fewer where 16 rows of C x w floats
+exceed what a block may hold; logits too wide for one row take the direct
+kernel, which stages nothing. No width is refused.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ import torch
 from multiagentperception_tpu_torch.ops.kernels import _build
 from multiagentperception_tpu_torch.ops.resize import _weight_matrix, bilinear_resize
 
-_TILE_ROWS = 16  # kRows in csrc/upsample_argmax.cu
+ROWS = (16, 8, 4, 2, 1)  # output rows a block may stage (kRows in csrc/upsample_argmax.cu)
+SHARED_OPTIN = 232448  # bytes of shared memory a block may opt in to on Hopper (227 KB)
 SPAN = 4  # output columns a thread owns on the kernel's span path
-_MAX_SHARED = 48 * 1024  # the kernel's dynamic shared memory stays under the default limit
+MAX_GRID_Y = 65535  # the CUDA grid's y extent: images
 # dtype of the logits: (route, C entry point); the kernel stages float32 either way
 ROUTES = {torch.float32: ("f32", "upsample_argmax_f32"),
           torch.bfloat16: ("bf16", "upsample_argmax_bf16"),
@@ -88,6 +93,18 @@ def _device_taps(h: int, out_h: int, w: int, out_w: int, device: torch.device):
                      for a in (*_taps(h, out_h), *_taps(w, out_w)))
 
 
+def plan(c: int, w: int) -> int:
+    """The output rows a block of the kernel stages for logits of ``c``
+    classes and ``w`` columns: the largest of ROWS whose ``rows x c x w``
+    float32 values (whatever the logits' type) and the rows' taps
+    (16 bytes a row) fit in SHARED_OPTIN, or 0 where not even one row
+    fits: the direct kernel, which stages nothing."""
+    for rows in ROWS:
+        if rows * (c * w * 4 + 16) <= SHARED_OPTIN:
+            return rows
+    return 0
+
+
 def upsample_argmax(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(B*N, C, h, w) float32, bfloat16 or float16 logits -> (B*N, out_h,
     out_w) int32 class map."""
@@ -132,11 +149,8 @@ def _launch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     n, c, h, w = x.shape
     if n == 0 or c == 0 or out_h <= 0 or out_w <= 0:
         raise ValueError(f"empty upsample_argmax: {tuple(x.shape)} -> {out_h}x{out_w}")
-    if c * _TILE_ROWS * w * 4 > _MAX_SHARED:  # float32 staging, whatever x's dtype
-        raise ValueError(f"upsample_argmax kernel: C*{_TILE_ROWS}*w floats exceed "
-                         f"{_MAX_SHARED} bytes of shared memory (C={c}, w={w})")
-    if out_h > 65535 * _TILE_ROWS:
-        raise ValueError(f"upsample_argmax kernel: out_h={out_h} too large")
+    if n > MAX_GRID_Y:
+        raise ValueError(f"upsample_argmax kernel: {n} images exceed the grid's {MAX_GRID_Y}")
     yi, yw, xi, xw = _device_taps(h, out_h, w, out_w, x.device)
     out = torch.empty((n, out_h, out_w), dtype=torch.int32, device=x.device)
     route, entry = ROUTES[x.dtype]
@@ -146,7 +160,7 @@ def _launch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         rc = getattr(lib, entry)(
             x.data_ptr(), n, c, h, w, yi.data_ptr(), yw.data_ptr(),
             xi.data_ptr(), xw.data_ptr(), out_h, out_w, int(shared_spans(w, out_w)),
-            out.data_ptr(),
+            plan(c, w), out.data_ptr(),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"upsample_argmax kernel launch failed: CUDA error {rc}")

@@ -222,6 +222,51 @@ def test_comm_fusion_f16_route_matches_plain(cuda, b, n, d, rest, mode):
     assert k2.comm_fusion.route_launches["f32"] == before["f32"]
 
 
+WIDE_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_matches_plain(cuda, dtype):
+    """K2 beyond 16 agents (the wide design) at the agent counts and value
+    maps of chip_smoke.py phase 18 (a), in every mode: graphs within 1e-6
+    of float64, masks equal with links kept and argmax ties to the lowest
+    key, fused by the type's rule. Every call launches the wide design."""
+    before = dict(k2.comm_fusion.design_launches)
+    errs = checks.check_comm_fusion_wide(torch.Generator().manual_seed(18), cuda, dtype)
+    calls = 3 * len(checks.WIDE_AGENTS) * len(checks.WIDE_MAPS)
+    assert k2.comm_fusion.design_launches == {**before, "wide": before["wide"] + calls}
+    assert len(errs) == len(checks.WIDE_AGENTS) * len(checks.WIDE_MAPS)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_takes_every_agent_count(cuda, dtype):
+    """N from 1 to 200: none refused, the cluster design up to 16 agents and
+    the wide one above (each call's design counted by the check)."""
+    got = checks.check_comm_fusion_every_n(torch.Generator().manual_seed(19), cuda, dtype)
+    assert got["designs"] == {"cluster": 16, "wide": 184}
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_ragged(cuda, dtype):
+    """The wide design at a D no multiple of anything (37), a ragged M of
+    13 packs and more keys than a fusion CTA stages at once (65, 130)."""
+    m = 13 * k2.ROUTES[dtype][2]
+    checks.check_comm_fusion_wide(torch.Generator().manual_seed(20), cuda, dtype,
+                                  agents=(17, 65, 130), maps=((m,),), d=37)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_upsample_argmax_at_wide_logits(cuda, dtype):
+    """K1 where 16 staged rows exceed 48 KB (C = 11 at w = 70 and 96, C = 32
+    at w = 32: opted in), where a block stages 8, 4, 2 and 1 rows, and where
+    one row exceeds what a block holds (C = 64 at w = 1024: the direct
+    kernel), against its plain version."""
+    before = k1.upsample_argmax.launches
+    got = checks.check_upsample_argmax_wide(torch.Generator().manual_seed(21), cuda, dtype)
+    assert [r["rows"] for r in got.values()] == [16, 16, 16, 8, 4, 2, 1, 0]
+    assert k1.upsample_argmax.launches == before + 2 * len(checks.K1_WIDE_SHAPES)
+
+
 @pytest.mark.parametrize("dtype,b,hw,c", [(torch.float32, 12, 128, 64),
                                           (torch.float32, 12, 64, 128),
                                           (torch.bfloat16, 24, 128, 64),

@@ -317,20 +317,32 @@ and the script exits non-zero:
    parts.
 
 18. MIMOcom beyond 16 agents: K2's wide design (``csrc/comm_fusion.cu``:
-   a graph kernel in float64 sums, a fusion kernel; any N) and the
+   a graph kernel on the float64 tensor cores in clusters along D, and a
+   fusion kernel launched as its programmatic dependent; any N) and the
    agent-count sweep ``bench_agents``. (a) ``checks.check_comm_fusion_wide``
    at N = 17, 24, 32, 33, 48, 64 and 200 on the sweep's 256x256 value maps
-   (512 x 8 x 8) and a ragged M of 1000, every type and mode (graphs within
-   1e-6 of float64, masks equal with links kept and argmax ties to the
-   lowest key, fused within rtol/atol 1e-5 in float32 and the 16-bit rule);
+   (512 x 8 x 8) and a ragged M of 1000, and at N = WIDE_BEYOND (1030) with
+   D = 37 and M of 13 packs (the graph's logits kept in soft and coef, V
+   streamed again per query tile), every type and mode (graphs within 1e-6
+   of float64, masks equal with links kept and argmax ties to the lowest
+   key, fused within rtol/atol 1e-5 in float32 and the 16-bit rule); two
+   calls equal bit for bit (``check_comm_fusion_repeatable``) and a CUDA
+   graph's replay on new inputs equal to eager
+   (``check_comm_fusion_graph_replay``);
    ``check_comm_fusion_every_n`` at every N from 1 to 200 in every type,
    each call's design counted (``cluster`` up to 16 agents, ``wide``
    above); the wide records timed (float32 at (d)'s shape, 16-bit at the
-   sweep's N = 48) beside ``bmm``/``softmax``, with each of the two kernels
-   alone by CUPTI; K1 at wide logits (``checks.check_upsample_argmax_wide``:
+   sweep's N = 48) beside ``bmm``/``softmax``, by CUPTI each of the two
+   kernels alone (the fusion kernel launched after the graph kernel, by
+   the library's ``comm_fusion_wide_overlap(0)``) and, overlapped as the
+   wrapper launches them, the call's span (``wide_split``), their bound
+   counting 16-bit products as three bf16 ones at 989 TF/s
+   (``k2_ops_ms``); K1 at wide logits (``checks.check_upsample_argmax_wide``:
    C = 11 at w = 70 and 96, C = 32 at w = 32, 16 rows opted in beyond 48 KB;
    8, 4, 2 and 1 rows at w = 1815 (C = 2) and 1320, 2640, 5282 (C = 11); C
-   = 64 at w = 1024, the direct kernel) in every type. (b)
+   = 64 at w = 1024, the direct kernel) in every type, and each of those
+   routes timed in float32 beside its plain version, ``F.interpolate`` +
+   ``argmax`` and its bound (``k1_wide_routes``; K1's record, ``wide_routes``). (b)
    ``bench_agents.sweep`` at its defaults (256x256, B*N = 96, N = 6, 12,
    24, 48, bf16) and at N = 24 in float16: per N, K1 and K2 once a step,
    K2 on ``cluster`` at 6 and 12 and ``wide`` at 24 and 48, finite logits;
@@ -438,9 +450,13 @@ WORK = ROOT / "multiagentperception_tpu_torch" / "build" / "smoke"
 PROFILE_OUT = WORK / "profile.txt"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s outside
-# the tensor cores (both kernels use plain FMAs)
+# the tensor cores (K1's FMAs; K2's float32 products and logits; float64 on
+# the tensor cores runs at the same 67 TF/s), bf16 on the tensor cores (K2's
+# 16-bit fusion: three bf16 products a value)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+K2_SPLIT_TERMS = 3  # bf16 products a 16-bit value of fused takes for float32 accuracy
 
 SEED = 0
 EVAL_BATCHES = 10  # timed; two more warm up cuDNN and the caching allocator
@@ -522,10 +538,23 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, flops: float, ops_ms: float | None = None) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' (``flops`` at
+    float32's rate, or ``ops_ms`` where the caller times them itself)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3 if ops_ms is None else ops_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_ops_ms(b: int, n: int, d: int, m: int, dtype: torch.dtype) -> float:
+    """K2's operations at the rate its type's products reach on the card:
+    the logits (2 B N^2 D) at 67 TF/s; the fusion (2 B N^2 M) at 67 TF/s in
+    float32, and in 16-bit as K2_SPLIT_TERMS bf16 products a value (float32
+    accuracy from exact products) at bf16's 989 TF/s."""
+    graph, fuse = 2 * b * n * n * d, 2 * b * n * n * m
+    if dtype == torch.float32:
+        return (graph + fuse) / F32_FLOP_PER_S * 1e3
+    return (graph / F32_FLOP_PER_S + K2_SPLIT_TERMS * fuse / BF16_FLOP_PER_S) * 1e3
 
 
 # ------------------------------------------------------------------ phase 1
@@ -544,31 +573,41 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 
+def k1_times(x: torch.Tensor, out_h: int, out_w: int) -> dict:
+    """K1 on logits ``x`` (on the card) timed beside its plain version and
+    ``F.interpolate`` + ``argmax`` (a yardstick the port never calls), with
+    its bound."""
+    n, c, _, w = x.shape
+
+    def library():
+        return torch.nn.functional.interpolate(
+            x, size=(out_h, out_w), mode="bilinear", align_corners=False).argmax(1)
+
+    taps_bytes = (out_h + out_w) * 2 * 8  # row and column (idx, weight) tables
+    bytes_moved = x.numel() * x.element_size() + taps_bytes + n * out_h * out_w * 4
+    # vertical taps once per (row, source column, class), horizontal per pixel
+    flops = 3 * n * c * (out_h * w + out_h * out_w)
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    return {"ms": _time_ms(lambda: k1.upsample_argmax(x, out_h, out_w)),
+            "plain_ms": _time_ms(lambda: k1.upsample_argmax_plain(x, out_h, out_w)),
+            "library_ms": _time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_upsample_argmax(gen, dtype: torch.dtype = torch.float32) -> dict:
     n, c, h, w, out = 12, 11, 16, 16, 512  # B*N decoder logits at 512x512
     x = torch.randn(n, c, h, w, generator=gen).to("cuda", dtype)
     checked = checks.check_upsample_argmax(x, out, out)
-
-    def library():
-        return torch.nn.functional.interpolate(
-            x, size=(out, out), mode="bilinear", align_corners=False).argmax(1)
-
-    taps_bytes = 2 * (out * 2 * 4) * 2  # row and column (idx, weight) tables
-    bytes_moved = x.numel() * x.element_size() + taps_bytes + n * out * out * 4
-    # vertical taps once per (row, source column, class), horizontal per pixel
-    flops = 3 * n * c * (out * w + out * out)
-    bound_ms, bound_by = _bound(bytes_moved, flops)
+    times = k1_times(x, out, out)
     return {
         "name": "upsample_argmax" + _suffix(dtype), "route": "cuda",
         "source": "multiagentperception_tpu_torch/csrc/upsample_argmax.cu",
         "replaces": "multiagentperception_tpu/ops/pallas/upsample_argmax.py:56",
         **checked,
-        "ms": _time_ms(lambda: k1.upsample_argmax(x, out, out)),
+        "ms": times["ms"],
         "cupti_warm_ms": _traced_ms(lambda: k1.upsample_argmax(x, out, out),
                                     "upsample_argmax_kernel"),
-        "plain_ms": _time_ms(lambda: k1.upsample_argmax_plain(x, out, out)),
-        "library_ms": _time_ms(library),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": times["plain_ms"], "library_ms": times["library_ms"],
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "shape": f"({n}, {c}, {h}, {w}) {_route(dtype)} -> ({n}, {out}, {out}) int32",
     }
 
@@ -603,8 +642,7 @@ def comm_fusion_record(name: str, q, k, v, max_err: float, cupti: str = "comm_fu
     m = flat.shape[2]
     bytes_moved = ((q.numel() + k.numel() + 2 * v.numel()) * v.element_size()
                    + 2 * b * n * n * 4)  # coef and soft are float32
-    flops = 2 * b * n * n * d + 2 * b * n * n * m
-    bound_ms, bound_by = _bound(bytes_moved, flops)
+    bound_ms, bound_by = _bound(bytes_moved, 0, k2_ops_ms(b, n, d, m, dtype))
     run = lambda: k2.comm_fusion(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
     plain = lambda: k2.comm_fusion_plain(q, k, v, mode="activated", diag_bias=DIAG_BIAS)  # noqa: E731
     rec = {
@@ -620,13 +658,63 @@ def comm_fusion_record(name: str, q, k, v, max_err: float, cupti: str = "comm_fu
     }
     if cupti:
         rec["cupti_warm_ms"] = _traced_ms(run, cupti)
-    else:  # the wide design: each of its two kernels alone, by CUPTI
-        run()
-        events = _trace_window(run, "comm_fusion_wide", 50)
-        rec["cupti_warm_ms_by_kernel"] = {
-            part: sum(e.self_device_time_total for e in events if part in e.key) / 50 / 1e3
-            for part in ("comm_fusion_wide_graph", "comm_fusion_wide_fuse")}
+    else:  # the wide design: each of its two kernels alone, and the call's span
+        rec.update(wide_split(run))
     return rec
+
+
+def _kernel_events(fn, kernel: str, iters: int) -> list:
+    """The device kernel events (start and end times) whose name holds
+    ``kernel`` in one ``torch.profiler`` window of ``iters`` runs of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events() if kernel in e.name
+                   and e.device_type.name == "CUDA"), key=lambda e: e.time_range.start)
+
+
+def wide_split(run, iters: int = 50) -> dict:
+    """K2's wide design by CUPTI over ``iters`` back-to-back calls of
+    ``run`` (medians, ms): each of its two kernels alone, the fusion kernel
+    launched when the graph kernel has ended (``comm_fusion_wide_overlap(0)``,
+    a switch of the library that only measurements turn), then, as the
+    wrapper launches them, the call's span on the device (the graph kernel's
+    start to the fusion kernel's end) and what the fusion kernel adds after
+    the graph kernel has ended. A call is a graph kernel and the fusion
+    kernel after it; calls whose records the trace lacks are skipped, and
+    the window is taken again (at most TRACE_TRIES) while it pairs none."""
+    lib = _build.load("comm_fusion")
+    out = {}
+    for overlap in (0, 1):
+        lib.comm_fusion_wide_overlap(overlap)
+        try:
+            run()
+            for _ in range(TRACE_TRIES):
+                events = _kernel_events(run, "comm_fusion_wide", iters)
+                pairs = [(g, f) for g, f in zip(events, events[1:])
+                         if "wide_graph" in g.name and "wide_fuse" in f.name]
+                if pairs:
+                    break
+            else:
+                raise AssertionError(f"{TRACE_TRIES} traces of K2's wide design: no call")
+        finally:
+            lib.comm_fusion_wide_overlap(1)
+        med = lambda xs: float(np.median(xs)) / 1e3  # noqa: E731  (us -> ms)
+        if overlap:
+            out["cupti_warm_span_ms"] = med([f.time_range.end - g.time_range.start
+                                             for g, f in pairs])
+            out["cupti_warm_fuse_after_graph_ms"] = med([f.time_range.end - g.time_range.end
+                                                         for g, f in pairs])
+        else:
+            out["cupti_warm_ms_by_kernel"] = {
+                "comm_fusion_wide_graph": med([g.time_range.elapsed_us() for g, _ in pairs]),
+                "comm_fusion_wide_fuse": med([f.time_range.elapsed_us() for _, f in pairs])}
+        out["cupti_calls_paired"] = out.get("cupti_calls_paired", []) + [len(pairs)]
+    return out
 
 
 K3_GEOMETRIES = (  # (name, B*N, H=W, C, dtype): the flagship's stride-1 blocks at the
@@ -3973,25 +4061,64 @@ def _zero_designs() -> None:
     k2.comm_fusion.design_launches.update(dict.fromkeys(k2.comm_fusion.design_launches, 0))
 
 
+def k1_wide_routes(gen) -> dict:
+    """(a): K1 at the first shape of ``checks.K1_WIDE_SHAPES`` for each of
+    its routes (``upsample_argmax.plan``: 16 rows opted in past 48 KB, 8, 4,
+    2 and 1 rows, and none: the direct kernel), float32 logits, timed as
+    phase 1 times the flagship's (``k1_times``)."""
+    out = {}
+    for n, c, h, w, out_h, out_w in checks.K1_WIDE_SHAPES:
+        rows = k1.plan(c, w)
+        route = f"rows{rows}" if rows else "direct"
+        if route not in out:
+            x = torch.randn(n, c, h, w, generator=gen).to("cuda")
+            out[route] = {"shape": f"({n}, {c}, {h}, {w}) -> ({n}, {out_h}, {out_w})",
+                          **k1_times(x, out_h, out_w)}
+    return out
+
+
 def p18_kernels(gen) -> tuple[list[dict], dict]:
     """(a): K2's wide design against its plain version (``checks``) at
-    WIDE_AGENTS x WIDE_MAPS in every type and mode, every N of P18_EVERY_N in
-    every type (one mode each), each call's design counted (the cluster
-    design alone up to 16 agents); the wide records, timed; K1 at the wide
-    logits of ``checks.K1_WIDE_SHAPES`` in every type."""
-    out = {"wide": {}, "k1_wide": {}}
+    WIDE_AGENTS x WIDE_MAPS in every type and mode, at WIDE_BEYOND agents
+    with D = 37 and a ragged M (its logits kept in soft and coef, V streamed
+    again per query tile), every N of P18_EVERY_N in every type (one mode
+    each), each call's design counted (the cluster design alone up to 16
+    agents), two calls equal bit for bit and a CUDA graph's replay equal to
+    eager; the wide records, timed; K1 at the wide logits of
+    ``checks.K1_WIDE_SHAPES`` in every type, and each of its routes timed."""
+    out = {"wide": {}, "beyond": {}, "repeatable": {}, "graph_replay": {}, "k1_wide": {},
+           "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name: str) -> None:
+        out["seconds"][name] = time.perf_counter() - t0 - sum(out["seconds"].values())
+
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        out["wide"][_route(dtype)] = checks.check_comm_fusion_wide(gen, "cuda", dtype)
-        out["k1_wide"][_route(dtype)] = checks.check_upsample_argmax_wide(gen, "cuda", dtype)
+        route = _route(dtype)
+        out["wide"][route] = checks.check_comm_fusion_wide(gen, "cuda", dtype)
+        lap(f"wide_{route}")
+        out["beyond"][route] = checks.check_comm_fusion_wide(
+            gen, "cuda", dtype, agents=(checks.WIDE_BEYOND,),
+            maps=((13 * k2.ROUTES[dtype][2],),), d=37)
+        lap(f"beyond_{route}")
+        out["repeatable"][route] = checks.check_comm_fusion_repeatable(gen, "cuda", dtype)
+        out["graph_replay"][route] = checks.check_comm_fusion_graph_replay(gen, dtype)
+        lap(f"bits_{route}")
+        out["k1_wide"][route] = checks.check_upsample_argmax_wide(gen, "cuda", dtype)
+        lap(f"k1_wide_{route}")
     out["every_n"] = {_route(dtype): checks.check_comm_fusion_every_n(gen, "cuda", dtype,
                                                                      P18_EVERY_N)
                       for dtype in (torch.float32, torch.bfloat16, torch.float16)}
+    lap("every_n")
+    out["k1_wide_routes"] = k1_wide_routes(gen)
+    lap("k1_wide_routes")
     records = []
     for dtype, (b, n, rest) in P18_RECORD_SHAPES.items():
         q, k, v = checks.wide_comm_inputs(gen, b, n, checks.WIDE_KEY, rest, dtype, "cuda")
         err = max(checks.check_comm_fusion(q, k, v, mode, DIAG_BIAS, THRES) for mode in k2.MODES)
         records.append(comm_fusion_record("comm_fusion_wide" + _suffix(dtype), q, k, v, err,
                                           cupti=None))
+        lap(f"record_{_route(dtype)}")
     return records, out
 
 
@@ -4124,6 +4251,8 @@ def run_phase18(records: list) -> dict:
 
     wide, out = p18_kernels(torch.Generator().manual_seed(SEED + 18))
     print("phase18_kernels " + json.dumps(out))
+    next(rec for rec in records if rec["name"] == "upsample_argmax")["wide_routes"] = \
+        out["k1_wide_routes"]
     lap("a_kernels")
     sweep = {"bf16": p18_sweep("bfloat16", bench_agents.AGENTS),
              "f16": p18_sweep("float16", P18_F16_AGENTS)}

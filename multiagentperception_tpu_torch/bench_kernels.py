@@ -13,7 +13,9 @@ flagship's 16 int8 conv shapes (``K4_SHAPES``, batch 20 x 6, float32, bf16
 and float16 networks), K1 ``upsample_argmax`` and K2 ``comm_fusion``
 (float32, bf16 and float16) at the shapes ``chip_smoke.py`` times them, and
 K2 at the agent-count sweep's N = 24 and 48 (``bench_agents``: 256x256,
-B*N = 96; the wide design), each with the lead and without it:
+B*N = 96; the wide design) and at 24 agents of 512x512 value maps, batch 2
+(phase 18 (d)'s, the float32 wide record's), each with the lead and without
+it:
 
     python -m multiagentperception_tpu_torch.bench_kernels [--iters 20] [--label NAME]
 
@@ -56,7 +58,9 @@ K4_SHAPES = (
     (256, 256, 16, 3, 2, 1, True, 1), (256, 256, 8, 3, 1, 1, True, 1),
     (256, 256, 8, 3, 2, 1, True, 1))      # PolicyNet4 conv3-5
 NETWORKS = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
-SWEEP_AGENTS, SWEEP_FRAMES = (24, 48), 96  # K2 beyond 16 agents, as bench_agents runs it
+# K2 beyond 16 agents: (batch, agents, value map) as bench_agents runs it
+# (B*N = 96 at 256x256), and 24 agents at 512x512, batch 2
+WIDE_SHAPES = ((4, 24, (512, 8, 8)), (2, 48, (512, 8, 8)), (2, 24, (512, 16, 16)))
 
 
 def time_ms(fn, iters: int = 50, lead_cycles: int = HOST_LEAD_CYCLES) -> float:
@@ -145,18 +149,17 @@ def main(argv: list[str] | None = None) -> int:
         emit({"kernel": "comm_fusion", "network": network,
               "shape": "q', k (2, 6, 1024); V (2, 6, 512, 16, 16), activated",
               **_both(lambda: k2.comm_fusion(q, kk, v, mode="activated", diag_bias=0.001), 50)})
-        for agents in SWEEP_AGENTS:
-            b = SWEEP_FRAMES // agents
+        for b, agents, rest in WIDE_SHAPES:
             q = torch.randn(b, agents, 1024, generator=gen).to("cuda", dtype)
             kk = (torch.randn(b, agents, 1024, generator=gen) * 4 / 32).to("cuda", dtype)
-            v = torch.randn(b, agents, 512, 8, 8, generator=gen).to("cuda", dtype)
+            v = torch.randn(b, agents, *rest, generator=gen).to("cuda", dtype)
             row = {"kernel": "comm_fusion", "network": network,
-                   "shape": f"q', k ({b}, {agents}, 1024); V ({b}, {agents}, 512, 8, 8), "
-                            "activated"}
+                   "shape": f"q', k ({b}, {agents}, 1024); V {tuple(v.shape)}, activated"}
             if not hasattr(k2, "plan"):  # an earlier checkout: K2 took at most 16 agents
                 emit({**row, "skipped": "this checkout's K2 takes at most 16 agents"})
                 continue
-            emit({**row, "design": k2.plan(b, agents, 1024, 512 * 64, dtype),
+            m = v[0, 0].numel()
+            emit({**row, "design": k2.plan(b, agents, 1024, m, dtype),
                   **_both(lambda: k2.comm_fusion(q, kk, v, mode="activated",
                                                  diag_bias=0.001), 50)})
     print(card())

@@ -43,7 +43,7 @@ SIGNATURES = {
     "upsample_argmax": {"upsample_argmax_f32": _K1_ARGS, "upsample_argmax_bf16": _K1_ARGS,
                         "upsample_argmax_f16": _K1_ARGS},
     "comm_fusion": {"comm_fusion_f32": _K2_ARGS, "comm_fusion_bf16": _K2_ARGS,
-                    "comm_fusion_f16": _K2_ARGS},
+                    "comm_fusion_f16": _K2_ARGS, "comm_fusion_wide_overlap": [I32]},
     "fused_block_wgmma": {"fused_basic_block_wgmma": [P, P, P, P, I32, I32, I32, I32, P]},
     "fused_block_tf32": {"fused_basic_block_tf32x3": [P, P, P, P, I32, I32, I32, I32, P]},
     "fused_block_wgmma_conv": {"fused_basic_block_wgmma_conv":

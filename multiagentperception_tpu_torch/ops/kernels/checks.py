@@ -31,7 +31,11 @@ Tolerances:
   in float64 with the same tolerances. Beyond 16 agents
   (``check_comm_fusion_wide``, the wide design) the same tolerances hold,
   on inputs whose graph is peaked (``wide_comm_inputs``: links survive
-  ``activated`` at any N) and whose argmax ties.
+  ``activated`` at any N) and whose argmax ties, at every edge of its tiles
+  (``WIDE_EDGE_AGENTS``) and beyond what its CTAs keep in shared memory
+  (``WIDE_BEYOND``); two calls give the same bits
+  (``check_comm_fusion_repeatable``) and a CUDA graph's replay equals an
+  eager call (``check_comm_fusion_graph_replay``).
 - K1 at wide logits (``check_upsample_argmax_wide``): the same rule, where
   a block stages fewer than 16 rows or none (``upsample_argmax.plan``).
 - K3 (``fused_basic_block``), with TF32 off for the plain version's
@@ -287,6 +291,67 @@ def check_comm_fusion_every_n(gen: torch.Generator, device, dtype=torch.float32,
             raise AssertionError(f"K2 at N={n} {dtype}: launches by design {got}, want {want}")
         designs = {key: designs[key] + got[key] for key in designs}
     return {"max_abs_err": err, "designs": designs}
+
+
+# K2's wide design at each edge of its tiles: a graph cluster's 8 queries,
+# the 16 keys of an mma step, a fusion tile's 32 (float32) and 64 (16-bit)
+# queries and 64 keys, and beyond one tile of each; WIDE_BEYOND: more keys
+# than a graph CTA keeps in shared memory (1024: its logits pass through soft
+# and coef) and than a fusion CTA keeps V rows for (its rows streamed again
+# for each query tile)
+WIDE_EDGE_AGENTS = (17, 31, 32, 33, 63, 64, 65, 128, 129, 200)
+WIDE_BEYOND = 1030
+
+
+def _bits_of(outputs) -> list:
+    return [_bits(t) for t in outputs]
+
+
+def check_comm_fusion_repeatable(gen: torch.Generator, device, dtype=torch.float32,
+                                 agents=(24, 48, 200), rest=(512, 8, 8), fn=k2.comm_fusion) -> dict:
+    """K2 called twice on the same inputs (``wide_comm_inputs`` at each N of
+    ``agents``, batch 2, every mode) returns the same bits in fused, coef and
+    soft: its sums have a fixed order. Returns the calls made by N."""
+    out = {}
+    for n in agents:
+        q, k, v = wide_comm_inputs(gen, 2, n, WIDE_KEY, rest, dtype, device)
+        for mode in k2.MODES:
+            first = _bits_of(fn(q, k, v, mode, 0.001))
+            if not all(torch.equal(a, b) for a, b in zip(first, _bits_of(fn(q, k, v, mode, 0.001)))):
+                raise AssertionError(f"K2 at N={n} {dtype} {mode}: two calls differ")
+        out[n] = 2 * len(k2.MODES)
+    return out
+
+
+def check_comm_fusion_graph_replay(gen: torch.Generator, dtype=torch.float32, n: int = 48,
+                                   rest=(512, 8, 8)) -> dict:
+    """K2 captured in a CUDA graph (``torch.cuda.graph``, after a warm-up on
+    the capture's stream, as ``graphs.GraphCache`` captures the eval), its
+    inputs then overwritten with new ones and the graph replayed: equal bit
+    for bit to an eager call on the new inputs, in every mode. Returns the
+    wrapper's launches (a warm-up, the capture and the eager call a mode;
+    a replay launches without the wrapper)."""
+    base = wide_comm_inputs(gen, 2, n, WIDE_KEY, rest, dtype, "cuda")
+    new = wide_comm_inputs(gen, 2, n, WIDE_KEY, rest, dtype, "cuda")
+    before = k2.comm_fusion.launches
+    for mode in k2.MODES:
+        static = [t.clone() for t in base]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            k2.comm_fusion(*static, mode, 0.001)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = k2.comm_fusion(*static, mode, 0.001)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = k2.comm_fusion(*new, mode, 0.001)
+        if not all(torch.equal(a, b) for a, b in zip(_bits_of(captured), _bits_of(want))):
+            raise AssertionError(f"K2 at N={n} {dtype} {mode}: graph replay differs from eager")
+    return {"n": n, "launches": k2.comm_fusion.launches - before}
 
 
 # K1 at logits too wide for 16 staged rows in the default 48 KB: (n, C, h, w,

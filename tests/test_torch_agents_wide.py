@@ -10,7 +10,8 @@
   float32 towers part the graph by more than 1e-5; at 0.3 they stay within
   it and ``activated`` still keeps links (``num_connect`` > 0, asserted).
 - K2's plain version against ``fused_comm_step`` (interpret) at N = 17,
-  24, 48 and 64 in float32, bfloat16 and float16, on
+  24, 33, 48, 64, 65 and 128 (the card's wide design has tile edges at 32
+  and 64) in float32, bfloat16 and float16, on
   ``checks.wide_comm_inputs`` (a peaked graph, and keys repeated so the
   argmax ties): masks equal, graphs within 1e-6, fused within 1e-5 (16-bit:
   one ulp of the type + 1e-5).
@@ -94,16 +95,17 @@ def test_wide_mimocom_matches_jax(wide, mode, pallas_comm):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [17, 24, 48, 64])
+@pytest.mark.parametrize("n", [17, 24, 33, 48, 64, 65, 128])
 def test_comm_fusion_plain_matches_pallas_beyond_16_agents(n, dtype):
     q, k, v = checks.wide_comm_inputs(torch.Generator().manual_seed(n), 1, n, 64, (2, 2, 8),
                                       DTYPES[dtype], "cpu")
     soft = k2.comm_fusion_plain(q, k, v)[2]
     assert bool(((soft == soft.amax(1, keepdim=True)).sum(1) > 1).any())  # argmax ties
     jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype)) for t in (q, k, v))
-    for mode in k2.MODES:
-        j_fused, j_coef, j_soft = fused_comm_step(jq, jk, jv, mode=mode, diag_bias=0.001,
-                                                  interpret=True)
+    # the three modes' kernels in one compiled function (one compile a case)
+    j_all = jax.jit(lambda *a: [fused_comm_step(*a, mode=mode, diag_bias=0.001, interpret=True)
+                                for mode in k2.MODES])(jq, jk, jv)
+    for mode, (j_fused, j_coef, j_soft) in zip(k2.MODES, j_all):
         fused, coef, soft = k2.comm_fusion_plain(q, k, v, mode=mode, diag_bias=0.001)
         np.testing.assert_array_equal(coef.numpy() != 0, np.asarray(j_coef) != 0)
         np.testing.assert_allclose(coef.numpy(), np.asarray(j_coef), rtol=0, atol=1e-6)
@@ -125,6 +127,14 @@ def test_comm_fusion_wide_check_on_the_plain_version():
                                          agents=(17, 24), maps=((16, 2, 2), (40,)))
     assert set(errs) == {"17x64", "17x40", "24x64", "24x40"}
     assert max(errs.values()) < 1e-5
+
+
+def test_repeatability_check_on_the_plain_version():
+    """``checks.check_comm_fusion_repeatable`` (the card's same-bits check)
+    runs here on the plain version, every mode, at two agent counts."""
+    got = checks.check_comm_fusion_repeatable(torch.Generator().manual_seed(4), "cpu",
+                                              torch.bfloat16, agents=(17, 33), rest=(16,))
+    assert got == {17: 2 * len(k2.MODES), 33: 2 * len(k2.MODES)}
 
 
 def test_float64_check_holds_and_rejects():

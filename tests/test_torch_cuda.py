@@ -256,6 +256,49 @@ def test_comm_fusion_wide_design_ragged(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_at_tile_edges(cuda, dtype):
+    """The wide design at every edge of its tiles (checks.WIDE_EDGE_AGENTS:
+    8-query graph clusters, 16-key mma steps, 32- and 64-query fusion tiles,
+    64-key chunks) on the sweep's value maps and on an M that no fusion
+    CTA's 128 columns divide (13 packs), every mode with argmax ties."""
+    m = 13 * k2.ROUTES[dtype][2]
+    errs = checks.check_comm_fusion_wide(torch.Generator().manual_seed(22), cuda, dtype,
+                                         agents=checks.WIDE_EDGE_AGENTS,
+                                         maps=((512, 8, 8), (m,)))
+    assert len(errs) == 2 * len(checks.WIDE_EDGE_AGENTS)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_at_d37_and_beyond_shared_memory(cuda, dtype):
+    """D = 37 (no 16-byte loads: the graph stages by value) at the tile
+    edges, and N = checks.WIDE_BEYOND: the graph CTA keeps its logits in
+    soft and coef, and the fusion CTA streams V's rows again per query
+    tile."""
+    m = 13 * k2.ROUTES[dtype][2]
+    errs = checks.check_comm_fusion_wide(
+        torch.Generator().manual_seed(23), cuda, dtype,
+        agents=checks.WIDE_EDGE_AGENTS + (checks.WIDE_BEYOND,), maps=((m,),), d=37)
+    assert f"{checks.WIDE_BEYOND}x{m}" in errs
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_returns_the_same_bits(cuda, dtype):
+    """Two calls on the same inputs give the same bits in every output, at
+    N = 24, 48 and 200 in every mode: no sum depends on timing."""
+    got = checks.check_comm_fusion_repeatable(torch.Generator().manual_seed(24), cuda, dtype)
+    assert sorted(got) == [24, 48, 200]
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
+def test_comm_fusion_wide_design_replays_in_a_cuda_graph(cuda, dtype):
+    """The two kernels (the fusion one a programmatic dependent launch of
+    the graph one) captured in a CUDA graph and replayed on new inputs
+    equal an eager call bit for bit, in every mode."""
+    got = checks.check_comm_fusion_graph_replay(torch.Generator().manual_seed(25), dtype)
+    assert got["launches"] == 3 * len(k2.MODES)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["f32", "bf16", "f16"])
 def test_upsample_argmax_at_wide_logits(cuda, dtype):
     """K1 where 16 staged rows exceed 48 KB (C = 11 at w = 70 and 96, C = 32
     at w = 32: opted in), where a block stages 8, 4, 2 and 1 rows, and where

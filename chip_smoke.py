@@ -361,6 +361,39 @@ and the script exits non-zero:
    after phase 9, while traces still hold their records; ``phase18_seconds``
    times its parts.
 
+19. The user runs of scripts/ (``bench_eval_pipeline``, ``prove_learning``,
+   ``run_flagship_512``), last. (a) ``bench_eval_pipeline.main`` at batch
+   2 and 16 x 6 at 512x512, float32 frames and raw uint8 ones normalized on
+   the card: the flagship in bf16 from the seeded init, a warm pass, then
+   the best of 3 passes at depth 0 (each batch read back before the next
+   is dispatched) and at depth 2, through the eval step's CUDA graph; the
+   confusion matrices, bandwidth and selection counts equal across depths,
+   K1 and K2 once a batch on the bf16 route in every pass; frames/s
+   printed. (b) ``prove_learning.main(tradeoff=True)`` at its defaults
+   (the flagship at 128x128, 400 iterations at batch 4 over the informative
+   fixture's train split through ``AirsimDataset``, ``DataLoader`` and
+   ``Trainer.train``), the counts zeroed before each stage and read after:
+   training (its validation in ``softmax`` at full resolution launches
+   neither), the ``activated`` eval (K1 and K2 once a batch), the int8 eval
+   (K4 48 times a batch, K1 once, K2 once and once on the calibration
+   batch) and the tradeoff (K1 every batch of its 9 passes, K2 in
+   ``argmax_test`` and ``activated``), all on the float32 route; 9 rows,
+   the top-k bandwidth non-decreasing in k, every bandwidth within [0, 5]
+   and mIoU within [0, 1], the four metrics finite. (c)
+   ``python -m multiagentperception_tpu_torch.run_flagship_512`` at
+   512x512 over a fixture of 4 frames a trajectory, in two legs, each in
+   its own workdir: leg 1 to 200 iterations (validation and ``latest``
+   every 100, ``steps_per_call`` 10, bf16, grain, the decoded cache), leg 2
+   resumed from leg 1's ``latest`` to 300. Both exit 0; leg 1's
+   ``report`` holds ``Time/Image`` readings, 2 validations with 2
+   selection readings and a best checkpoint; each leg prints its
+   post-train test with a bandwidth; leg 2's first printed iteration lies
+   after 200. The legs start on a thread of their own before phase 15
+   and run beside phases 15 and 17 (which take no trace and claim no
+   speed); (a) and (b) run in this process after phase 17, then the legs
+   are joined (``phase19_seconds``); the sustained frames/s of both legs,
+   the host RSS and the device's peak at each validation are printed.
+
 Phase 16 runs right after phase 8, its bf16 counterpart. Kineto files
 some of a trace window's kernel records as outside its capture window
 ("Out-of-range" in its log), more the longer the process has run, and not
@@ -402,7 +435,10 @@ and ``int8_conv`` its times at the shards' geometries, ``phase17_shapes``;
 ``comm_fusion_wide``, ``comm_fusion_wide_bf16`` and ``comm_fusion_wide_f16``
 are K2's wide design by type, with their launches on phase 18's paths (d),
 the bf16 sweep and the float16 sweep, and K1's records and
-``comm_fusion_bf16`` their launches there, ``phase18_launches``),
+``comm_fusion_bf16`` their launches there, ``phase18_launches``;
+``upsample_argmax_bf16`` and ``comm_fusion_bf16`` their launches a pass of
+phase 19 (a), and ``upsample_argmax``, ``comm_fusion`` and ``int8_conv``
+theirs in each stage of phase 19 (b), ``phase19_launches``),
 and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -410,6 +446,7 @@ and last
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import io
@@ -419,6 +456,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2011,30 +2049,6 @@ INT8_TRAINED_RATIO = 1.0
 # at 128x128 over the informative fixture's train split, batch 4, Adam 1e-4
 LEARN_SIZE, LEARN_FRAMES, LEARN_ITERS, LEARN_BATCH, LEARN_LR = 128, 32, 400, 4, 1e-4
 LEARN_EVAL_BATCHES = 8
-
-
-class _ShuffledBatches:
-    """A loader over in-memory frames: each pass a new seeded order, the
-    ragged tail dropped (``DataLoader(shuffle=True, drop_last=True)``)."""
-
-    def __init__(self, frames: list, batch: int, seed: int):
-        self.frames, self.batch = frames, batch
-        self.rng = np.random.default_rng(seed)
-
-    def __iter__(self):
-        order = self.rng.permutation(len(self.frames))
-        for i in range(0, len(order) - self.batch + 1, self.batch):
-            yield _stack([self.frames[j] for j in order[i:i + self.batch]])
-
-
-def _stack(frames: list) -> tuple:
-    """(images, labels, commun_label) batch of (scene, labels, noise, link) frames,
-    the images normalized as the loader normalizes them."""
-    raw = np.stack([f[0] for f in frames])
-    images = normalize_images(torch.from_numpy(raw)).numpy()
-    labels = np.stack([f[1] for f in frames]).astype(np.int32)
-    commun = np.stack([np.stack([f[2], f[3]]) for f in frames]).astype(np.int64)
-    return images, labels, commun
 
 
 class _ShuffledBatches:
@@ -4280,6 +4294,244 @@ def run_phase18(records: list) -> dict:
     return {"kernels": out, "sweep": sweep, "full_width": full, "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 19
+
+P19_PIPELINE = ((2, False), (2, True), (16, False), (16, True))  # (batch, raw uint8 frames)
+P19_LEG1_ITERS, P19_VAL_INTERVAL, P19_LEG2_ITERS = 200, 100, 300
+P19_FRAMES = 4  # frames a trajectory of the 512x512 fixture
+P19_AGENTS = 6
+P19_KERNELS = (k1.upsample_argmax, k2.comm_fusion, k4.int8_conv)
+
+
+def _p19_counts() -> dict:
+    """K1's, K2's and K4's launches by route since the last call; the
+    counts are set to 0."""
+    counts = {kern.__name__: dict(kern.route_launches) for kern in P19_KERNELS}
+    bench._zero_launches(P19_KERNELS)
+    return counts
+
+
+def _printed(fn, *args, **kwargs) -> tuple:
+    """``fn``'s value and its standard output (kept off the smoke's)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        value = fn(*args, **kwargs)
+    return value, out.getvalue()
+
+
+def p19_pipeline() -> dict:
+    """(a) ``bench_eval_pipeline.main`` at each of P19_PIPELINE: it raises
+    unless the depths record equal metrics and K1 and K2 launch once a batch
+    on the bf16 route in every pass; held again here from its JSON line."""
+    from multiagentperception_tpu_torch import bench_eval_pipeline as bep
+
+    out = {}
+    for batch, raw in P19_PIPELINE:
+        (sync, asyn), printed = _printed(bep.main, batch=batch, raw_uint8=raw)
+        lines = printed.strip().splitlines()
+        r = json.loads(lines[-1])
+        want = {"upsample_argmax": r["n_batches"], "comm_fusion": r["n_batches"]}
+        if any(v != want for v in r["launches_per_pass"].values()) or \
+                (r["sync_s"], r["async_s"]) != (sync, asyn) or len(lines) != 4:
+            raise AssertionError(f"bench_eval_pipeline at batch {batch}: {printed}")
+        out[f"b{batch}_{r['tag']}"] = {k: r[k] for k in (
+            "sync_frames_per_s", "async_frames_per_s", "speedup", "launches_per_pass",
+            "bandwidth")}
+    return out
+
+
+def p19_learning() -> dict:
+    """(b) ``prove_learning.main(tradeoff=True)`` at its defaults, the
+    counts zeroed before each stage and read after: training (its one
+    validation runs ``softmax`` at full resolution: no K1, no K2), the
+    ``activated`` eval, the int8 eval and the tradeoff. K1 and K2 once a
+    batch of each eval where the mode runs them, K2 also on the int8
+    calibration batch, K4 48 times an int8 batch; 9 rows, the top-k
+    bandwidth non-decreasing in k, every bandwidth within [0, N - 1] and
+    mIoU within [0, 1]; the four metrics finite."""
+    from multiagentperception_tpu_torch import prove_learning as pl
+
+    batches = 2 * LEARN_FRAMES // LEARN_BATCH  # the train split: 2 trajectories
+    counts, rows = {}, []
+    real = {"train": Trainer.train, "int8": pl.int8_miou, "tradeoff": pl.tradeoff_curve}
+
+    def train(self):
+        _p19_counts()
+        value = real["train"](self)
+        counts["train"] = _p19_counts()
+        return value
+
+    def int8(*args):
+        counts["activated"] = _p19_counts()
+        value = real["int8"](*args)
+        counts["int8"] = _p19_counts()
+        return value
+
+    def tradeoff(*args):
+        rows.extend(real["tradeoff"](*args))
+        counts["tradeoff"] = _p19_counts()
+        return rows
+
+    t0 = time.perf_counter()
+    Trainer.train, pl.int8_miou, pl.tradeoff_curve = train, int8, tradeoff
+    try:
+        metrics, printed = _printed(pl.main, tradeoff=True)
+    finally:
+        Trainer.train, pl.int8_miou, pl.tradeoff_curve = \
+            real["train"], real["int8"], real["tradeoff"]
+    seconds = time.perf_counter() - t0
+    f32 = {name: {k: c[k]["f32"] for k in c} for name, c in counts.items()}
+    want = {"train": (0, 0, 0), "activated": (batches, batches, 0),
+            "int8": (batches, batches + 1, 48 * batches),
+            "tradeoff": (9 * batches, 2 * batches, 0)}
+    got = {name: (c["upsample_argmax"], c["comm_fusion"], c["int8_conv"])
+           for name, c in f32.items()}
+    other = {name: c for name, c in counts.items()
+             if any(n for kern in c.values() for r, n in kern.items() if r != "f32")}
+    if got != want or other:
+        raise AssertionError(f"prove_learning launches {counts}, want (K1, K2, K4) {want}")
+    topk = [bw for mode, bw, _ in rows if mode.startswith("topk")]
+    if len(rows) != P19_AGENTS + 3 or topk != sorted(topk) or not all(
+            0.0 <= bw <= P19_AGENTS - 1 and 0.0 <= miou <= 1.0 for _, bw, miou in rows) or \
+            not all(np.isfinite(float(v)) for v in metrics):
+        raise AssertionError(f"prove_learning: {metrics} {rows}")
+    for label in ("train-set mIoU (activated):", "mimo when2com selection accuracy:",
+                  "train-set mIoU, int8-quantized serving path:"):
+        if label not in printed:
+            raise AssertionError(f"prove_learning printed no {label!r}")
+    return {"seconds": seconds, "miou": float(metrics[0]), "when2com_acc": float(metrics[1]),
+            "who2com_acc": float(metrics[2]), "miou_int8": float(metrics[3]),
+            "tradeoff": [[mode, float(bw), float(miou)] for mode, bw, miou in rows],
+            "launches": got}
+
+
+def _p19_leg(work: Path, name: str, iters: int, resume: str | None = None) -> tuple:
+    """A started ``run_flagship_512`` leg at 512x512 over the shared fixture,
+    in a workdir of its own."""
+    leg = work / name
+    leg.mkdir(parents=True)
+    args = ["--iters", str(iters), "--val_interval", str(P19_VAL_INTERVAL),
+            "--frames", str(P19_FRAMES), "--root", str(work / "data"), "--workdir", str(leg)]
+    return _cli_start("run_flagship_512", *args, *(["--resume", resume] if resume else []),
+                      cwd=leg)
+
+
+def _p19_report(leg: Path, printed: str) -> dict:
+    """A leg's ``report`` from its CLI log, checked: the post-train test with
+    a bandwidth, a memory line at each validation."""
+    from multiagentperception_tpu_torch import run_flagship_512 as rf
+
+    r = rf.report((leg / rf.LOG_NAME).read_text())
+    if r["test"] is None or not r["memory"] or "post-train test:" not in printed:
+        raise AssertionError(f"{leg.name}: no post-train test or memory line: {r}")
+    runs = sorted((leg / "runs" / "mrms_when2com_512_run").glob("*"))
+    r["checkpoints"] = sorted(p.name for p in runs[-1].glob("*.pkl")) if runs else []
+    return r
+
+
+def p19_flagship_legs(work: Path, procs: list) -> dict:
+    """(c) ``run_flagship_512`` in two legs at 512x512 over a fixture of
+    P19_FRAMES frames a trajectory: leg 1 to P19_LEG1_ITERS with validation
+    and ``latest`` every P19_VAL_INTERVAL, leg 2 in a new workdir resumed
+    from leg 1's ``latest`` to P19_LEG2_ITERS; each started process is
+    appended to ``procs``. Both exit 0; leg 1 reads Time/Image, 2
+    validations with 2 selection readings and a best checkpoint; leg 2
+    prints nothing before its resumed iteration."""
+    legs, t0 = {}, time.perf_counter()
+    procs.append(_p19_leg(work, "leg1", P19_LEG1_ITERS))
+    printed, legs["leg1_s"] = _cli_wait(procs[-1])
+    leg1 = _p19_report(work / "leg1", printed)
+    latest = sorted((work / "leg1" / "runs").rglob("MIMOcom_airsim_latest.pkl"))
+    if not latest:
+        raise AssertionError("leg 1 wrote no latest checkpoint")
+    procs.append(_p19_leg(work, "leg2", P19_LEG2_ITERS, str(latest[-1])))
+    printed, legs["leg2_s"] = _cli_wait(procs[-1])
+    leg2 = _p19_report(work / "leg2", printed)
+    if not leg1["time_image"] or len(leg1["val_overall"]) != 2 or \
+            len(leg1["val_when2com"]) != 2 or "MIMOcom_airsim_best_model.pkl" not in \
+            leg1["checkpoints"] or not (leg2["first_iter"] or 0) > P19_LEG1_ITERS:
+        raise AssertionError(f"run_flagship_512 legs: {leg1} {leg2}")
+    memory = leg1["memory"] + leg2["memory"]
+    out = {"seconds": {**legs, "both": time.perf_counter() - t0}}
+    for name, r in (("leg1", leg1), ("leg2", leg2)):
+        out[name] = {k: r[k] for k in ("sustained", "val_overall", "val_when2com", "test",
+                                       "first_iter", "memory", "checkpoints")}
+    out["max_host_rss_gb"] = max(m[1] for m in memory)
+    out["max_device_peak_gb"] = max(m[3] for m in memory)
+    return out
+
+
+def _stop(procs: list) -> None:
+    for proc, *_ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_phase19_legs() -> dict:
+    """Phase 19 (c) started on a thread of its own, its legs' processes
+    beside phases 15 and 17 (which take no trace and claim no speed);
+    ``run_phase19`` joins it. Its processes are killed at exit."""
+    work = WORK / "phase19"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    legs = {"work": work, "procs": [], "started": time.perf_counter()}
+
+    def run() -> None:
+        try:
+            legs["result"] = p19_flagship_legs(work, legs["procs"])
+        except Exception as err:  # raised again where run_phase19 joins
+            legs["error"] = err
+        legs["seconds"] = time.perf_counter() - legs["started"]
+
+    atexit.register(_stop, legs["procs"])
+    legs["thread"] = threading.Thread(target=run, name="phase19-legs", daemon=True)
+    legs["thread"].start()
+    return legs
+
+
+def run_phase19(records: list, legs: dict) -> dict:
+    """Phase 19: the user runs of scripts/ on the card, (a) and (b) in this
+    process, then (c)'s legs (``start_phase19_legs``) joined (the module
+    docstring)."""
+    started = time.perf_counter()
+    out, seconds = {}, {}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - started - sum(seconds.values())
+
+    try:
+        out["pipeline"] = p19_pipeline()
+        print("phase19_pipeline " + json.dumps(out["pipeline"]))
+        lap("a_pipeline")
+        out["learning"] = p19_learning()
+        print("phase19_learning " + json.dumps(out["learning"]))
+        lap("b_learning")
+        legs["thread"].join(timeout=2 * CLI_TIMEOUT_S)
+        if legs["thread"].is_alive():
+            raise AssertionError(f"phase 19 (c): no end after {2 * CLI_TIMEOUT_S} s")
+    finally:
+        _stop(legs["procs"])
+    if "error" in legs:
+        raise legs["error"]
+    out["flagship"] = legs["result"]
+    lap("c_flagship_wait")
+    seconds["c_flagship_since_start"] = legs["seconds"]
+    print("phase19_flagship " + json.dumps(out["flagship"]))
+    print("phase19_seconds " + json.dumps(seconds))
+    by_name = {rec["name"]: rec for rec in records}
+    for name in ("upsample_argmax_bf16", "comm_fusion_bf16"):
+        kern = name.removesuffix("_bf16")
+        by_name[name]["phase19_launches"] = {
+            key: {depth: n[kern] for depth, n in run["launches_per_pass"].items()}
+            for key, run in out["pipeline"].items()}
+    for i, name in enumerate(("upsample_argmax", "comm_fusion", "int8_conv")):
+        by_name[name]["phase19_launches"] = {stage: counts[i] for stage, counts
+                                             in out["learning"]["launches"].items()}
+    shutil.rmtree(legs["work"], ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8-draws", type=int, default=0, metavar="N",
@@ -4441,6 +4693,7 @@ def main() -> int:
     run_phase14(records)
     lap("14_loader")
     drops["before_phase15"] = trace_drops(t0)
+    legs = start_phase19_legs()  # beside phases 15 and 17 (start_phase19_legs)
     run_phase15(records)
     drops["after_phase15"] = trace_drops(t0)
     print("trace_drops " + json.dumps(drops))
@@ -4449,6 +4702,8 @@ def main() -> int:
     lap("15_parallel")
     run_phase17(records)  # takes no trace (module docstring)
     lap("17_parallel_model")
+    run_phase19(records, legs)
+    lap("19_user_runs")
     print("phase_seconds " + json.dumps(seconds))
 
     print(bench._card_line())

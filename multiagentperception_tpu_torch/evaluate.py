@@ -420,10 +420,12 @@ class Evaluator:
             extra_counters=() if swap is None else (swap,),
             keep=() if swap is None else (swap,))
 
-    def _pipelined(self, loader, **step_kw):
+    def _pipelined(self, loader, depth: int = PIPELINE_DEPTH, **step_kw):
         """Yield ``(eval_step result, commun_label)`` per batch, with up to
-        ``PIPELINE_DEPTH`` batches running ahead of the readback. The eval
-        draw stream restarts here, so each pass over a loader draws alike."""
+        ``depth`` batches running ahead of the readback (JAX
+        ``_pipelined_eval``): at 0 each batch is handed over, and read back
+        by the caller, before the next one is dispatched. The eval draw
+        stream restarts here, so each pass over a loader draws alike."""
         self._draws["eval"].manual_seed(self.seed + DRAW_STREAMS["eval"])
         pending: deque = deque()
         first = None  # the loader's batch size: another one (a ragged tail) runs eagerly
@@ -435,7 +437,7 @@ class Evaluator:
             step = self.graph_eval_step if self.graphs and size == first else self.eval_step
             pending.append((step(data_list[0], data_list[1], commun_label, rows=rows,
                                  **step_kw), commun_label))
-            if len(pending) > PIPELINE_DEPTH:
+            if len(pending) > depth:
                 yield pending.popleft()
         while pending:
             yield pending.popleft()

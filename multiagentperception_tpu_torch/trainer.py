@@ -3,6 +3,7 @@
 :397-455, ``_train_multi_step_fn`` :373-395, the input pipeline :639-794,
 ``train``/``_train_loop`` :829-1022, ``_validate``/``_log_val_scores``
 :1024-1065 and the checkpoints :1067-1180; ``nan_guard`` is train.py:198-204).
+Each validation also prints the process's memory (``_memory_line``).
 
 ``Trainer`` extends ``evaluate.Evaluator``: one object trains, validates,
 saves and loads checkpoints and evaluates, as the JAX ``Trainer`` does.
@@ -853,7 +854,21 @@ class Trainer(Evaluator):
                 w.add_scalar(f"val_metrics/cls_{key}", value, i)
         if self.primary:
             self.logger.info("Iter %d Loss: %.4f", i, self._val_loss_avg)
+            line = self._memory_line(i)
+            print(line)
+            self.logger.info(line)
         self._print_scores(rm, bandwidth=False)
+
+    def _memory_line(self, i: int) -> str:
+        """The process's host RSS and, on the card, the device memory its
+        tensors hold and the most they held: a long run's leak shows as a
+        climb from one validation to the next."""
+        line = f"Memory at iter {i}: host RSS {host_rss_gb():.3f} GiB"
+        if self.device.type == "cuda":
+            gib = 1024.0 ** 3
+            line += (f", device allocated {torch.cuda.memory_allocated(self.device) / gib:.3f}"
+                     f" GiB, peak {torch.cuda.max_memory_allocated(self.device) / gib:.3f} GiB")
+        return line
 
     # ------------------------------------------------------------------
     def _save_ckpt(self, name: str, i: int, best_iou: float) -> str:

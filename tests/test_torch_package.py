@@ -48,6 +48,9 @@ def test_importing_the_port_loads_no_jax_module():
         "import multiagentperception_tpu_torch.native\n"
         "import multiagentperception_tpu_torch.bench_train_pipeline\n"
         "import multiagentperception_tpu_torch.validate_dataset\n"
+        "import multiagentperception_tpu_torch.bench_eval_pipeline\n"
+        "import multiagentperception_tpu_torch.prove_learning\n"
+        "import multiagentperception_tpu_torch.run_flagship_512\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -57,6 +60,7 @@ def test_importing_the_port_loads_no_jax_module():
     assert "multiagentperception_tpu_torch.trainer" in loaded
     assert "multiagentperception_tpu_torch.bench" in loaded
     assert "multiagentperception_tpu_torch.quantize" in loaded
+    assert "multiagentperception_tpu_torch.run_flagship_512" in loaded
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS | NOT_IN_CONTRACT]
     assert not bad, f"the port pulled in {bad}"
 
@@ -243,3 +247,18 @@ def test_serving_clis_default_to_the_card(no_card, cli, tmp_path):
             "visualize": ["--config", str(FLAGSHIP), "--model_path", str(tmp_path / "x.pkl")]}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(args[cli])
+
+
+@pytest.mark.parametrize("entry", ["bench_eval_pipeline", "prove_learning", "run_flagship_512"])
+def test_user_runs_default_to_the_card(no_card, entry, tmp_path):
+    """The scripts/ counterparts: each raises before it writes or trains anything."""
+    import importlib
+
+    module = importlib.import_module(f"multiagentperception_tpu_torch.{entry}")
+    run = {"bench_eval_pipeline": lambda: module.main(),
+           "prove_learning": lambda: module.main(iters=1, root=str(tmp_path / "data")),
+           "run_flagship_512": lambda: module.main(["--root", str(tmp_path / "data"),
+                                                    "--workdir", str(tmp_path / "w")])}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run[entry]()
+    assert not list(tmp_path.iterdir())

@@ -45,6 +45,7 @@ from multiagentperception_tpu_torch.models.agents import (
     MIMOcomWho,
     SingleAgent,
 )
+from multiagentperception_tpu_torch.models.attention import AdditiveAttention
 from multiagentperception_tpu_torch.parallel import sync_bn, tensor
 
 MODELS = {
@@ -141,31 +142,56 @@ def _build(cfg: Mapping[str, Any], n_classes: int, layout) -> nn.Module:
                         shared_img_encoder=m["shared_img_encoder"], **comm)
 
 
+# flax's variance_scaling "truncated_normal": a unit normal cut at +-2 has
+# this std, so the draw is divided by it to keep the variance asked for
+TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape: tuple, std: float, gen: torch.Generator) -> torch.Tensor:
+    """A normal of ``std`` cut at two of them, by the inverse CDF of a
+    uniform draw (``jax.random.truncated_normal``'s method; torch 2.11's
+    ``nn.init.trunc_normal_`` draws the same values from the same
+    generator, torch 2.13's samples by rejection, other values 8x slower)."""
+    edge = math.erf(math.sqrt(2.0))  # 2 * Phi(2) - 1
+    out = torch.empty(shape).uniform_(-edge, edge, generator=gen).erfinv_()
+    return out.mul_(std * math.sqrt(2.0)).clamp_(min=-2.0 * std, max=2.0 * std)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded init in the JAX package's distributions: he-normal convs and
-    transposed convs (fan-in over the kernel and the input channels, as
-    flax's kernel (kh, kw, in, out)), xavier-normal linears, zero biases,
-    fresh BatchNorm. Drawn on the CPU from one ``torch.Generator``, so every
-    device gets the same weights; a layer sharded over a model group draws
-    the whole weight and keeps its shard, so the shards are the
-    one-process weights' (``parallel.tensor``)."""
+    """Seeded init in the JAX package's distributions, flax's
+    ``variance_scaling(scale, mode, "truncated_normal")``: each weight is a
+    normal of std ``sqrt(var) / TRUNC_STD`` cut at two of those stds, so
+    ``|w| <= 2 sqrt(var) / TRUNC_STD`` and its std is ``sqrt(var)``. ``var``
+    is he-normal's ``2 / fan_in`` for convs and transposed convs (fan-in
+    over the kernel and the input channels, as flax's kernel (kh, kw, in,
+    out); ``blocks.conv_init``), lecun-normal's ``1 / fan_in`` for
+    AdditiveAttention's three linears (flax's default ``nn.Dense`` init,
+    attention.py:56-58) and xavier-normal's ``2 / (fan_in + fan_out)`` for
+    every other linear. Biases are zero and BatchNorm is fresh. Drawn on the
+    CPU from one ``torch.Generator``, so every device gets the same weights;
+    a layer sharded over a model group draws the whole weight and keeps its
+    shard, so the shards are the one-process weights' (``parallel.tensor``)."""
     gen = torch.Generator().manual_seed(seed)
+    lecun = {lin for mod in model.modules() if isinstance(mod, AdditiveAttention)
+             for lin in (mod.linear_feat, mod.linear_context, mod.linear_out)}
 
-    def draw(mod: nn.Module, std_of) -> None:
+    def draw(mod: nn.Module, var_of) -> None:
         shape = tuple(getattr(mod, "full_weight_shape", mod.weight.shape))
-        full = torch.randn(shape, generator=gen) * std_of(shape)
+        full = _truncated_normal(shape, math.sqrt(var_of(shape)) / TRUNC_STD, gen)
         mod.weight.copy_(mod.take(full) if isinstance(mod, tensor.ColumnParallel) else full)
         if mod.bias is not None:
             mod.bias.zero_()
 
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):  # (out, in, kh, kw)
-            draw(mod, lambda s: math.sqrt(2.0 / math.prod(s[1:])))
-        elif isinstance(mod, nn.Linear):  # (out, in)
-            draw(mod, lambda s: math.sqrt(2.0 / (s[1] + s[0])))
+            draw(mod, lambda s: 2.0 / math.prod(s[1:]))
+        elif isinstance(mod, nn.Linear) and mod in lecun:  # (out, in)
+            draw(mod, lambda s: 1.0 / s[1])
+        elif isinstance(mod, nn.Linear):
+            draw(mod, lambda s: 2.0 / (s[1] + s[0]))
         elif isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw): fan-in over in
-            draw(mod, lambda s: math.sqrt(2.0 / (s[0] * s[2] * s[3])))
+            draw(mod, lambda s: 2.0 / (s[0] * s[2] * s[3]))
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     return model

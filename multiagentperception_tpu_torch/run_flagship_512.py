@@ -183,6 +183,18 @@ def print_report(r: dict, log_path: str) -> None:
     print(f"full CLI log: {log_path}")
 
 
+def run_train_cli(cfg_path: str, workdir: str, device: str) -> int:
+    """The train CLI on ``cfg_path`` as a subprocess run in ``workdir``, its
+    output in ``workdir``/``LOG_NAME``; returns its exit code."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    with open(os.path.join(workdir, LOG_NAME), "w") as log:
+        return subprocess.call(
+            [sys.executable, "-m", "multiagentperception_tpu_torch.train",
+             "--config", cfg_path, "--device", device],
+            stdout=log, stderr=subprocess.STDOUT, cwd=workdir, env=env)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -212,14 +224,8 @@ def main(argv=None) -> int:
     # ---- 3. the train CLI ----
     log_path = os.path.join(args.workdir, LOG_NAME)
     print(f"running the train CLI (log: {log_path}) ...")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
     t0 = time.time()
-    with open(log_path, "w") as log:
-        rc = subprocess.call(
-            [sys.executable, "-m", "multiagentperception_tpu_torch.train",
-             "--config", cfg_path, "--device", device.type],
-            stdout=log, stderr=subprocess.STDOUT, cwd=args.workdir, env=env)
+    rc = run_train_cli(cfg_path, args.workdir, device.type)
     wall = time.time() - t0
     print(f"train CLI exited rc={rc} after {wall / 60:.1f} min")
 
